@@ -1,0 +1,116 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in `htd_tpu_torch/csrc/*.cu` have a plain C interface and no
+PyTorch headers. Each is compiled by its own `nvcc` process (all started
+together) for `sm_90a`, then linked into one shared library that `ctypes`
+loads. The library lands in `htd_tpu_torch/_build/<hash>/`, keyed by a
+hash of the sources and flags, so a checkout builds it at first use and
+reuses it afterwards. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import List, NamedTuple, Tuple
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+class BuildInfo(NamedTuple):
+    """What `build` did: the library, seconds spent, whether it compiled,
+    and nvcc's messages."""
+    path: Path
+    seconds: float
+    built: bool
+    log: str
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: List[List[str]]) -> str:
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(logs)
+
+
+def build() -> BuildInfo:
+    """Compile the kernels unless this exact build exists; return its info."""
+    t0 = time.perf_counter()
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / "libhtd_kernels.so"
+    if lib.exists():
+        return BuildInfo(lib, time.perf_counter() - t0, False, "")
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
+        objs, cmds = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(str(obj))
+            cmds.append([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)])
+        log = _run_all(cmds)
+        tmp_lib = Path(tmp) / lib.name
+        log += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                          "-o", str(tmp_lib), *objs]])
+        out_dir.mkdir(parents=True, exist_ok=True)
+        os.replace(tmp_lib, lib)
+    return BuildInfo(lib, time.perf_counter() - t0, True, log)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32, f32p, i32p = ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p
+    lib.htd_pyramid_pack.argtypes = [vp, vp, i32p, i32p, i32p, i32, i32, i32, i32, i32,
+                                     i32, vp]
+    lib.htd_pyramid_pack.restype = i32
+    lib.htd_roi_align_fwd.argtypes = [vp, f32p, i32p, vp, i32, i32, f32p, i32p, i32p,
+                                      i32p, i32, i32, i32, i32, i32, i32, i32, i32, vp]
+    lib.htd_roi_align_fwd.restype = i32
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> Tuple[ctypes.CDLL, BuildInfo]:
+    """Build (if needed) and load the kernel library, once per process."""
+    info = build()
+    lib = ctypes.CDLL(str(info.path))
+    _declare(lib)
+    return lib, info
