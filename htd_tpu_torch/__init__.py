@@ -6,4 +6,5 @@ The port of `htd_tpu` (JAX, TPU). It imports neither JAX nor anything of
 """
 
 from htd_tpu_torch.apis import inference_detector, init_detector  # noqa: F401
-from htd_tpu_torch.config import htd_r50_1x  # noqa: F401
+from htd_tpu_torch.config import (htd_r50_1x, htd_r101_2x, htd_r101_dcn_2x,  # noqa: F401
+                                   htd_x101_dcn_2x)

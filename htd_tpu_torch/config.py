@@ -138,9 +138,11 @@ class RoIExtractorConfig:
     out_size: int = 7
     sampling_ratio: int = 0              # 0 = adaptive (mmcv semantics)
     max_samples: int = 4                 # static clamp of the adaptive grid
-    # Selects the JAX package's RoIAlign implementation; kept so that the
-    # two configs stay field-for-field equal. The port has one RoIAlign:
-    # its CUDA kernel on CUDA tensors, its plain version on CPU tensors.
+    # Selects the JAX package's RoIAlign implementation (auto, pallas,
+    # pallas_v3, pallas_v4 or gather); kept so that the two configs stay
+    # field-for-field equal. The port maps every name onto its one
+    # RoIAlign (the CUDA kernel on CUDA tensors, its plain version on CPU
+    # tensors) and rejects any other name.
     impl: str = "auto"
     # The BA extractor aligns every roi on every level. The roi's OWN level
     # reuses the exact SingleRoIExtractor features (computed anyway by the

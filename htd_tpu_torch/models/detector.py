@@ -10,6 +10,7 @@ padded `Detections`. Internally the convolutions run NCHW in
 
 The packed pyramid (kernel K1) is built once per forward and shared by
 stage 0, stage 1 and the BA extractor (kernel K2 reads it three times).
+In the DCN presets the backbone's deformable convs run kernel K3.
 Each layer of the forward runs inside a `record_function` span named
 `htd.<layer>`, which a `torch.profiler` trace reports with its host and
 device time.
@@ -66,11 +67,9 @@ class HTDDetector(nn.Module):
     def __init__(self, cfg: HTDConfig):
         super().__init__()
         bb = cfg.backbone
-        if bb.groups != 1 or any(bb.stage_with_dcn):
-            raise NotImplementedError(
-                "ResNeXt and DCN backbones are not ported yet; see ROADMAP.md")
         self.cfg = cfg
-        self.backbone = ResNet(bb.depth, bb.out_indices, bb.base_planes)
+        self.backbone = ResNet(bb.depth, bb.out_indices, bb.base_planes, bb.stage_with_dcn,
+                               bb.groups, bb.base_width, bb.dcn_deform_groups)
         self.neck = FPN(cfg.fpn.in_channels, cfg.fpn.out_channels, cfg.fpn.num_outs)
         a = cfg.rpn.anchor
         self.anchor_gen = AnchorGenerator(strides=a.strides, ratios=a.ratios,

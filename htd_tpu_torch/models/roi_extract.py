@@ -27,9 +27,18 @@ from htd_tpu_torch.ops.pyramid import Pyramid
 from htd_tpu_torch.ops.roi_align import roi_align_levels, roi_align_pyramid
 
 
+# the JAX package's RoIAlign implementations (`htd_tpu/models/roi_extract.py`):
+# each computes the same function, so every name maps onto the one RoIAlign
+# here, K2 on CUDA tensors and its plain version on CPU tensors
+ROI_ALIGN_IMPLS = ("auto", "pallas", "pallas_v3", "pallas_v4", "gather")
+
+
 def single_roi_extract_batched(pyr: Pyramid, rois: torch.Tensor,
                                cfg: RoIExtractorConfig) -> torch.Tensor:
     """Level-mapped RoIAlign: rois (B, R, 4) -> (B, R, 7, 7, C)."""
+    if cfg.impl not in ROI_ALIGN_IMPLS:
+        raise ValueError(f"unknown roi extractor impl {cfg.impl!r}; expected one of "
+                         f"{'/'.join(ROI_ALIGN_IMPLS)}")
     lvls = map_roi_levels(rois, len(cfg.featmap_strides), cfg.finest_scale)
     return roi_align_pyramid(pyr, rois, lvls, cfg.featmap_strides, cfg.out_size,
                              cfg.sampling_ratio, cfg.max_samples)

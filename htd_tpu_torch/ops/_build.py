@@ -105,6 +105,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.htd_roi_align_fwd.argtypes = [vp, f32p, i32p, vp, i32, i32, f32p, i32p, i32p,
                                       i32p, i32, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.htd_roi_align_fwd.restype = i32
+    lib.htd_deform_conv_fwd.argtypes = [vp, vp, vp, vp] + [i32] * 12 + [vp]
+    lib.htd_deform_conv_fwd.restype = i32
 
 
 @functools.lru_cache(maxsize=None)

@@ -14,6 +14,10 @@ value at i depends only on earlier boxes, so it is fixed once they are).
 Iterating from `keep = valid` reaches it in as many steps as the longest
 chain of suppressions; convergence is checked every few steps, which is
 the only host synchronisation.
+
+`soft_nms` (linear decay, the R-101 and DCN test configs) runs its
+`max_out` rounds on the device with no host synchronisation: each round
+is a fixed handful of tensor ops, so its cost is host dispatch.
 """
 
 from __future__ import annotations
@@ -77,6 +81,40 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     return torch.where(keep_valid, keep_idx, 0), keep_score, keep_valid
 
 
+def soft_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+             min_score: float, max_out: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Linear soft-NMS (mmcv semantics; the JAX package's `soft_nms` with
+    `method="linear"`). Scores below `min_score` start dead; each of the
+    `max_out` rounds emits the highest live score (first index on ties),
+    multiplies the scores of live boxes whose IoU with it exceeds
+    `iou_threshold` by (1 - IoU), and kills those that fall below
+    `min_score`. Same return contract as `nms`, in emission order."""
+    boxes = boxes.to(torch.float32)
+    live = scores.to(torch.float32)
+    live = torch.where(live < min_score, torch.full_like(live, NEG_INF), live)
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    idx, val = [], []
+    for _ in range(max_out):
+        j = torch.argmax(live, dim=0, keepdim=True)         # (1,), first max
+        s = live.gather(0, j)
+        box = boxes.index_select(0, j)                      # (1, 4)
+        lt = torch.maximum(box[:, :2], boxes[:, :2])
+        rb = torch.minimum(box[:, 2:], boxes[:, 2:])
+        wh = (rb - lt).clamp(min=0)
+        inter = wh[:, 0] * wh[:, 1]
+        union = (area.index_select(0, j) + area - inter).clamp(min=1e-6)
+        iou = inter / union
+        decay = torch.where(iou > iou_threshold, 1.0 - iou, torch.ones_like(iou))
+        new = live * decay
+        new = torch.where(new < min_score, torch.full_like(new, NEG_INF), new)
+        live = torch.where(s > NEG_INF, new, live).scatter(0, j, NEG_INF)
+        idx.append(j)
+        val.append(s)
+    keep_score = torch.cat(val)
+    keep_valid = keep_score > NEG_INF
+    return torch.where(keep_valid, torch.cat(idx), 0), keep_score, keep_valid
+
+
 def _offset_by_ids(boxes, scores, ids):
     finite = torch.isfinite(scores)[:, None]
     max_coord = torch.where(finite, boxes, torch.zeros_like(boxes)).max()
@@ -96,12 +134,11 @@ def multiclass_nms(boxes, scores, score_thr: float, iou_threshold: float,
 
     boxes (N, 4); scores (N, C+1) with the background column last.
     Candidates are the top `candidate_cap` (roi, class) scores above
-    `score_thr`, ties by flat index. Returns det_boxes (max_per_img, 4),
-    det_scores, det_labels (int32) and det_valid, zero-padded.
+    `score_thr`, ties by flat index. Class-offset hard NMS, or with
+    `use_soft_nms` linear soft-NMS down to `soft_min_score`. Returns
+    det_boxes (max_per_img, 4), det_scores, det_labels (int32) and
+    det_valid, zero-padded.
     """
-    if use_soft_nms:
-        raise NotImplementedError(
-            "soft-NMS (the R-101 test cfg) is not ported yet; see ROADMAP.md")
     n, c1 = scores.shape
     num_classes = c1 - 1
     flat = scores[:, :num_classes].reshape(-1).to(torch.float32)
@@ -112,8 +149,13 @@ def multiclass_nms(boxes, scores, score_thr: float, iou_threshold: float,
     roi_idx = torch.div(top_idx, num_classes, rounding_mode="floor")
     cls_idx = (top_idx % num_classes).to(torch.int32)
     cand_boxes = boxes[roi_idx]
-    keep, keep_score, keep_valid = batched_nms(
-        cand_boxes, top_scores, cls_idx, iou_threshold, max_per_img)
+    if use_soft_nms:
+        keep, keep_score, keep_valid = soft_nms(
+            _offset_by_ids(cand_boxes, top_scores, cls_idx), top_scores, iou_threshold,
+            soft_min_score, max_per_img)
+    else:
+        keep, keep_score, keep_valid = batched_nms(
+            cand_boxes, top_scores, cls_idx, iou_threshold, max_per_img)
     det_boxes = torch.where(keep_valid[:, None], cand_boxes[keep], 0.0)
     det_scores = torch.where(keep_valid, keep_score, 0.0)
     det_labels = torch.where(keep_valid, cls_idx[keep], 0)

@@ -20,8 +20,9 @@ import torch
 
 from htd_tpu_torch.ops.pyramid import Pyramid, PyramidGeometry
 
-# kernel name -> launches since the last reset
-launch_counts: Dict[str, int] = {"pyramid_pack": 0, "roi_align": 0}
+# kernel name -> launches since the last reset (K3's launcher, in
+# `ops/dcn_cuda.py`, counts here too)
+launch_counts: Dict[str, int] = {"pyramid_pack": 0, "roi_align": 0, "deform_conv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -3,7 +3,9 @@ state dict, and seeded random initialisation.
 
 `state_dict_from_flax` inverts the JAX package's
 `convert_mmdet_state_dict` (`htd_tpu/train/checkpoint.py`): HWIO conv
-kernels become OIHW, `(I, O)` dense kernels become `(O, I)`, the two
+kernels become OIHW (grouped (3, 3, Cin/g, Cout) kernels, DCN or not,
+become (Cout, Cin/g, 3, 3)), a DCN conv2's `conv_offset` becomes
+`conv2.conv_offset`, `(I, O)` dense kernels become `(O, I)`, the two
 flatten-consuming FCs go back from an HWC to a CHW input flatten, and
 `batch_stats` become `running_mean` / `running_var`. It takes a
 `{'params', 'batch_stats'}` tree of numpy arrays and needs no JAX.
@@ -22,6 +24,7 @@ import torch.nn as nn
 from htd_tpu_torch.config import HTDConfig
 from htd_tpu_torch.models.layers import FrozenBatchNorm2d
 from htd_tpu_torch.models.resnet import ARCH_BLOCKS
+from htd_tpu_torch.ops.dcn import DeformConv2d
 
 
 def _t(a) -> torch.Tensor:
@@ -48,8 +51,6 @@ def _fc_hwc_to_chw(k, c: int, h: int, w: int) -> torch.Tensor:
 def state_dict_from_flax(variables: Dict[str, Any], cfg: HTDConfig) -> "OrderedDict[str, torch.Tensor]":
     """The JAX package's `{'params', 'batch_stats'}` tree -> the port's
     (mmdet-named) state dict."""
-    if cfg.backbone.groups != 1 or any(cfg.backbone.stage_with_dcn):
-        raise NotImplementedError("ResNeXt and DCN backbones are not ported yet")
     p, st = variables["params"], variables.get("batch_stats", {})
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
 
@@ -79,6 +80,8 @@ def state_dict_from_flax(variables: Dict[str, Any], cfg: HTDConfig) -> "OrderedD
             for j in (1, 2, 3):
                 conv(f"{tp}.conv{j}", bp[fp][f"conv{j}"])
                 bn(f"{tp}.bn{j}", bp[fp][f"bn{j}"], bs[fp][f"bn{j}"])
+            if "conv_offset" in bp[fp]["conv2"]:
+                conv(f"{tp}.conv2.conv_offset", bp[fp]["conv2"]["conv_offset"])
             if i == 0:
                 conv(f"{tp}.downsample.0", bp[fp]["downsample_conv"])
                 bn(f"{tp}.downsample.1", bp[fp]["downsample_bn"], bs[fp]["downsample_bn"])
@@ -139,12 +142,21 @@ def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
     box regressors normal(0.001), zero biases; frozen BN and GroupNorm at
     identity, except each bottleneck's last BN scale at zero (mmdet's
     `zero_init_residual`), which keeps random activations from growing
-    block by block."""
+    block by block. A deformable conv's weight is drawn like a conv's;
+    its `conv_offset` starts at zero, as mmcv's does, so an untrained DCN
+    samples at its taps."""
     g = torch.Generator().manual_seed(seed)
     for name, m in model.named_modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "conv_offset":
+            m.weight.zero_()
+            m.bias.zero_()
+        elif isinstance(m, DeformConv2d):
+            fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
+            m.weight.copy_(torch.empty(m.weight.shape).normal_(
+                0.0, math.sqrt(2.0 / fan_out), generator=g))
+        elif isinstance(m, (nn.Conv2d, nn.Linear)):
             w = torch.empty(m.weight.shape)
-            leaf = name.rsplit(".", 1)[-1]
             if leaf in ("rpn_conv", "rpn_cls", "rpn_reg", "fc_cls") or name.endswith("glbctx_head.fc"):
                 w.normal_(0.0, 0.01, generator=g)
             elif leaf == "fc_reg":

@@ -9,6 +9,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from htd_tpu import config as JC
 from htd_tpu.models.fpn import FPN as JFPN
 from htd_tpu.models.resnet import ResNet as JResNet
 from htd_tpu.models.rpn import RPNHead as JRPNHead, gen_proposals as j_gen_proposals
@@ -44,6 +45,28 @@ def _close(ours_nhwc, ref_nhwc, tol):
 def test_resnet_matches(pair):
     """C2-C5 within 1e-4 relative (float32, different conv summation)."""
     _, _, _, (jc, _), (pc, _) = pair
+    for a, b in zip(pc, jc):
+        _close(a, b, 1e-4)
+
+
+DCN = (False, True, True, True)
+
+
+@pytest.mark.parametrize("groups", [1, 8], ids=["resnet_dcn", "resnext_dcn"])
+def test_dcn_resnet_matches(groups):
+    """Depth 10 with deformable conv2 in stages 2-4 (the R-101-DCN layout)
+    and its ResNeXt form (8 groups, as X-101-DCN's 64): C2-C5 within 1e-4
+    relative (float32). The offset convs carry seeded non-zero weights, so
+    samples leave their taps."""
+    bb = JC.BackboneConfig(depth=10, stage_with_dcn=DCN, groups=groups)
+    _, _, variables, port = tiny_pair(seed=3, backbone=bb)
+    img = np.random.RandomState(4).normal(0, 1, (1, 64, 96, 3)).astype(np.float32)
+    p, bs = variables["params"], variables["batch_stats"]
+    jc = jax.jit(JResNet(depth=10, stage_with_dcn=DCN, groups=groups).apply)(
+        {"params": p["backbone"], "batch_stats": bs["backbone"]}, jnp.asarray(img))
+    assert "conv_offset" in p["backbone"]["layer2_0"]["conv2"]
+    with torch.no_grad():
+        pc = [c.permute(0, 2, 3, 1) for c in port.backbone(t(img).permute(0, 3, 1, 2))]
     for a, b in zip(pc, jc):
         _close(a, b, 1e-4)
 

@@ -120,6 +120,59 @@ def test_multiclass_nms_matches(rng):
             np.testing.assert_array_equal(pa.numpy(), np.asarray(ja))
 
 
+@pytest.mark.parametrize("n", [40, 300])
+def test_soft_nms_matches_with_ties(rng, n):
+    """Linear soft-NMS over overlapping boxes with tied and absent scores:
+    identical indices and validity, scores within 1e-6."""
+    boxes = _boxes(rng, n, span=80)
+    scores = _tied_scores(rng, n)
+    pk, ps, pv = pnms.soft_nms(t(boxes), t(scores), 0.3, 0.05, 60)
+    jk, js, jv = jax.jit(lambda b, s: jnms.soft_nms(b, s, iou_threshold=0.3, min_score=0.05,
+                                                   method="linear", max_out=60))(
+        jnp.asarray(boxes), jnp.asarray(scores))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    assert pv.sum() > 0
+    np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
+    np.testing.assert_allclose(ps.numpy(), np.asarray(js), rtol=0, atol=1e-6)
+
+
+def test_multiclass_soft_nms_matches(rng):
+    """multiclass_nms(use_soft_nms=True) with tied scores and the candidate
+    cap: the same labels, validity and boxes, scores within 1e-6."""
+    n, c = 60, 5
+    boxes = _boxes(rng, n, span=100)
+    scores = np.round(rng.uniform(0, 0.5, (n, c + 1)), 2).astype(np.float32)
+    for cap in (2048, 50):
+        p = pnms.multiclass_nms(t(boxes), t(scores), 0.05, 0.5, 30, candidate_cap=cap,
+                                use_soft_nms=True, soft_min_score=0.05)
+        j = jax.jit(lambda b, s: jnms.multiclass_nms(b, s, 0.05, 0.5, 30, candidate_cap=cap,
+                                                    use_soft_nms=True,
+                                                    soft_min_score=0.05))(
+            jnp.asarray(boxes), jnp.asarray(scores))
+        for k in (0, 2, 3):
+            np.testing.assert_array_equal(p[k].numpy(), np.asarray(j[k]))
+        np.testing.assert_allclose(p[1].numpy(), np.asarray(j[1]), rtol=0, atol=1e-6)
+
+
+def test_roi_extractor_impl_names(rng):
+    """Every RoIAlign implementation name of the JAX package gives the same
+    output (one RoIAlign in the port); any other name raises, as in
+    `htd_tpu/models/roi_extract.py`."""
+    from htd_tpu_torch.models.roi_extract import single_roi_extract_batched
+    from htd_tpu_torch.ops.pyramid import pack_pyramid
+
+    feats = [t(rng.normal(0, 1, (1, 32 >> i, 48 >> i, 8)).astype(np.float32))
+             for i in range(4)]
+    pyr = pack_pyramid(feats)
+    rois = t(_boxes(rng, 12, span=120, size=(4.0, 90.0))[None])
+    outs = [single_roi_extract_batched(pyr, rois, PC.RoIExtractorConfig(impl=name))
+            for name in ("auto", "pallas", "pallas_v3", "pallas_v4", "gather")]
+    for o in outs[1:]:
+        np.testing.assert_array_equal(o.numpy(), outs[0].numpy())
+    with pytest.raises(ValueError, match="unknown roi extractor impl"):
+        single_roi_extract_batched(pyr, rois, PC.RoIExtractorConfig(impl="window"))
+
+
 @pytest.mark.parametrize("hw", [(480, 640), (333, 500), (800, 600)])
 def test_preprocess_matches(rng, hw):
     """Resize + normalize + pad: shapes, scale factors and the bucket agree

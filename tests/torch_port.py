@@ -49,15 +49,18 @@ def _fill(path, shape, rng):
 
 
 @functools.lru_cache(maxsize=None)
-def _tiny_variables(seed):
-    """The JAX detector's variable tree on the tiny config (structure from
-    its own `init`, traced only), filled from a numpy seed: drawing ~40M
-    values with JAX's CPU generator would dominate the test time."""
+def _tiny_variables(seed, overrides=()):
+    """The JAX detector's variable tree on `tiny_config(**dict(overrides))`
+    (structure from its own `init`, traced only), filled from a numpy seed:
+    drawing ~40M values with JAX's CPU generator would dominate the test
+    time. A DCN conv's `conv_offset` is filled like any conv, so its
+    offsets come out non-zero (std 0.4-0.7 px on the tiny DCN detector,
+    4-15% of them beyond 1 px)."""
     def touch_all(m, images, shapes, rois, valid):
         # every module, without tracing the NMS loops
         return m.rpn_head(m.extract_feats(images)), m.stages_forward(images, shapes, rois, valid)
 
-    model = JaxDetector(tiny_config())
+    model = JaxDetector(tiny_config(**dict(overrides)))
     shapes = jax.eval_shape(lambda r: model.init(
         {"params": r}, jnp.zeros((1, 64, 96, 3)), jnp.asarray([[64.0, 96.0]]),
         jnp.zeros((1, 4, 4)), jnp.ones((1, 4), bool), method=touch_all),
@@ -71,7 +74,8 @@ def tiny_pair(seed=0, **overrides):
     """(jax cfg, jax model, numpy variables, port model) for the tiny
     config at float32; the port runs on the CPU."""
     cfg = tiny_config(**overrides)
-    variables = jax.tree_util.tree_map(np.array, _tiny_variables(seed))
+    variables = jax.tree_util.tree_map(
+        np.array, _tiny_variables(seed, tuple(sorted(overrides.items()))))
     port = PortDetector(port_config(cfg))
     port.load_state_dict(state_dict_from_flax(variables, port.cfg))
     return cfg, JaxDetector(cfg), variables, port.eval()
