@@ -28,7 +28,22 @@ script exits non-zero without its final line:
      on grouped convs held to its plain version;
  11. R-101-DCN timings: warm per-image latency, K3 per launch and per image
      beside its bound, its plain version and cuDNN's regular conv of the
-     same shapes (context only), a device-time profile of one request.
+     same shapes (context only), a device-time profile of one request;
+ 12. main path: HTD R-50 training (full depth and width, bfloat16 under
+     autocast, float32 parameters, random weights from a seed) through
+     `create_train_state` / `train_step` on a batch of 2 synthetic images
+     in the 800x1344 bucket with seeded gts: finite losses, stem and layer1
+     bit-unchanged, layer2+ and the heads updated, K1 1, K2 3 and K4 3
+     launches per step;
+ 13. K4 held to its plain version on a training step's own pyramid,
+     sampled rois and cotangents (stage 0, stage 1, the BA pass), in
+     bfloat16 and float32, run twice for its run-to-run spread;
+ 14. reference: one float32 train step on the card against the CPU on a
+     small batch with injected samples (loss terms, the gradient of every
+     parameter, the parameters after the SGD step);
+ 15. training timings: median and p90 per step, images/s, K4 per call and
+     per step beside its bound and its plain version, a device-time
+     profile of one step.
 It needs CUDA: with no GPU, or run outside the repository, it fails.
 """
 
@@ -55,6 +70,15 @@ TIMED_REQUESTS = 20
 OFFSET_PX = 2.0
 TPU_FB_CAP = 128           # the TPU kernel's exactly corrected pixels per image and conv
 DCN_CHECKED = ("layer2.0", "layer2.1", "layer3.0", "layer3.1", "layer4.0", "layer4.1")
+TRAIN_STEPS = 3            # phase 12's counted main-path steps
+TIMED_STEPS = 10           # phase 15's warm steps
+TRAIN_BUCKET = (800, 1344)
+TRAIN_IMG_SHAPES = [(800, 1333), (750, 1344)]
+# seeded gts of the training batch: (x1, y1, w, h) in px, several scales
+TRAIN_GTS = [[(100, 80, 420, 380), (600, 150, 160, 220), (900, 500, 60, 45),
+              (300, 600, 90, 110), (1100, 100, 200, 600), (40, 700, 28, 36)],
+             [(50, 50, 700, 500), (800, 300, 300, 250), (400, 620, 48, 64),
+              (1200, 650, 100, 80), (700, 100, 32, 24)]]
 
 
 def phase(name: str) -> None:
@@ -539,7 +563,367 @@ def dcn_phases(imgs, card):
             "library_ms": None}
 
 
-def main() -> None:
+def train_batch(cfg, seed: int = 0):
+    """Two normalized synthetic images in the 800x1344 bucket with the
+    seeded TRAIN_GTS (labels from `seed`), padded to `max_gt`."""
+    from htd_tpu_torch.train.train_step import TrainBatch
+
+    rng = np.random.RandomState(seed)
+    g = cfg.train.max_gt
+    boxes = np.zeros((2, g, 4), np.float32)
+    valid = np.zeros((2, g), bool)
+    for i, gts in enumerate(TRAIN_GTS):
+        for k, (x, y, w, h) in enumerate(gts):
+            boxes[i, k] = [x, y, x + w, y + h]
+            valid[i, k] = True
+    return TrainBatch(torch.from_numpy(rng.normal(0, 1, (2,) + TRAIN_BUCKET + (3,))
+                                       .astype(np.float32)),
+                      torch.tensor(TRAIN_IMG_SHAPES, dtype=torch.float32),
+                      torch.from_numpy(boxes),
+                      torch.from_numpy(rng.randint(0, cfg.num_classes, (2, g)).astype(np.int32)),
+                      torch.from_numpy(valid))
+
+
+def record_roi_align_calls(state, batch, gen):
+    """One train step with K2's and K4's launchers wrapped (each still
+    launches its kernel once per call): the forward calls' rois in order
+    (stage 0, stage 1, BA) and each K4 call's arguments, labelled by the
+    forward call it differentiates."""
+    from htd_tpu_torch.ops import roi_align_cuda as rac
+    from htd_tpu_torch.train.train_step import train_step
+
+    fwd, bwd = [], []
+    orig_fwd, orig_bwd = rac.launch_roi_align, rac.launch_roi_align_bwd
+
+    def rec_fwd(pyr, rois, *args):
+        fwd.append(rois.clone())
+        return orig_fwd(pyr, rois, *args)
+
+    def rec_bwd(geom, rois, lvls, g, *args):
+        bwd.append((geom, rois.clone(), None if lvls is None else lvls.clone(), g.clone(), args))
+        return orig_bwd(geom, rois, lvls, g, *args)
+
+    rac.launch_roi_align, rac.launch_roi_align_bwd = rec_fwd, rec_bwd
+    try:
+        train_step(state, batch, gen)
+    finally:
+        rac.launch_roi_align, rac.launch_roi_align_bwd = orig_fwd, orig_bwd
+    names = ["stage-0 level-mapped", "stage-1 level-mapped", "BA all-level"]
+    labelled = {}
+    for call in bwd:
+        k = next(i for i, r in enumerate(fwd) if r.shape == call[1].shape and torch.equal(r, call[1])
+                 and (call[2] is None) == (i == 2))
+        labelled[names[k]] = call
+    if sorted(labelled) != sorted(names):
+        fail(f"expected one K4 call per K2 call, got {sorted(labelled)}")
+    return [(name, labelled[name]) for name in names]
+
+
+def k4_work(geom, rois, lvls, g, strides, s):
+    """(bytes, operations, 16-byte atomics) of one K4 call on this data: g
+    and the rois read once, the float32 buffer zeroed, and each distinct
+    pixel that a non-zero-weight corner of a bin with a non-zero cotangent
+    touches read and written once in float32; one multiply and one add per
+    channel of each such corner, one vector atomic per 4 channels."""
+    from htd_tpu_torch.ops.roi_align import _level_tables, _sample_geometry
+
+    b, r = rois.shape[:2]
+    n, c = b * r, geom.channels
+    dev = rois.device
+    flat = rois.reshape(n, 4).float()
+    scale_t, hs, ws, offs = _level_tables(geom, strides, dev)
+    img = torch.arange(b, device=dev).repeat_interleave(r)
+    pixels, corners = [], 0
+    for q in (range(len(strides)) if lvls is None else [None]):
+        lv = torch.full((n,), q, device=dev) if q is not None else lvls.reshape(n).long()
+        gq = (g[q] if q is not None else g).reshape(n, 7, 7, c)
+        live_bin = (gq != 0).any(-1)[:, :, :, None, None]
+        (xl, xh, lx, hx, mx, xin, yl, yh, ly, hy, my, yin, _, _) = _sample_geometry(
+            flat, scale_t[lv], hs[lv], ws[lv], 7, 0, s)
+        base = (img * geom.img_rows + offs[lv])[:, None, None, None, None]
+        live = (my & yin)[:, :, None, :, None] & (mx & xin)[:, None, :, None, :] & live_bin
+        for yi, wy in ((yl, hy), (yh, ly)):
+            for xi, wx in ((xl, hx), (xh, lx)):
+                keep = live & (wy[:, :, None, :, None] * wx[:, None, :, None, :] > 0)
+                pix = (base + yi[:, :, None, :, None]) * geom.w_pad + xi[:, None, :, None, :]
+                pixels.append(pix[keep])
+                corners += int(keep.sum())
+    distinct = int(torch.unique(torch.cat(pixels)).numel())
+    nbytes = (g.numel() * g.element_size() + geom.rows_pad * geom.w_pad * c * 4
+              + distinct * c * 4 * 2 + n * 16 + (0 if lvls is None else n * 4))
+    return nbytes, 2 * corners * c, corners * c // 4, distinct
+
+
+def injected_overrides(cfg, n_anchors: int, img_shape, seed: int = 0):
+    """Seeded samples for `forward_train`'s `overrides` hook on a batch of
+    2 with 3 gts per image: RPN anchors, proposals and both stages' blocks
+    (gts and a few candidates positive, then negatives)."""
+    rng = np.random.RandomState(seed)
+    tc = cfg.train
+    h, w = img_shape
+    ov = {"rpn_keep_pos": np.zeros((2, n_anchors), bool),
+          "rpn_keep_neg": np.zeros((2, n_anchors), bool),
+          "rpn_matched_gt": rng.randint(0, 3, (2, n_anchors)).astype(np.int32)}
+    for i in range(2):
+        perm = rng.permutation(n_anchors)
+        ov["rpn_keep_pos"][i, perm[:40]] = True
+        ov["rpn_keep_neg"][i, perm[40:200]] = True
+    n_prop = tc.rpn_proposal.nms_post
+    wh = rng.uniform(8, [w * 0.7, h * 0.7], (2, n_prop, 2))
+    xy = rng.uniform(0, 1, (2, n_prop, 2)) * ([w, h] - wh)
+    ov["proposals"] = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    ov["proposal_valid"] = np.ones((2, n_prop), bool)
+    num = tc.rcnn[0].sampler.num
+    for s, n_cand in (("s0", n_prop), ("s1", num)):
+        blk = {k: np.zeros((2, num), d) for k, d in (("idx", np.int32), ("valid", bool),
+                                                     ("is_pos", bool), ("is_gt", bool),
+                                                     ("gt_inds", np.int32))}
+        for i in range(2):
+            cand = rng.permutation(n_cand)[:num // 2] + tc.max_gt
+            pos = [0, 1, 2] + list(cand[:5])
+            rows = pos + list(cand[5:])
+            blk["idx"][i, :len(rows)] = rows
+            blk["valid"][i, :len(rows)] = True
+            blk["is_pos"][i, :len(pos)] = True
+            blk["is_gt"][i, :3] = True
+            blk["gt_inds"][i, :len(pos)] = [0, 1, 2] + list(rng.randint(0, 3, 5))
+        for k, v in blk.items():
+            ov[f"{s}_{k}"] = v
+    return {k: torch.from_numpy(v) for k, v in ov.items()}
+
+
+def train_card_vs_cpu() -> None:
+    """One float32 train step (TF32 off) of R-50 at full depth and width on
+    the card and on the CPU, the same seeded weights, a 2 x 192x288 batch
+    and the same injected samples; sampler blocks cut to 128 rois so that
+    the CPU step stays short."""
+    import dataclasses
+
+    from htd_tpu_torch import htd_r50_1x
+    from htd_tpu_torch.config import ProposalConfig, SamplerConfig
+    from htd_tpu_torch.train.train_step import TrainBatch, create_train_state, train_step
+
+    base = htd_r50_1x()
+    tc = dataclasses.replace(
+        base.train, rpn_proposal=ProposalConfig(300, 300, 300), rcnn_pos_cap=32,
+        rcnn=tuple(dataclasses.replace(st, sampler=SamplerConfig(128, 0.25, True))
+                   for st in base.train.rcnn))
+    cfg = base.replace(train=tc)
+    rng = np.random.RandomState(3)
+    h, w = 192, 288
+    boxes = np.zeros((2, tc.max_gt, 4), np.float32)
+    boxes[:, :3] = [[10, 12, 70, 90], [120, 40, 250, 170], [200, 140, 236, 180]]
+    valid = np.zeros((2, tc.max_gt), bool)
+    valid[:, :3] = True
+    batch = TrainBatch(torch.from_numpy(rng.normal(0, 1, (2, h, w, 3)).astype(np.float32)),
+                       torch.tensor([[h, w], [180.0, 270.0]]), torch.from_numpy(boxes),
+                       torch.from_numpy(rng.randint(0, 80, (2, tc.max_gt)).astype(np.int32)),
+                       torch.from_numpy(valid))
+    cells = sum(-(-h // st) * -(-w // st) for st in (4, 8, 16, 32)) + -(-h // 64) * -(-w // 64)
+    ov = injected_overrides(cfg, 3 * cells, (h, w))
+    results = []
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(cfg, device=dev, seed=0)
+        before = {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}
+        metrics = train_step(state, batch, overrides=ov)
+        grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()
+                 if p.grad is not None}
+        after = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+        results.append(({k: float(v) for k, v in metrics.items()}, grads, after))
+        del state
+    (mg, gg, pg), (mc, gc, pc) = results
+    loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc)
+    if set(gg) != set(gc) or not gg:
+        fail("the card and the CPU trained different parameters")
+
+    def worst(a, b, refs, slack):
+        """Largest leaf error beyond `slack`, relative to the leaf's largest
+        reference value (floored at 1e-4 of the largest over all leaves)."""
+        scale = max(float(v.abs().max()) for v in refs.values())
+        errs = {n: float(((a[n] - b[n]).abs() - slack(b[n])).clamp(min=0).max())
+                / max(float(refs[n].abs().max()), 1e-4 * scale) for n in refs}
+        name = max(errs, key=errs.get)
+        return errs[name], name
+
+    g_err, g_name = worst(gg, gc, gc, torch.zeros_like)
+    # a parameter moves by about 1e-6 of itself in one step, so the updated
+    # values are compared beyond two float32 ulps of the parameter, relative
+    # to the update
+    ulps = lambda v: 2 * (torch.nextafter(v.abs(), torch.tensor(math.inf)) - v.abs())
+    steps = {n: pc[n] - before[n] for n in gc}
+    d_err, d_name = worst(pg, pc, steps, ulps)
+    print(f"float32 train step, card vs CPU, 2 x {h}x{w}, injected samples: loss terms max rel "
+          f"err {loss_err:.3g} (limit 1e-4; total {mc['loss']:.5f}); gradients of {len(gc)} "
+          f"parameters max err {g_err:.3g} relative to the leaf's max |grad| ({g_name}; limit "
+          f"1e-3); parameters after the SGD step: max difference beyond two float32 ulps "
+          f"{d_err:.3g} of the leaf's largest update ({d_name}; limit 1e-3)")
+    if not (loss_err <= 1e-4 and g_err <= 1e-3 and d_err <= 1e-3):
+        fail("the card's float32 train step disagrees with the CPU's")
+
+
+def profile_step(state, batch, gen) -> None:
+    """Device busy share, host and device time per `htd.*` forward span, and
+    the largest device entries of one profiled train step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from htd_tpu_torch.train.train_step import train_step
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.key.startswith("htd.")]
+    dev_us = sum(e.self_device_time_total for e in on_device)
+    print(f"profiled train step: wall {wall:.2f} ms, device busy {dev_us / 1e3:.2f} ms "
+          f"({100 * dev_us / 1e3 / wall:.1f}% of the wall time; profiling inflates the host side)")
+    spans = {}
+    for e in events:
+        if e.key.startswith("htd."):
+            host, dev = spans.get(e.key, (0.0, 0.0))
+            spans[e.key] = (host + e.cpu_time_total, dev + e.device_time_total)
+    for key, (host, dev) in spans.items():
+        print(f"  forward span {key[4:]:<14s} host {host / 1e3:7.2f} ms, device range "
+              f"{dev / 1e3:7.2f} ms")
+    print(f"  forward spans together: host {sum(h for h, _ in spans.values()) / 1e3:.2f} ms; "
+          f"the rest of the wall is the backward, the SGD step and the loss sum")
+    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
+def train_phases(card):
+    """Phases 12-15 (R-50 training); returns K4's kernel record."""
+    from htd_tpu_torch import htd_r50_1x
+    from htd_tpu_torch.ops.roi_align import roi_align_backward_plain
+    from htd_tpu_torch.ops.roi_align_cuda import (launch_counts, launch_roi_align_bwd,
+                                                  reset_launch_counts)
+    from htd_tpu_torch.train.optim import frozen_prefixes
+    from htd_tpu_torch.train.train_step import create_train_state, train_step
+
+    phase("12 main path: HTD R-50 training, bfloat16, batch 2 in the 800x1344 bucket")
+    cfg = htd_r50_1x(compute_dtype="bfloat16")
+    state = create_train_state(cfg, seed=0)
+    model = state.model
+    batch = train_batch(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tc = cfg.train
+    print(f"create_train_state(htd_r50_1x(compute_dtype='bfloat16'), seed=0): RPN "
+          f"{tc.rpn_sampler.num} anchors per image, {tc.rcnn[0].sampler.num} rois per stage "
+          f"per image, rcnn_pos_cap {tc.rcnn_pos_cap}, rpn_proposal "
+          f"{tc.rpn_proposal.nms_pre}/{tc.rpn_proposal.nms_post}, max_gt {tc.max_gt}; gts per "
+          f"image {[len(g) for g in TRAIN_GTS]}; "
+          f"{sum(p.numel() for p in model.parameters() if p.requires_grad) / 1e6:.2f}M trainable "
+          f"parameters (float32)")
+    frozen = tuple(frozen_prefixes())
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        start = dict(launch_counts)
+        metrics = train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        counts = {k: launch_counts[k] - start[k] for k in launch_counts}
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"non-finite losses at step {i}: {vals}")
+        if counts != {"pyramid_pack": 1, "roi_align": 3, "deform_conv": 0, "roi_align_bwd": 3}:
+            fail(f"unexpected launches at step {i}: {counts}")
+        print(f"step {i} (lr {state.optimizer.param_groups[0]['lr']:.5f}): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()) + f"; launches {counts}")
+    train_counts = dict(launch_counts)
+    print(f"main path launches over {TRAIN_STEPS} train steps: {train_counts}")
+    after = dict(model.named_parameters())
+    moved_frozen = [n for n in before if n.startswith(frozen) and not torch.equal(before[n], after[n])]
+    if moved_frozen:
+        fail(f"frozen parameters changed: {moved_frozen[:5]}")
+    watched = ("backbone.layer2.0.bn1.weight", "backbone.layer2.0.bn3.weight",
+               "backbone.layer4.0.conv2.weight", "neck.fpn_convs.0.conv.weight",
+               "rpn_head.rpn_cls.weight", "roi_head.bbox_head.0.fc_cls.weight",
+               "roi_head.bbox_head.1.convs.0.conv.weight", "roi_head.glbctx_head.fc.weight",
+               "roi_head.bbox_roi_extractor.1.conv1.weight")
+    still = [n for n in watched if torch.equal(before[n], after[n])]
+    n_frozen = sum(n.startswith(frozen) for n in before)
+    print(f"{n_frozen} stem and layer1 parameters bit-unchanged; changed: "
+          f"{', '.join(n for n in watched if n not in still)}")
+    if still:
+        fail(f"trainable parameters did not change: {still}")
+    del before
+
+    phase("13 K4 vs its plain version on a training step's own inputs")
+    calls = record_roi_align_calls(state, batch, gen)
+    k4_err = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst_abs = worst_rel = spread = 0.0
+        for name, (geom, rois, lvls, g, args) in calls:
+            gd = g.to(dtype)
+            k1 = launch_roi_align_bwd(geom, rois, lvls, gd, *args)
+            k2 = launch_roi_align_bwd(geom, rois, lvls, gd, *args)
+            p = roi_align_backward_plain(geom, rois, lvls, gd, *args)
+            e = (k1 - p).abs().max().item()
+            rel = e / p.abs().max().item()
+            sp = (k1 - k2).abs().max().item()
+            worst_abs, worst_rel, spread = max(worst_abs, e), max(worst_rel, rel), max(spread, sp)
+            print(f"  {str(dtype)[6:]} {name} S={args[-1]} ({tuple(g.shape[:-3])} rois): K4 vs "
+                  f"plain max abs err {e:.3g}, relative to max |plain| {rel:.3g}; two K4 runs "
+                  f"differ by at most {sp:.3g} (max |grad| {p.abs().max().item():.3g})")
+            del k1, k2, p
+        torch.cuda.synchronize()
+        k4_err[dtype] = worst_abs
+        print(f"{str(dtype)[6:]}: K4 max abs err {worst_abs:.3g}, relative {worst_rel:.3g} "
+              f"(limit 1e-5: both add the same float32 products, K4 in an order that changes "
+              f"from run to run); run-to-run spread {spread:.3g}")
+        if worst_rel > 1e-5:
+            fail(f"K4 disagrees with its plain version in {dtype}")
+
+    phase("14 reference: float32 train step on the card vs the CPU")
+    train_card_vs_cpu()
+
+    phase("15 training timings")
+    times = []
+    for i in range(TIMED_STEPS + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    med, p90 = statistics.median(times), times[int(0.9 * len(times)) - 1]
+    print(f"train step, batch 2 at 800x1344 bf16, {len(times)} warm steps: median {med:.2f} ms, "
+          f"p90 {p90:.2f} ms, min {times[0]:.2f} ms; {2e3 / med:.2f} images/s "
+          f"(peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB) ({card})")
+    k4 = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    for name, (geom, rois, lvls, g, args) in calls:
+        ms = cuda_ms(lambda: launch_roi_align_bwd(geom, rois, lvls, g, *args))
+        plain = cuda_ms(lambda: roi_align_backward_plain(geom, rois, lvls, g, *args),
+                        iters=3, warmup=1)
+        nbytes, ops, atomics, distinct = k4_work(geom, rois, lvls, g, args[0], args[-1])
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+        for key, v in (("ms", ms), ("plain_ms", plain), ("bytes_ms", b_ms), ("ops_ms", o_ms)):
+            k4[key] += v
+        print(f"K4 roi_align_bwd {name} S={args[-1]}: {ms * 1e3:.1f} us (float32 buffer zeroing "
+              f"included); plain {plain * 1e3:.1f} us; bound {max(b_ms, o_ms) * 1e3:.1f} us "
+              f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP; {distinct} distinct pixels); "
+              f"{atomics / 1e6:.2f}M 16-byte atomics ({card})")
+    print(f"K4 per step (3 calls): {k4['ms']:.3f} ms; plain {k4['plain_ms']:.3f} ms; bound "
+          f"{max(k4['bytes_ms'], k4['ops_ms']):.3f} ms; no single PyTorch call computes it "
+          f"(library: none)")
+    profile_step(state, batch, gen)
+    return {"name": "roi_align_bwd", "route": "cuda",
+            "source": "htd_tpu_torch/csrc/roi_align_bwd.cu",
+            "replaces": "htd_tpu/ops/roi_align_pallas.py:1986",
+            "launches": train_counts["roi_align_bwd"], "max_abs_err": k4_err[torch.bfloat16],
+            "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+            "bound_ms": max(k4["bytes_ms"], k4["ops_ms"]),
+            "bound_by": "bytes" if k4["bytes_ms"] >= k4["ops_ms"] else "operations",
+            "library_ms": None}
+
+
+def main():
+    """Phases 1-11 (inference); returns the card's lines and the kernel records."""
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py needs an NVIDIA GPU")
     from htd_tpu_torch import htd_r50_1x, inference_detector, init_detector
@@ -671,7 +1055,6 @@ def main() -> None:
     del model, levels, pyr, props, rois1
     k3 = dcn_phases(imgs, card)
 
-    n_img = len(imgs)
     kernels = [
         {"name": "pyramid_pack", "route": "cuda", "source": "htd_tpu_torch/csrc/pyramid_pack.cu",
          "replaces": "htd_tpu/ops/roi_align_pallas.py:196",
@@ -687,10 +1070,21 @@ def main() -> None:
          "library_ms": None},
         k3,
     ]
+    return card, kind, kernels, t_start
+
+
+def run() -> None:
+    """The inference phases 1-11 under `torch.inference_mode`, then the
+    training phases 12-15 with autograd (models built in inference mode
+    hold inference tensors, which autograd rejects), then the result."""
+    with torch.inference_mode():
+        card, kind, kernels, t_start = main()
+    kernels.append(train_phases(card))
     print(f"kernel times are per image (K2: the sum of its 3 calls per request; K3: of its "
-          f"30 launches per R-101-DCN request); launches are over the {n_img} main-path "
-          f"requests (K1, K2: R-50; K3: R-101-DCN); max_abs_err is bfloat16 vs the plain "
-          f"version; total {time.perf_counter() - t_start:.1f} s")
+          f"30 launches per R-101-DCN request) and, for K4, per train step (its 3 calls); "
+          f"launches are over the {len(REQUEST_SHAPES)} main-path requests (K1, K2: R-50; K3: "
+          f"R-101-DCN) and the {TRAIN_STEPS} main-path train steps (K4); max_abs_err is "
+          f"bfloat16 vs the plain version; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -698,5 +1092,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    with torch.inference_mode():
-        main()
+    run()

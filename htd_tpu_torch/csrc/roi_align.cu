@@ -9,17 +9,10 @@
 // level pass (an XLA gather on the TPU, `_levels_pyramid_impl`) when no
 // per-roi levels are given: grid.y then runs over the levels.
 //
-// Function (mmcv RoIAlign, aligned=True; the JAX `_sample_geometry`):
-//   start = x1 * scale - 0.5;  bin = (x2 - x1) * scale / out
-//   grid  = sampling_ratio > 0 ? sampling_ratio : clamp(ceil(bin), 0, max_samples)
-//   sample p, i: start + (p + (i + 0.5) / max(grid, 1)) * bin
-//   inside when coord in [-1, size]; cc = max(coord, 0);
-//   low = min(floor(cc), size - 1); high = min(low + 1, size - 1);
-//   frac = cc >= size - 1 ? 0 : cc - low
-//   out = sum of bilinear samples / max(grid_h * grid_w, 1)
-// The geometry uses the round-to-nearest intrinsics so that nvcc cannot
-// contract it into FMAs: ceil(bin) is discontinuous, and a one-ulp change
-// would change the grid count.
+// Function: mmcv RoIAlign (aligned=True) with the adaptive grid clamped at
+// max_samples, each bin the sum of its bilinear samples / max(grid_h *
+// grid_w, 1). The sample geometry is in roi_align_geom.cuh, shared with the
+// backward kernel K4 (roi_align_bwd.cu).
 //
 // Bound on the H100: bytes. Per output element it does up to 4 * S^2
 // multiply-adds (S <= 4), far below the card's float32 rate, while every
@@ -30,82 +23,9 @@
 // samples and rois mostly hit L1/L2, so DRAM traffic is close to the output
 // plus the distinct feature pixels touched.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "roi_align_geom.cuh"
 
 namespace {
-
-constexpr int kMaxLevels = 8;
-
-struct LevelGeom {
-  float scale;
-  int h, w, row_off;
-};
-
-struct AlignParams {
-  LevelGeom lv[kMaxLevels];
-  int num_levels, n_rois, rois_per_img, img_rows, w_pad, channels;
-  int out_size, sampling_ratio, max_samples;
-};
-
-template <typename T> struct Vec;
-
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float (&v)[N]) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  }
-  __device__ __forceinline__ static void store(float* p, const float (&v)[N]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&v)[N]) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
-    }
-  }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float (&v)[N]) {
-    uint4 x;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    *reinterpret_cast<uint4*>(p) = x;
-  }
-};
-
-// One axis of one sample: corner indices, weights, inside flag.
-struct AxisSample {
-  int low, high;
-  float w_low, w_high;
-  bool inside;
-};
-
-__device__ __forceinline__ AxisSample axis_sample(float start, float bin, int p, int i,
-                                                  float g, float size) {
-  const float t = __fadd_rn((float)p, __fdiv_rn(__fadd_rn((float)i, 0.5f), g));
-  const float coord = __fadd_rn(start, __fmul_rn(t, bin));
-  AxisSample a;
-  a.inside = coord >= -1.0f && coord <= size;
-  const float cc = fmaxf(coord, 0.0f);
-  const float low = fminf(floorf(cc), __fsub_rn(size, 1.0f));
-  const float high = fminf(__fadd_rn(low, 1.0f), __fsub_rn(size, 1.0f));
-  const float frac = cc >= __fsub_rn(size, 1.0f) ? 0.0f : __fsub_rn(cc, low);
-  a.low = (int)low;
-  a.high = (int)high;
-  a.w_low = __fsub_rn(1.0f, frac);
-  a.w_high = frac;
-  return a;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -115,27 +35,7 @@ roi_align_fwd_kernel(const T* __restrict__ pyr, const float* __restrict__ rois,
   constexpr int N = Vec<T>::N;
   const int n = blockIdx.x;
   const int level = roi_levels != nullptr ? roi_levels[n] : (int)blockIdx.y;
-  const LevelGeom g = p.lv[level];
-  const int img = n / p.rois_per_img;
-  const float x1 = rois[4 * n + 0], y1 = rois[4 * n + 1];
-  const float x2 = rois[4 * n + 2], y2 = rois[4 * n + 3];
-  const float o = (float)p.out_size;
-  const float start_w = __fsub_rn(__fmul_rn(x1, g.scale), 0.5f);
-  const float start_h = __fsub_rn(__fmul_rn(y1, g.scale), 0.5f);
-  const float bin_w = __fdiv_rn(__fmul_rn(__fsub_rn(x2, x1), g.scale), o);
-  const float bin_h = __fdiv_rn(__fmul_rn(__fsub_rn(y2, y1), g.scale), o);
-  int grid_w, grid_h;
-  if (p.sampling_ratio > 0) {
-    grid_w = grid_h = p.sampling_ratio;
-  } else {
-    const float smax = (float)p.max_samples;
-    grid_w = (int)fminf(fmaxf(ceilf(bin_w), 0.0f), smax);
-    grid_h = (int)fminf(fmaxf(ceilf(bin_h), 0.0f), smax);
-  }
-  const float gw = (float)max(grid_w, 1), gh = (float)max(grid_h, 1);
-  const float count = (float)max(grid_h * grid_w, 1);
-  const float size_w = (float)g.w, size_h = (float)g.h;
-  const int64_t row_base = (int64_t)img * p.img_rows + g.row_off;
+  const RoiGeom r = roi_geom(rois, n, level, p);
   const int C = p.channels;
   const int cvecs = C / N;
   const int nbins = p.out_size * p.out_size;
@@ -149,13 +49,13 @@ roi_align_fwd_kernel(const T* __restrict__ pyr, const float* __restrict__ rois,
     float acc[N];
 #pragma unroll
     for (int k = 0; k < N; ++k) acc[k] = 0.0f;
-    for (int iy = 0; iy < grid_h; ++iy) {
-      const AxisSample ay = axis_sample(start_h, bin_h, ph, iy, gh, size_h);
+    for (int iy = 0; iy < r.grid_h; ++iy) {
+      const AxisSample ay = axis_sample(r.start_h, r.bin_h, ph, iy, r.gh, r.size_h);
       if (!ay.inside) continue;
-      const T* row_lo = pyr + ((row_base + ay.low) * p.w_pad) * C + c0;
-      const T* row_hi = pyr + ((row_base + ay.high) * p.w_pad) * C + c0;
-      for (int ix = 0; ix < grid_w; ++ix) {
-        const AxisSample ax = axis_sample(start_w, bin_w, pw, ix, gw, size_w);
+      const T* row_lo = pyr + ((r.row_base + ay.low) * p.w_pad) * C + c0;
+      const T* row_hi = pyr + ((r.row_base + ay.high) * p.w_pad) * C + c0;
+      for (int ix = 0; ix < r.grid_w; ++ix) {
+        const AxisSample ax = axis_sample(r.start_w, r.bin_w, pw, ix, r.gw, r.size_w);
         if (!ax.inside) continue;
         const float w00 = __fmul_rn(ay.w_low, ax.w_low);
         const float w01 = __fmul_rn(ay.w_low, ax.w_high);
@@ -173,7 +73,7 @@ roi_align_fwd_kernel(const T* __restrict__ pyr, const float* __restrict__ rois,
       }
     }
 #pragma unroll
-    for (int k = 0; k < N; ++k) acc[k] = __fdiv_rn(acc[k], count);
+    for (int k = 0; k < N; ++k) acc[k] = __fdiv_rn(acc[k], r.count);
     Vec<T>::store(dst + (int64_t)bin * C + c0, acc);
   }
 }
@@ -192,25 +92,12 @@ extern "C" int htd_roi_align_fwd(const void* pyr, const float* rois, const int* 
                                  int num_levels, int img_rows, int w_pad, int channels,
                                  int out_size, int sampling_ratio, int max_samples,
                                  int dtype, cudaStream_t stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || n_rois < 1 || rois_per_img < 1) return -1;
-  const int vec = dtype == 0 ? Vec<float>::N : Vec<__nv_bfloat16>::N;
-  if (channels % vec != 0 || (dtype != 0 && dtype != 1)) return -1;
   AlignParams p;
-  for (int k = 0; k < num_levels; ++k) {
-    p.lv[k].scale = level_scale[k];
-    p.lv[k].h = level_h[k];
-    p.lv[k].w = level_w[k];
-    p.lv[k].row_off = level_row_off[k];
+  if (!fill_params(p, level_scale, level_h, level_w, level_row_off, num_levels, n_rois,
+                   rois_per_img, img_rows, w_pad, channels, out_size, sampling_ratio,
+                   max_samples, dtype)) {
+    return -1;
   }
-  p.num_levels = num_levels;
-  p.n_rois = n_rois;
-  p.rois_per_img = rois_per_img;
-  p.img_rows = img_rows;
-  p.w_pad = w_pad;
-  p.channels = channels;
-  p.out_size = out_size;
-  p.sampling_ratio = sampling_ratio;
-  p.max_samples = max_samples;
   dim3 grid(n_rois, roi_levels != nullptr ? 1 : num_levels);
   const int threads = 256;
   if (dtype == 0) {

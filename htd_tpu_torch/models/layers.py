@@ -20,15 +20,18 @@ class FrozenBatchNorm2d(nn.Module):
 
     State-dict keys are BatchNorm2d's (`weight`, `bias`, `running_mean`,
     `running_var`); an mmdet checkpoint's `num_batches_tracked` is dropped
-    on load. The scale and shift are folded in float32, as the JAX
-    package does, then applied in the activation's dtype.
+    on load. The affine `weight` and `bias` are parameters, trained where
+    the optimizer's mask allows (mmdet `requires_grad=True`); the running
+    statistics are buffers and never change. The scale and shift are
+    folded in float32, as the JAX package does, then applied in the
+    activation's dtype.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(num_features))
-        self.register_buffer("bias", torch.zeros(num_features))
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 

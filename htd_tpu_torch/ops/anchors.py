@@ -1,4 +1,4 @@
-"""Anchor generation for the RPN.
+"""Anchor generation for the RPN, and the inside flags of its training loss.
 
 Counterpart of `htd_tpu/ops/anchors.py` (mmdet AnchorGenerator semantics:
 ratio-major base anchors per stride, location-major grids, pad-region
@@ -83,3 +83,19 @@ class AnchorGenerator:
         cell = (ys < vh[..., None])[..., :, None] & (xs < vw[..., None])[..., None, :]
         cell = cell.reshape(cell.shape[:-2] + (fh * fw,))
         return cell.repeat_interleave(self.num_base_anchors, dim=-1)
+
+
+def anchor_inside_flags(flat_anchors: torch.Tensor, valid_flags: torch.Tensor, img_shape,
+                        allowed_border: float = 0.0) -> torch.Tensor:
+    """Anchors fully inside the (resized, un-padded) image `img_shape` = (h,
+    w) plus `allowed_border`, and valid; all of `valid_flags` when the
+    border is negative. The RPN loss assigns only these anchors."""
+    if allowed_border < 0:
+        return valid_flags
+    img = torch.as_tensor(img_shape, dtype=flat_anchors.dtype, device=flat_anchors.device)
+    h, w = img[..., 0], img[..., 1]
+    inside = ((flat_anchors[:, 0] >= -allowed_border)
+              & (flat_anchors[:, 1] >= -allowed_border)
+              & (flat_anchors[:, 2] < w + allowed_border)
+              & (flat_anchors[:, 3] < h + allowed_border))
+    return valid_flags & inside

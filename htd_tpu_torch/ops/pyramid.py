@@ -9,7 +9,8 @@ image b starts at row `b * img_rows + row_offsets[l]`, and every row is
 
 `pack_pyramid` is the wrapper: on CUDA tensors it launches the CUDA
 kernel (`csrc/pyramid_pack.cu`), on CPU tensors it runs the plain version
-`pack_pyramid_plain`.
+`pack_pyramid_plain`. Its backward slices each level's window out of the
+pyramid gradient (`pyramid_level_grads`).
 """
 
 from __future__ import annotations
@@ -72,17 +73,42 @@ def _check_levels(levels: Sequence[torch.Tensor]) -> None:
 
 
 def pack_pyramid(levels: Sequence[torch.Tensor]) -> Pyramid:
-    """Pack per-level (B, H, W, C) maps into one pyramid buffer."""
+    """Pack per-level (B, H, W, C) maps into one pyramid buffer.
+    Differentiable: each level's gradient is its window of the pyramid's."""
     _check_levels(levels)
     geom = pyramid_geometry([f.shape for f in levels])
     dev = levels[0].device.type
-    if dev == "cpu":
-        return Pyramid(pack_pyramid_plain(levels, geom), geom)
-    if dev != "cuda":
+    if dev not in ("cpu", "cuda"):
         raise ValueError(f"pack_pyramid runs on cuda or cpu tensors, not {dev}")
-    from htd_tpu_torch.ops.roi_align_cuda import launch_pyramid_pack
+    return Pyramid(_PackPyramid.apply(geom, *levels), geom)
 
-    return Pyramid(launch_pyramid_pack(levels, geom), geom)
+
+class _PackPyramid(torch.autograd.Function):
+    """K1 (CUDA) or its plain version (CPU) forward; the backward slices
+    each level back out of the pyramid gradient, the JAX package's
+    `_pyr_build_bwd` (an XLA slice there too, not a kernel)."""
+
+    @staticmethod
+    def forward(ctx, geom: PyramidGeometry, *levels: torch.Tensor) -> torch.Tensor:
+        ctx.geom = geom
+        if levels[0].device.type == "cpu":
+            return pack_pyramid_plain(levels, geom)
+        from htd_tpu_torch.ops.roi_align_cuda import launch_pyramid_pack
+
+        return launch_pyramid_pack(levels, geom)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return (None,) + pyramid_level_grads(grad, ctx.geom)
+
+
+def pyramid_level_grads(grad: torch.Tensor, geom: PyramidGeometry) -> Tuple[torch.Tensor, ...]:
+    """The gradient of each (B, H, W, C) level, contiguous, from the
+    pyramid's (rows_pad, w_pad, C) gradient."""
+    g = grad[: geom.batch * geom.img_rows].reshape(geom.batch, geom.img_rows, geom.w_pad,
+                                                   geom.channels)
+    return tuple(g[:, off:off + h, :w].contiguous()
+                 for off, h, w in zip(geom.row_offsets, geom.heights, geom.widths))
 
 
 def pack_pyramid_plain(levels: Sequence[torch.Tensor],

@@ -1,4 +1,5 @@
-"""Level-mapped RoIAlign read from the packed pyramid (kernel K2).
+"""Level-mapped RoIAlign read from the packed pyramid (kernel K2) and its
+feature gradient (kernel K4).
 
 Function: mmcv `RoIAlign(aligned=True)` with the adaptive grid
 (`sampling_ratio=0`: ceil(bin extent) samples per bin axis) clamped at
@@ -15,6 +16,13 @@ kernel (`csrc/roi_align.cu`) on CUDA tensors and run the plain version
 (`roi_align_plain`, a gather and a weighted sum, the JAX package's
 `_roi_align_core`) on CPU tensors. Layouts are the JAX package's: rois
 (B, R, 4), outputs (B, R, out, out, C).
+
+Both wrappers are differentiable with respect to the pyramid buffer. On
+CUDA tensors the backward launches K4 (`csrc/roi_align_bwd.cu`, the
+TPU's `roi_align_pallas_v4_bwd` and the BA pass's
+`levels_pyramid_grad_feats`); on CPU tensors autograd differentiates the
+plain version. `roi_align_backward_plain` is K4's plain version, an
+`index_add_` of the forward's corner weights.
 """
 
 from __future__ import annotations
@@ -81,10 +89,12 @@ def _sample_geometry(rois, scale, fh, fw, out_size, sampling_ratio, max_samples)
             y_low, y_high, ly, 1.0 - ly, my, y_in, grid_w, grid_h)
 
 
-def _gather_core(flat, rois, scale, fh, fw, row_offset, row_stride, out_size,
-                 sampling_ratio, max_samples):
-    """Plain RoIAlign of (R, 4) rois over flat feature rows (N, C)."""
-    r, c = rois.shape[0], flat.shape[-1]
+def _corner_table(rois, scale, fh, fw, row_offset, row_stride, out_size,
+                  sampling_ratio, max_samples):
+    """For (R, 4) rois: every sample corner's bilinear weight (R, out,
+    out, K) with K = (2S)^2 (zero for masked samples), its flat feature row
+    (R, out, out, K), and each roi's sample count max(grid_h * grid_w, 1)."""
+    r = rois.shape[0]
     o = out_size
     f32 = torch.float32
     (x_low, x_high, lx, hx, mx, x_in,
@@ -98,11 +108,31 @@ def _gather_core(flat, rois, scale, fh, fw, row_offset, row_stride, out_size,
     ix = torch.stack([x_low, x_high], -1).reshape(r, o, k)
     wgt = (wy[:, :, None, :, None] * wx[:, None, :, None, :]).reshape(r, o, o, k * k)
     row = iy * row_stride[:, None, None] + row_offset[:, None, None]
-    idx = (row[:, :, None, :, None] + ix[:, None, :, None, :]).reshape(-1)
-    v = flat[idx].reshape(r, o, o, k * k, c).to(f32)
-    out = torch.einsum("rhwk,rhwkc->rhwc", wgt, v)
+    idx = (row[:, :, None, :, None] + ix[:, None, :, None, :]).reshape(r, o, o, k * k)
     count = (grid_h * grid_w).clamp(min=1).to(f32)
+    return wgt, idx, count
+
+
+def _gather_core(flat, rois, scale, fh, fw, row_offset, row_stride, out_size,
+                 sampling_ratio, max_samples):
+    """Plain RoIAlign of (R, 4) rois over flat feature rows (N, C)."""
+    wgt, idx, count = _corner_table(rois, scale, fh, fw, row_offset, row_stride,
+                                    out_size, sampling_ratio, max_samples)
+    v = flat[idx.reshape(-1)].reshape(wgt.shape + (flat.shape[-1],)).to(torch.float32)
+    out = torch.einsum("rhwk,rhwkc->rhwc", wgt, v)
     return (out / count[:, None, None, None]).to(flat.dtype)
+
+
+def _scatter_core(d_flat, g, rois, scale, fh, fw, row_offset, row_stride, out_size,
+                  sampling_ratio, max_samples) -> None:
+    """Transpose of `_gather_core`: adds each sample corner's weight times
+    g / count into the float32 rows `d_flat` (N, C), in place. The
+    JAX package's `roi_align_pyramid_flat_grad_feats` without its fold."""
+    wgt, idx, count = _corner_table(rois, scale, fh, fw, row_offset, row_stride,
+                                    out_size, sampling_ratio, max_samples)
+    gg = g.to(torch.float32) / count[:, None, None, None]
+    vals = wgt[..., None] * gg[:, :, :, None, :]
+    d_flat.index_add_(0, idx.reshape(-1), vals.reshape(-1, d_flat.shape[-1]))
 
 
 def _level_tables(geom: PyramidGeometry, strides: Sequence[int], device):
@@ -113,15 +143,14 @@ def _level_tables(geom: PyramidGeometry, strides: Sequence[int], device):
     return scale, hs, ws, offs
 
 
-def roi_align_plain(pyr: Pyramid, rois: torch.Tensor, lvls: torch.Tensor,
-                    strides: Sequence[int], out_size: int = 7,
-                    sampling_ratio: int = 0, max_samples: int = 4) -> torch.Tensor:
-    """Plain version of K2: (B, R, 4) rois on levels (B, R) ->
-    (B, R, out, out, C), read from the pyramid buffer."""
-    buf, geom = pyr
+def _roi_chunks(geom: PyramidGeometry, rois: torch.Tensor, lvls: torch.Tensor,
+                strides: Sequence[int], out_size: int, sampling_ratio: int,
+                max_samples: int):
+    """Per-roi arguments of `_gather_core` / `_scatter_core` for (B, R)
+    rois on levels (B, R), in chunks whose gathered float32 rows stay
+    under `_PLAIN_CHUNK_BYTES`: yields (slice, args)."""
     b, r = rois.shape[0], rois.shape[1]
-    dev = buf.device
-    flat = buf.reshape(-1, geom.channels)
+    dev = rois.device
     scale, hs, ws, offs = _level_tables(geom, strides, dev)
     rois_f = rois.reshape(-1, 4)
     lv = lvls.reshape(-1).to(torch.int64)
@@ -131,15 +160,51 @@ def roi_align_plain(pyr: Pyramid, rois: torch.Tensor, lvls: torch.Tensor,
     s = sampling_ratio if sampling_ratio > 0 else max_samples
     per_roi = out_size * out_size * (2 * s) ** 2 * geom.channels * 4
     chunk = max(1, _PLAIN_CHUNK_BYTES // per_roi)
-    outs = []
     for a in range(0, b * r, chunk):
         sl = slice(a, a + chunk)
         lv_c = lv[sl]
-        outs.append(_gather_core(
-            flat, rois_f[sl], scale[lv_c], hs[lv_c], ws[lv_c], row_offset[sl],
-            row_stride[sl], out_size, sampling_ratio, max_samples))
+        yield sl, (rois_f[sl], scale[lv_c], hs[lv_c], ws[lv_c], row_offset[sl],
+                   row_stride[sl], out_size, sampling_ratio, max_samples)
+
+
+def roi_align_plain(pyr: Pyramid, rois: torch.Tensor, lvls: torch.Tensor,
+                    strides: Sequence[int], out_size: int = 7,
+                    sampling_ratio: int = 0, max_samples: int = 4) -> torch.Tensor:
+    """Plain version of K2: (B, R, 4) rois on levels (B, R) ->
+    (B, R, out, out, C), read from the pyramid buffer. Differentiable
+    with respect to the buffer (its autograd is K4's function)."""
+    buf, geom = pyr
+    b, r = rois.shape[0], rois.shape[1]
+    flat = buf.reshape(-1, geom.channels)
+    outs = [_gather_core(flat, *args) for _, args in
+            _roi_chunks(geom, rois, lvls, strides, out_size, sampling_ratio, max_samples)]
     out = torch.cat(outs) if outs else flat.new_zeros((0, out_size, out_size, geom.channels))
     return out.reshape(b, r, out_size, out_size, geom.channels)
+
+
+def roi_align_backward_plain(geom: PyramidGeometry, rois: torch.Tensor,
+                             lvls: Optional[torch.Tensor], g: torch.Tensor,
+                             strides: Sequence[int], out_size: int = 7,
+                             sampling_ratio: int = 0, max_samples: int = 4) -> torch.Tensor:
+    """Plain version of K4, the feature gradient of K2: the cotangent g of
+    `roi_align_pyramid` (B, R, out, out, C), or with `lvls=None` of
+    `roi_align_levels` (L, B, R, out, out, C), -> the float32 pyramid
+    gradient (rows_pad, w_pad, C). An `index_add_` of the forward's
+    corner weights times g / count."""
+    b, r = rois.shape[0], rois.shape[1]
+    d = torch.zeros((geom.rows_pad * geom.w_pad, geom.channels), dtype=torch.float32,
+                    device=rois.device)
+    if lvls is None:
+        passes = [(torch.full((b, r), q, dtype=torch.int64, device=rois.device), g[q])
+                  for q in range(len(geom.heights))]
+    else:
+        passes = [(lvls, g)]
+    for lv, gl in passes:
+        g_flat = gl.reshape(b * r, out_size, out_size, geom.channels)
+        for sl, args in _roi_chunks(geom, rois, lv, strides, out_size, sampling_ratio,
+                                    max_samples):
+            _scatter_core(d, g_flat[sl], *args)
+    return d.reshape(geom.rows_pad, geom.w_pad, geom.channels)
 
 
 def _check_rois(pyr: Pyramid, rois: torch.Tensor, lvls: Optional[torch.Tensor]):
@@ -165,10 +230,8 @@ def roi_align_pyramid(pyr: Pyramid, rois: torch.Tensor, lvls: torch.Tensor,
                                sampling_ratio, max_samples)
     if dev != "cuda":
         raise ValueError(f"roi_align_pyramid runs on cuda or cpu tensors, not {dev}")
-    from htd_tpu_torch.ops.roi_align_cuda import launch_roi_align
-
-    return launch_roi_align(pyr, rois, lvls, strides, out_size, sampling_ratio,
-                            max_samples)
+    return _RoIAlign.apply(pyr.buf, pyr.geom, rois, lvls, tuple(strides), out_size,
+                           sampling_ratio, max_samples)
 
 
 def roi_align_levels(pyr: Pyramid, rois: torch.Tensor, strides: Sequence[int],
@@ -189,10 +252,35 @@ def roi_align_levels(pyr: Pyramid, rois: torch.Tensor, strides: Sequence[int],
         ])
     if dev != "cuda":
         raise ValueError(f"roi_align_levels runs on cuda or cpu tensors, not {dev}")
-    from htd_tpu_torch.ops.roi_align_cuda import launch_roi_align
+    return _RoIAlign.apply(pyr.buf, pyr.geom, rois, None, tuple(strides), out_size,
+                           sampling_ratio, max_samples)
 
-    return launch_roi_align(pyr, rois, None, strides, out_size, sampling_ratio,
-                            max_samples)
+
+class _RoIAlign(torch.autograd.Function):
+    """K2 forward, K4 backward, on CUDA tensors. The gradient flows into the
+    pyramid buffer only (None for rois and levels, as the JAX package's
+    custom VJPs): K4 accumulates it in float32, then it is cast to the
+    buffer's dtype (`.astype(f.dtype)` in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, buf, geom, rois, lvls, strides, out_size, sampling_ratio, max_samples):
+        from htd_tpu_torch.ops.roi_align_cuda import launch_roi_align
+
+        ctx.save_for_backward(rois, lvls)
+        ctx.args = (geom, strides, out_size, sampling_ratio, max_samples)
+        return launch_roi_align(Pyramid(buf, geom), rois, lvls, strides, out_size,
+                                sampling_ratio, max_samples)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from htd_tpu_torch.ops.roi_align_cuda import launch_roi_align_bwd
+
+        rois, lvls = ctx.saved_tensors
+        geom, strides, out_size, sampling_ratio, max_samples = ctx.args
+        d = launch_roi_align_bwd(geom, rois, lvls, g.contiguous(), strides, out_size,
+                                 sampling_ratio, max_samples)
+        return (d.to(g.dtype),) + (None,) * 7
 
 
 def roi_align_pyramid_batched(feats: Sequence[torch.Tensor], rois: torch.Tensor,

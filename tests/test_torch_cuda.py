@@ -67,7 +67,8 @@ def test_kernels_match_plain(cuda, dtype):
         p = roi_align_plain(pyr, rois, torch.full_like(lv, lvl), STRIDES, 7, 0, 1)
         assert _rel_err(k[lvl], p) <= tol
     torch.cuda.synchronize()
-    assert launch_counts == {"pyramid_pack": 1, "roi_align": 3, "deform_conv": 0}
+    assert launch_counts == {"pyramid_pack": 1, "roi_align": 3, "deform_conv": 0,
+                             "roi_align_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -152,3 +153,68 @@ def test_deform_conv_rejects_what_it_does_not_take(cuda):
         deform_conv2d(x, off.repeat(1, 1, 1, 2), wgt, deform_groups=2)
     with pytest.raises(ValueError):
         deform_conv2d(x, off.bfloat16(), wgt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("all_levels", [False, True])
+def test_roi_align_bwd_matches_plain(cuda, all_levels, dtype):
+    """K4 against its plain version: the float32 pyramid gradient within
+    1e-5 of the plain version's largest magnitude (both add the same
+    float32 products, K4 with atomics in another order); through autograd
+    the levels get it in the features' dtype, one launch per backward."""
+    from htd_tpu_torch.ops.roi_align import roi_align_backward_plain
+    from htd_tpu_torch.ops.roi_align_cuda import (launch_counts, launch_roi_align_bwd,
+                                                  reset_launch_counts)
+
+    feats, rois = _inputs(cuda, dtype)
+    rois[:, 5:9] = rois[:, 4:5]                  # crowded: several copies of one roi
+    geom = pack_pyramid(feats).geom
+    lv = None if all_levels else map_roi_levels(rois, 4)
+    s = 1 if all_levels else 4
+    lead = (4,) if all_levels else ()
+    g = torch.randn(lead + tuple(rois.shape[:2]) + (7, 7, 64), device=cuda).to(dtype)
+    reset_launch_counts()
+    k = launch_roi_align_bwd(geom, rois, lv, g, STRIDES, 7, 0, s)
+    k2 = launch_roi_align_bwd(geom, rois, lv, g, STRIDES, 7, 0, s)
+    p = roi_align_backward_plain(geom, rois, lv, g, STRIDES, 7, 0, s)
+    assert k.dtype == torch.float32 and k.shape == p.shape
+    assert _rel_err(k, p) <= 1e-5 and _rel_err(k2, p) <= 1e-5
+    levels = [f.clone().requires_grad_(True) for f in feats]
+    pyr = pack_pyramid(levels)
+    out = (roi_align_levels(pyr, rois, STRIDES, 7, 0, s) if all_levels
+           else roi_align_pyramid(pyr, rois, lv, STRIDES, 7, 0, s))
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert launch_counts["roi_align_bwd"] == 3
+    from htd_tpu_torch.ops.pyramid import pyramid_level_grads
+    for f, ref in zip(levels, pyramid_level_grads(p, geom)):
+        assert f.grad.dtype == dtype
+        assert _rel_err(f.grad, ref) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+def test_train_step_launches(cuda):
+    """One bfloat16 train step of HTD R-50 at full depth and width (a small
+    256x384 batch of 2): K1 once, K2 three times, K4 three times; finite
+    float32 losses."""
+    from htd_tpu_torch import htd_r50_1x
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+    from htd_tpu_torch.train.train_step import TrainBatch, create_train_state, train_step
+
+    state = create_train_state(htd_r50_1x(compute_dtype="bfloat16"), seed=0)
+    rng = np.random.RandomState(0)
+    boxes = np.zeros((2, 100, 4), np.float32)
+    boxes[:, :3] = [[20, 30, 90, 120], [100, 40, 300, 230], [10, 150, 60, 200]]
+    valid = np.zeros((2, 100), bool)
+    valid[:, :3] = True
+    batch = TrainBatch(torch.from_numpy(rng.normal(0, 1, (2, 256, 384, 3)).astype(np.float32)),
+                       torch.tensor([[256.0, 384.0], [240.0, 360.0]]), torch.from_numpy(boxes),
+                       torch.from_numpy(rng.randint(0, 80, (2, 100)).astype(np.int32)),
+                       torch.from_numpy(valid))
+    reset_launch_counts()
+    metrics = train_step(state, batch, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    assert launch_counts == {"pyramid_pack": 1, "roi_align": 3, "deform_conv": 0,
+                             "roi_align_bwd": 3}
+    assert all(v.dtype == torch.float32 and torch.isfinite(v).item() for v in metrics.values())

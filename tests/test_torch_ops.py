@@ -191,14 +191,16 @@ def test_preprocess_matches(rng, hw):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port loads no jax, flax or htd_tpu."""
+    """Importing every module of the port, the training modules included, loads
+    no jax, flax, optax or htd_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import htd_tpu_torch\n"
         "for m in pkgutil.walk_packages(htd_tpu_torch.__path__, 'htd_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'htd_tpu')\n"
-        "       or m.startswith(('jax.', 'flax.', 'htd_tpu.'))]\n"
+        "assert 'htd_tpu_torch.train.train_step' in sys.modules\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', 'htd_tpu')\n"
+        "       or m.startswith(('jax.', 'flax.', 'optax.', 'htd_tpu.'))]\n"
         "print(','.join(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
