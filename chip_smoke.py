@@ -43,12 +43,31 @@ script exits non-zero without its final line:
      parameter, the parameters after the SGD step);
  15. training timings: median and p90 per step, images/s, K4 per call and
      per step beside its bound and its plain version, a device-time
-     profile of one step.
+     profile of one step;
+ 16. main path: HTD R-101-DCN training (full depth and width, bfloat16,
+     bn3 scales opened from zero and seeded offset convs) on phase 12's
+     batch: finite losses, stem and layer1 bit-unchanged, every DCN weight
+     and offset conv with a non-zero gradient, K1 1, K2 3, K3 30, K4 3, K5
+     30 and K6 30 launches per step;
+ 17. K5 and K6 held to their plain version on a training step's own
+     inputs (one stride-2 and one stride-1 deformable conv of each stage)
+     and on X-101-64x4d-DCN's grouped shapes, in bfloat16 and float32, each
+     run twice;
+ 18. reference: one float32 R-101-DCN train step on the card against the
+     CPU (loss terms, every gradient, the DCN leaves and the backbone's
+     other leaves held as groups of their own, and the parameters after
+     the step), with a control: the same comparison against CPU steps
+     with a fault planted in K5's and in K6's plain version must fail;
+ 19. R-101-DCN training timings: median and p90 per step, images/s, K5 and
+     K6 per launch and per step beside their bounds, their plain version,
+     cuDNN's regular-conv backward of the same shapes (context only), a
+     device-time profile of one step.
 It needs CUDA: with no GPU, or run outside the repository, it fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -70,7 +89,19 @@ TIMED_REQUESTS = 20
 OFFSET_PX = 2.0
 TPU_FB_CAP = 128           # the TPU kernel's exactly corrected pixels per image and conv
 DCN_CHECKED = ("layer2.0", "layer2.1", "layer3.0", "layer3.1", "layer4.0", "layer4.1")
-TRAIN_STEPS = 3            # phase 12's counted main-path steps
+TRAIN_STEPS = 3            # phases 12 and 16: counted main-path steps
+# phase 16's bottleneck bn3 scales, from mmdet's zero init, so that the
+# deformable convs get a gradient in the first step
+RESIDUAL_SCALE = 0.1
+# phase 16's watched DCN leaves: stride 2 and stride 1, weights and offset convs
+DCN_WATCHED = ("backbone.layer2.0.conv2.weight", "backbone.layer2.1.conv2.conv_offset.weight",
+               "backbone.layer3.0.conv2.weight", "backbone.layer3.0.conv2.conv_offset.weight",
+               "backbone.layer3.5.conv2.weight", "backbone.layer3.5.conv2.conv_offset.weight",
+               "backbone.layer4.0.conv2.conv_offset.bias", "backbone.layer4.2.conv2.weight")
+# phase 17's X-101-64x4d-DCN convs: (name, input height, width, channels,
+# stride) at batch 2 in the 800x1344 bucket
+X101_CONVS = (("layer2.0", 200, 336, 512, 2), ("layer3.1", 50, 84, 1024, 1),
+              ("layer4.1", 25, 42, 2048, 1))
 TIMED_STEPS = 10           # phase 15's warm steps
 TRAIN_BUCKET = (800, 1344)
 TRAIN_IMG_SHAPES = [(800, 1333), (750, 1344)]
@@ -344,6 +375,7 @@ class OffsetStats:
         self.hooks = [m.conv_offset.register_forward_hook(self._hook)
                       for _, m in dcn_convs(model)]
 
+    @torch.no_grad()
     def _hook(self, conv, args, out):
         h, w = args[0].shape[-2:]
         n, _, ho, wo = out.shape
@@ -364,18 +396,19 @@ class OffsetStats:
             far.sum(), (~inside).sum(), flagged.sum(), (px > TPU_FB_CAP).sum()]).double()
         self.max_px = torch.maximum(self.max_px, px.max())
 
-    def report(self, convs: int) -> dict:
+    def report(self, pairs: int) -> dict:
         for hk in self.hooks:
             hk.remove()
         n, sq, far, out, flag, over = self.sums.tolist()
         st = {"offset_rms_px": math.sqrt(sq / n), "far": far / n, "outside": out / n,
               "flagged": flag / n, "over_cap": int(over), "max_px": int(self.max_px)}
-        print(f"offsets over {convs} deformable convs: rms {st['offset_rms_px']:.2f} px; "
-              f"{100 * st['far']:.1f}% of samples more than 1 px from their tap; "
-              f"{100 * st['outside']:.1f}% outside the image; {100 * st['flagged']:.1f}% "
-              f"outside the TPU kernel's window; in {st['over_cap']} of {convs} convs more than "
-              f"{TPU_FB_CAP} pixels of an image were flagged (max {st['max_px']}), whose samples "
-              f"beyond the cap the TPU kernel sets to zero; K3 computes all of them exactly")
+        print(f"offsets over {pairs} (deformable conv, image) pairs: rms "
+              f"{st['offset_rms_px']:.2f} px; {100 * st['far']:.1f}% of samples more than 1 px "
+              f"from their tap; {100 * st['outside']:.1f}% outside the image; "
+              f"{100 * st['flagged']:.1f}% outside the TPU kernel's window; in {st['over_cap']} "
+              f"of {pairs} pairs more than {TPU_FB_CAP} pixels of an image were flagged (max "
+              f"{st['max_px']}), whose samples beyond the cap the TPU kernel sets to zero; K3 "
+              f"computes all of them exactly")
         return st
 
 
@@ -692,18 +725,27 @@ def injected_overrides(cfg, n_anchors: int, img_shape, seed: int = 0):
     return {k: torch.from_numpy(v) for k, v in ov.items()}
 
 
-def train_card_vs_cpu() -> None:
-    """One float32 train step (TF32 off) of R-50 at full depth and width on
-    the card and on the CPU, the same seeded weights, a 2 x 192x288 batch
-    and the same injected samples; sampler blocks cut to 128 rois so that
-    the CPU step stays short."""
+def train_card_vs_cpu(preset, prepare=None, backbone_limit: float = 1e-3,
+                      dcn_limit: float = 1e-3, faults=()) -> None:
+    """One float32 train step (TF32 off) of `preset()` at full depth and
+    width on the card and on the CPU, the same seeded weights (then
+    `prepare(model)` on both), a 2 x 192x288 batch and the same injected
+    samples; sampler blocks cut to 128 rois so that the CPU step stays
+    short. Deformable convs run K3 / K5 / K6 on the card and the plain
+    versions on the CPU. Gradients and updates are held to 1e-3 of each
+    leaf's scale; the deformable convs' leaves to `dcn_limit` and the
+    backbone's other leaves to `backbone_limit`, each group reported on
+    its own. `faults`: (name, context manager) pairs, each a fault planted
+    in the CPU step; the card's gradients are held against the CPU's under
+    each fault too, and the check fails unless every fault takes some
+    leaves over their limit (a control that the limits still catch such a
+    fault at this size)."""
     import dataclasses
 
-    from htd_tpu_torch import htd_r50_1x
     from htd_tpu_torch.config import ProposalConfig, SamplerConfig
     from htd_tpu_torch.train.train_step import TrainBatch, create_train_state, train_step
 
-    base = htd_r50_1x()
+    base = preset()
     tc = dataclasses.replace(
         base.train, rpn_proposal=ProposalConfig(300, 300, 300), rcnn_pos_cap=32,
         rcnn=tuple(dataclasses.replace(st, sampler=SamplerConfig(128, 0.25, True))
@@ -721,44 +763,106 @@ def train_card_vs_cpu() -> None:
                        torch.from_numpy(valid))
     cells = sum(-(-h // st) * -(-w // st) for st in (4, 8, 16, 32)) + -(-h // 64) * -(-w // 64)
     ov = injected_overrides(cfg, 3 * cells, (h, w))
-    results = []
-    for dev in ("cuda", "cpu"):
+    dcn_leaves = set()
+
+    def step(dev):
+        """(loss terms, gradients, parameters before and after) on `dev`."""
+        t0 = time.perf_counter()
         state = create_train_state(cfg, device=dev, seed=0)
+        if prepare is not None:
+            prepare(state.model)
+        dcn_leaves.update(f"backbone.{name}.conv2.{leaf}" for name, _ in dcn_convs(state.model)
+                          for leaf in ("weight", "conv_offset.weight", "conv_offset.bias"))
         before = {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}
         metrics = train_step(state, batch, overrides=ov)
         grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()
                  if p.grad is not None}
         after = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
-        results.append(({k: float(v) for k, v in metrics.items()}, grads, after))
-        del state
-    (mg, gg, pg), (mc, gc, pc) = results
+        print(f"  {dev} step: {time.perf_counter() - t0:.1f} s")
+        return {k: float(v) for k, v in metrics.items()}, grads, before, after
+
+    mg, gg, _, pg = step("cuda")
+    mc, gc, before, pc = step("cpu")
     loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc)
     if set(gg) != set(gc) or not gg:
         fail("the card and the CPU trained different parameters")
+    zero = [n for n in dcn_leaves if n not in gc or not gc[n].abs().max() > 0]
+    if zero:
+        fail(f"DCN leaves without a non-zero gradient on the CPU: {zero[:4]}")
 
-    def worst(a, b, refs, slack):
-        """Largest leaf error beyond `slack`, relative to the leaf's largest
+    def group(n):
+        if n in dcn_leaves:
+            return "DCN", dcn_limit
+        return ("backbone", backbone_limit) if n.startswith("backbone.") else ("rest", 1e-3)
+
+    def leaf_errors(a, b, refs, slack):
+        """Per leaf, the error beyond `slack` relative to the leaf's largest
         reference value (floored at 1e-4 of the largest over all leaves)."""
         scale = max(float(v.abs().max()) for v in refs.values())
-        errs = {n: float(((a[n] - b[n]).abs() - slack(b[n])).clamp(min=0).max())
+        return {n: float(((a[n] - b[n]).abs() - slack(b[n])).clamp(min=0).max())
                 / max(float(refs[n].abs().max()), 1e-4 * scale) for n in refs}
-        name = max(errs, key=errs.get)
-        return errs[name], name
 
-    g_err, g_name = worst(gg, gc, gc, torch.zeros_like)
+    def summary(errs):
+        """A line with, per group (DCN leaves, the backbone's other leaves,
+        the rest), its largest error, the worst leaf and the limit; the
+        leaves over their group's limit."""
+        worst = {}
+        for n, e in errs.items():
+            key = group(n)
+            if e >= worst.get(key, (-1.0, ""))[0]:
+                worst[key] = (e, n)
+        line = "; ".join(f"{name} ({sum(group(n)[0] == name for n in errs)} leaves) {e:.3g} "
+                         f"at {leaf} (limit {limit:g})"
+                         for (name, limit), (e, leaf) in sorted(worst.items()))
+        return line, [n for n in errs if errs[n] > group(n)[1]]
+
+    g_line, g_over = summary(leaf_errors(gg, gc, gc, torch.zeros_like))
     # a parameter moves by about 1e-6 of itself in one step, so the updated
     # values are compared beyond two float32 ulps of the parameter, relative
     # to the update
     ulps = lambda v: 2 * (torch.nextafter(v.abs(), torch.tensor(math.inf)) - v.abs())
     steps = {n: pc[n] - before[n] for n in gc}
-    d_err, d_name = worst(pg, pc, steps, ulps)
+    d_line, d_over = summary(leaf_errors(pg, pc, steps, ulps))
     print(f"float32 train step, card vs CPU, 2 x {h}x{w}, injected samples: loss terms max rel "
           f"err {loss_err:.3g} (limit 1e-4; total {mc['loss']:.5f}); gradients of {len(gc)} "
-          f"parameters max err {g_err:.3g} relative to the leaf's max |grad| ({g_name}; limit "
-          f"1e-3); parameters after the SGD step: max difference beyond two float32 ulps "
-          f"{d_err:.3g} of the leaf's largest update ({d_name}; limit 1e-3)")
-    if not (loss_err <= 1e-4 and g_err <= 1e-3 and d_err <= 1e-3):
-        fail("the card's float32 train step disagrees with the CPU's")
+          f"parameters, max err relative to the leaf's max |grad| by group: {g_line}; "
+          f"parameters after the SGD step, max difference beyond two float32 ulps relative to "
+          f"the leaf's largest update: {d_line}")
+    if loss_err > 1e-4 or g_over or d_over:
+        fail(f"the card's float32 train step disagrees with the CPU's: {(g_over + d_over)[:4]}")
+    for name, fault in faults:
+        with fault:
+            _, gf, _, _ = step("cpu")
+        f_line, f_over = summary(leaf_errors(gg, gf, gf, torch.zeros_like))
+        counts = {k: sum(group(n)[0] == k for n in f_over) for k in ("DCN", "backbone", "rest")}
+        print(f"control, {name}: the card's gradients vs that CPU step's, by group: {f_line}; "
+              f"leaves over their limit: {counts}")
+        if not f_over:
+            fail(f"the planted fault ({name}) stays within every limit")
+
+
+@contextlib.contextmanager
+def dropped_corner(plain_name: str):
+    """A planted fault for phase 18's control: while active, the plain
+    version `plain_name` in `htd_tpu_torch.ops.dcn` (K5's or K6's) runs
+    without each sample's last bilinear corner, as a kernel that skipped
+    that corner would; the CPU step's DCN backward goes through it."""
+    from htd_tpu_torch.ops import dcn
+
+    plain, corners = getattr(dcn, plain_name), dcn._corners
+
+    def faulty(*args):
+        dcn._corners = lambda *a: corners(*a)[:3]
+        try:
+            return plain(*args)
+        finally:
+            dcn._corners = corners
+
+    setattr(dcn, plain_name, faulty)
+    try:
+        yield
+    finally:
+        setattr(dcn, plain_name, plain)
 
 
 def profile_step(state, batch, gen) -> None:
@@ -794,14 +898,76 @@ def profile_step(state, batch, gen) -> None:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
+def counted_steps(state, batch, gen, n_dcn: int) -> dict:
+    """A training path's main path: TRAIN_STEPS train steps with the launch
+    counts set to 0 just before and read just after; every step must give
+    finite losses and launch each kernel as `step_launches(n_dcn)` says.
+    Returns the counts over the steps."""
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+    from htd_tpu_torch.train.train_step import train_step
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        start = dict(launch_counts)
+        metrics = train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        counts = {k: launch_counts[k] - start[k] for k in launch_counts}
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"non-finite losses at step {i}: {vals}")
+        if counts != step_launches(n_dcn):
+            fail(f"unexpected launches at step {i}: {counts}")
+        print(f"step {i} (lr {state.optimizer.param_groups[0]['lr']:.5f}): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()) + f"; launches {counts}")
+    train_counts = dict(launch_counts)
+    print(f"main path launches over {TRAIN_STEPS} train steps: {train_counts}")
+    return train_counts
+
+
+def check_updates(before, after, watched) -> str:
+    """Fails unless the stem and layer1 are bit-unchanged and every watched
+    parameter changed; returns a line that says so."""
+    from htd_tpu_torch.train.optim import frozen_prefixes
+
+    frozen = tuple(frozen_prefixes())
+    moved = [n for n in before if n.startswith(frozen) and not torch.equal(before[n], after[n])]
+    if moved:
+        fail(f"frozen parameters changed: {moved[:5]}")
+    still = [n for n in watched if torch.equal(before[n], after[n])]
+    if still:
+        fail(f"trainable parameters did not change: {still}")
+    return (f"{sum(n.startswith(frozen) for n in before)} stem and layer1 parameters "
+            f"bit-unchanged; changed: {', '.join(watched)}")
+
+
+def time_steps(state, batch, gen, label: str, card: str) -> None:
+    """Median and p90 (host clock, synchronised) of TIMED_STEPS warm train
+    steps, images/s and the peak device memory of the steps."""
+    from htd_tpu_torch.train.train_step import train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TIMED_STEPS + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    med, p90 = statistics.median(times), times[int(0.9 * len(times)) - 1]
+    print(f"{label} train step, batch 2 at 800x1344 bf16, {len(times)} warm steps: median "
+          f"{med:.2f} ms, p90 {p90:.2f} ms, min {times[0]:.2f} ms; {2e3 / med:.2f} images/s "
+          f"(peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB) ({card})")
+
+
 def train_phases(card):
     """Phases 12-15 (R-50 training); returns K4's kernel record."""
     from htd_tpu_torch import htd_r50_1x
     from htd_tpu_torch.ops.roi_align import roi_align_backward_plain
-    from htd_tpu_torch.ops.roi_align_cuda import (launch_counts, launch_roi_align_bwd,
-                                                  reset_launch_counts)
-    from htd_tpu_torch.train.optim import frozen_prefixes
-    from htd_tpu_torch.train.train_step import create_train_state, train_step
+    from htd_tpu_torch.ops.roi_align_cuda import launch_roi_align_bwd
+    from htd_tpu_torch.train.train_step import create_train_state
 
     phase("12 main path: HTD R-50 training, bfloat16, batch 2 in the 800x1344 bucket")
     cfg = htd_r50_1x(compute_dtype="bfloat16")
@@ -817,39 +983,14 @@ def train_phases(card):
           f"image {[len(g) for g in TRAIN_GTS]}; "
           f"{sum(p.numel() for p in model.parameters() if p.requires_grad) / 1e6:.2f}M trainable "
           f"parameters (float32)")
-    frozen = tuple(frozen_prefixes())
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    for i in range(TRAIN_STEPS):
-        start = dict(launch_counts)
-        metrics = train_step(state, batch, gen)
-        torch.cuda.synchronize()
-        counts = {k: launch_counts[k] - start[k] for k in launch_counts}
-        vals = {k: float(v) for k, v in metrics.items()}
-        if not all(math.isfinite(v) for v in vals.values()):
-            fail(f"non-finite losses at step {i}: {vals}")
-        if counts != {"pyramid_pack": 1, "roi_align": 3, "deform_conv": 0, "roi_align_bwd": 3}:
-            fail(f"unexpected launches at step {i}: {counts}")
-        print(f"step {i} (lr {state.optimizer.param_groups[0]['lr']:.5f}): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()) + f"; launches {counts}")
-    train_counts = dict(launch_counts)
-    print(f"main path launches over {TRAIN_STEPS} train steps: {train_counts}")
-    after = dict(model.named_parameters())
-    moved_frozen = [n for n in before if n.startswith(frozen) and not torch.equal(before[n], after[n])]
-    if moved_frozen:
-        fail(f"frozen parameters changed: {moved_frozen[:5]}")
-    watched = ("backbone.layer2.0.bn1.weight", "backbone.layer2.0.bn3.weight",
-               "backbone.layer4.0.conv2.weight", "neck.fpn_convs.0.conv.weight",
-               "rpn_head.rpn_cls.weight", "roi_head.bbox_head.0.fc_cls.weight",
-               "roi_head.bbox_head.1.convs.0.conv.weight", "roi_head.glbctx_head.fc.weight",
-               "roi_head.bbox_roi_extractor.1.conv1.weight")
-    still = [n for n in watched if torch.equal(before[n], after[n])]
-    n_frozen = sum(n.startswith(frozen) for n in before)
-    print(f"{n_frozen} stem and layer1 parameters bit-unchanged; changed: "
-          f"{', '.join(n for n in watched if n not in still)}")
-    if still:
-        fail(f"trainable parameters did not change: {still}")
+    train_counts = counted_steps(state, batch, gen, 0)
+    print(check_updates(before, dict(model.named_parameters()), (
+        "backbone.layer2.0.bn1.weight", "backbone.layer2.0.bn3.weight",
+        "backbone.layer4.0.conv2.weight", "neck.fpn_convs.0.conv.weight",
+        "rpn_head.rpn_cls.weight", "roi_head.bbox_head.0.fc_cls.weight",
+        "roi_head.bbox_head.1.convs.0.conv.weight", "roi_head.glbctx_head.fc.weight",
+        "roi_head.bbox_roi_extractor.1.conv1.weight")))
     del before
 
     phase("13 K4 vs its plain version on a training step's own inputs")
@@ -879,22 +1020,10 @@ def train_phases(card):
             fail(f"K4 disagrees with its plain version in {dtype}")
 
     phase("14 reference: float32 train step on the card vs the CPU")
-    train_card_vs_cpu()
+    train_card_vs_cpu(htd_r50_1x)
 
     phase("15 training timings")
-    times = []
-    for i in range(TIMED_STEPS + 2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train_step(state, batch, gen)
-        torch.cuda.synchronize()
-        if i >= 2:
-            times.append((time.perf_counter() - t0) * 1e3)
-    times.sort()
-    med, p90 = statistics.median(times), times[int(0.9 * len(times)) - 1]
-    print(f"train step, batch 2 at 800x1344 bf16, {len(times)} warm steps: median {med:.2f} ms, "
-          f"p90 {p90:.2f} ms, min {times[0]:.2f} ms; {2e3 / med:.2f} images/s "
-          f"(peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB) ({card})")
+    time_steps(state, batch, gen, "R-50", card)
     k4 = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
     for name, (geom, rois, lvls, g, args) in calls:
         ms = cuda_ms(lambda: launch_roi_align_bwd(geom, rois, lvls, g, *args))
@@ -920,6 +1049,334 @@ def train_phases(card):
             "bound_ms": max(k4["bytes_ms"], k4["ops_ms"]),
             "bound_by": "bytes" if k4["bytes_ms"] >= k4["ops_ms"] else "operations",
             "library_ms": None}
+
+
+def step_launches(dcn: int) -> dict:
+    """Each kernel's launches in one train step with `dcn` deformable
+    convs: K1 once, K2 and K4 three times, K3, K5 and K6 once per DCN."""
+    return {"pyramid_pack": 1, "roi_align": 3, "deform_conv": dcn, "roi_align_bwd": 3,
+            "deform_conv_bwd_input": dcn, "deform_conv_bwd_offset_weight": dcn}
+
+
+def open_residuals(model) -> None:
+    """Each bottleneck's last BN scale from its zero init (mmdet's
+    `zero_init_residual`) to RESIDUAL_SCALE: at zero the residual branches,
+    the deformable convs among them, get no gradient in the first step."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bn3.weight"):
+                p.fill_(RESIDUAL_SCALE)
+
+
+def set_exact_offsets(model, seed: int = 0) -> None:
+    """Offset convs whose output is the same on every device, bit for bit:
+    zero weights and a seeded bias per (tap, axis) whose fractional part
+    lies in [0.15, 0.85], so every sample sits at least 0.15 px from an
+    integer. d_offsets jumps where a sample crosses an integer (the floor
+    cell changes), and per-pixel offsets from cuDNN's and the CPU's offset
+    conv differ in their last float32 bits, enough to move a few samples
+    of a step into another cell on one device only."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for _, m in dcn_convs(model):
+            b = m.conv_offset.bias
+            whole = torch.randint(-2, 2, b.shape, generator=g).float()
+            frac = torch.empty(b.shape).uniform_(0.15, 0.85, generator=g)
+            m.conv_offset.weight.zero_()
+            b.copy_(whole + frac)
+
+
+def record_dcn_bwd_calls(state, batch, gen):
+    """One train step with K5's and K6's launchers wrapped (each still
+    launches its kernel once per call): per deformable conv, in forward
+    order, (name, x, offsets, weight, g, stride, groups), cloned. The
+    backward runs the convs in the reverse of their forward order."""
+    from htd_tpu_torch.ops import dcn_cuda
+    from htd_tpu_torch.train.train_step import train_step
+
+    k5, k6 = [], []
+    orig5 = dcn_cuda.launch_deform_conv_bwd_input
+    orig6 = dcn_cuda.launch_deform_conv_bwd_offset_weight
+
+    def rec5(x_shape, offsets, weight, g, *args):
+        k5.append((weight.clone(), g.clone()))
+        return orig5(x_shape, offsets, weight, g, *args)
+
+    def rec6(x, offsets, g, d_col, w_shape, stride, dilation, dg, groups):
+        k6.append((x.clone(), offsets.clone(), stride, groups))
+        return orig6(x, offsets, g, d_col, w_shape, stride, dilation, dg, groups)
+
+    dcn_cuda.launch_deform_conv_bwd_input = rec5
+    dcn_cuda.launch_deform_conv_bwd_offset_weight = rec6
+    try:
+        train_step(state, batch, gen)
+    finally:
+        dcn_cuda.launch_deform_conv_bwd_input = orig5
+        dcn_cuda.launch_deform_conv_bwd_offset_weight = orig6
+    convs = dcn_convs(state.model)
+    if len(k5) != len(convs) or len(k6) != len(convs):
+        fail(f"expected one K5 and one K6 call per deformable conv, got {len(k5)}, {len(k6)}")
+    calls = []
+    for (name, m), (w, g), (x, off, stride, groups) in zip(convs, k5[::-1], k6[::-1]):
+        if stride != m.stride or x.shape[-1] != m.weight.shape[1] * m.groups:
+            fail(f"K5/K6 call for {name} does not fit its conv")
+        calls.append((name, x, off, w, g, stride, groups))
+    return calls
+
+
+def x101_dcn_inputs(seed: int = 0):
+    """Seeded inputs at X-101-64x4d-DCN's grouped shapes in the 800x1344
+    bucket at batch 2, one conv per stage (64 groups; Cin/groups 8, 16,
+    32): (name, x, offsets of about OFFSET_PX std, weight in K3's memory
+    order, g, stride, groups), float32 on the card."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for name, h, w, c, stride in X101_CONVS:
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        arrs = [rng.normal(0, 1, (2, h, w, c)), rng.normal(0, OFFSET_PX, (2, ho, wo, 18)),
+                rng.normal(0, (9 * c / 64) ** -0.5, (c, 3, 3, c // 64)),
+                rng.normal(0, 1, (2, ho, wo, c))]
+        x, off, wt, g = (torch.from_numpy(a.astype(np.float32)).cuda() for a in arrs)
+        out.append((name, x, off, wt.permute(1, 2, 3, 0), g, stride, 64))
+    return out
+
+
+def check_k5_k6(calls, names, label):
+    """K5 (d_x) and K6 (d_offsets, d_weight) against
+    `deform_conv2d_backward_plain` on `calls` named in `names`, in bfloat16
+    and float32, each kernel run twice. Limit: 1e-5 of max |plain| (float32
+    sums in another order, K5's and K6's atomics in a run-dependent one),
+    plus one bfloat16 ulp of max |plain| where the output is rounded to
+    bfloat16. Returns the bfloat16 max abs errors of K5 and K6."""
+    from htd_tpu_torch.ops.dcn import deform_conv2d_backward_plain
+    from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
+                                            launch_deform_conv_bwd_offset_weight)
+
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = {"d_x": [0.0, 0.0], "d_off": [0.0, 0.0], "d_w": [0.0, 0.0]}
+        spread = 0.0
+        for name, x, off, w, g, stride, groups in calls:
+            if name not in names:
+                continue
+            x, off, w, g = (t.to(dtype) for t in (x, off, w, g))
+            ref = deform_conv2d_backward_plain(x, off, w, g, stride, 1, 1, groups)
+            runs = []
+            for _ in range(2):
+                d_x, d_col = launch_deform_conv_bwd_input(x.shape, off, w, g, stride, 1, 1, groups)
+                d_off, d_w = launch_deform_conv_bwd_offset_weight(x, off, g, d_col, w.shape,
+                                                                  stride, 1, 1, groups)
+                runs.append((d_x, d_off, d_w.to(dtype)))
+                del d_col
+            line = []
+            for i, key in enumerate(("d_x", "d_off", "d_w")):
+                p = ref[i].float()
+                scale = p.abs().max().item()
+                ulp = 0.0 if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(scale)) - 7)
+                e = max((r[i].float() - p).abs().max().item() for r in runs)
+                spread = max(spread, (runs[0][i].float() - runs[1][i].float()).abs().max().item()
+                             / scale)
+                if e > 1e-5 * scale + ulp:
+                    fail(f"{label} {name} {key} in {dtype}: max abs err {e:.3g}, limit "
+                         f"{1e-5 * scale + ulp:.3g} (max |plain| {scale:.3g})")
+                worst[key] = [max(worst[key][0], e), max(worst[key][1], e / scale)]
+                line.append(f"{key} {e:.3g} ({e / scale:.2g} of max |plain| {scale:.3g})")
+            print(f"  {str(dtype)[6:]} {label} {name} (stride {stride}, {x.shape[-1]} ch, groups "
+                  f"{groups}): " + "; ".join(line))
+            del runs, ref
+        torch.cuda.synchronize()
+        errs[dtype] = (worst["d_x"][0], max(worst["d_off"][0], worst["d_w"][0]))
+        print(f"{str(dtype)[6:]} {label}: K5 d_x max err {worst['d_x'][1]:.3g}, K6 d_off "
+              f"{worst['d_off'][1]:.3g}, d_w {worst['d_w'][1]:.3g} of max |plain| (limit 1e-5"
+              f"{'' if dtype == torch.float32 else ' + one bfloat16 ulp'}); two runs differ by at "
+              f"most {spread:.3g} of max |plain|")
+    return errs[torch.bfloat16]
+
+
+def dcn_bwd_work(x, off, w_shape, g, stride, groups):
+    """(K5 bytes, K5 tensor-core ops, K5 float32 ops, K6 bytes, K6
+    tensor-core ops, K6 float32 ops, corners) of one deformable conv's
+    backward on this data, counted for the functions of the TPU kernels
+    that K5 and K6 replace. K5: g, W and the offsets read, d_x written;
+    d_col = g . W^T is 2 N Ho Wo 9 Cin/groups Cout operations, and the
+    scatter 2 per channel of each non-zero-weight corner. K6: x, the
+    offsets, g and W read, d_off and the float32 d_w written; d_col (which
+    its function forms from g and W) and d_w = samples^T . g are 2 N Ho Wo
+    9 Cin/groups Cout each, the samples 2 per channel of each non-zero
+    corner, d_off 4 per channel of each corner with a non-zero derivative
+    and 4 per (pixel, tap, channel) for the products with d_col. The
+    float32 d_col that K5 writes and K6 reads back is the kernels' own
+    intermediate, which neither function needs, so it is not counted."""
+    from htd_tpu_torch.ops.dcn import _corners, _sample_positions
+
+    n, h, w, cin = x.shape
+    ho, wo, cout = g.shape[1], g.shape[2], g.shape[3]
+    es = x.element_size()
+    ys, xs = _sample_positions(n, ho, wo, 3, 3, stride, 1, off, 1)
+    live_w = live_d = 0
+    for _, wgt, dwy, dwx in _corners(h, w, ys, xs):
+        live_w += int((wgt != 0).sum())
+        live_d += int(((dwy != 0) | (dwx != 0)).sum())
+    gemm = 2 * n * ho * wo * 9 * (cin // groups) * cout
+    col = n * ho * wo * 9 * cin
+    w_elems = 9 * (cin // groups) * cout
+    k5_bytes = (g.numel() + w_elems + off.numel() + x.numel()) * es
+    k6_bytes = (x.numel() + off.numel() + g.numel() + w_elems + off.numel()) * es + w_elems * 4
+    return (k5_bytes, gemm, 2 * live_w * cin, k6_bytes, 2 * gemm,
+            2 * live_w * cin + 4 * live_d * cin + 4 * col, live_w)
+
+
+def dcn_train_phases(card, imgs):
+    """Phases 16-19 (R-101-DCN training); returns the kernel records of K5
+    and K6."""
+    from htd_tpu_torch import htd_r101_dcn_2x
+    from htd_tpu_torch.ops.dcn import (deform_conv2d_backward_input_plain,
+                                       deform_conv2d_backward_offset_weight_plain)
+    from htd_tpu_torch.ops._build import load
+    from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
+                                            launch_deform_conv_bwd_offset_weight)
+    from htd_tpu_torch.train.train_step import create_train_state
+
+    phase("16 main path: HTD R-101-DCN training, bfloat16, batch 2 in the 800x1344 bucket")
+    cfg = htd_r101_dcn_2x(compute_dtype="bfloat16")
+    state = create_train_state(cfg, seed=0)
+    model = state.model
+    open_residuals(model)
+    with torch.autocast(model.device.type, dtype=torch.bfloat16):
+        stds = offset_stds(model, imgs[0])
+    with torch.no_grad():
+        set_offsets(model, stds, seed=0)
+    batch = train_batch(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_dcn = len(dcn_convs(model))
+    print(f"create_train_state(htd_r101_dcn_2x(compute_dtype='bfloat16'), seed=0); bn3 scales "
+          f"{RESIDUAL_SCALE} (from zero); {n_dcn} deformable convs, conv_offset weights seeded "
+          f"normal with std {min(stds):.2e}-{max(stds):.2e} (zero bias) for offsets of about "
+          f"{OFFSET_PX} px std; "
+          f"{sum(p.numel() for p in model.parameters() if p.requires_grad) / 1e6:.2f}M trainable "
+          f"parameters (float32); the batch and sampler settings of phase 12")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats = OffsetStats(model)
+    train_counts = counted_steps(state, batch, gen, n_dcn)
+    st = stats.report(n_dcn * TRAIN_STEPS * len(TRAIN_GTS))
+    if st["far"] < 0.05 or st["outside"] <= 0.0:
+        fail("the seeded offsets do not move samples off their taps and out of the image")
+    after = dict(model.named_parameters())
+    dcn_leaves = [f"backbone.{name}.conv2.{leaf}" for name, _ in dcn_convs(model)
+                  for leaf in ("weight", "conv_offset.weight", "conv_offset.bias")]
+    no_grad = [n for n in dcn_leaves if after[n].grad is None
+               or not (torch.isfinite(after[n].grad).all() and after[n].grad.abs().max() > 0)]
+    if no_grad:
+        fail(f"DCN leaves without a finite non-zero gradient in the last step: {no_grad[:4]}")
+    print(f"all {len(dcn_leaves)} DCN leaves (weight, conv_offset weight and bias) have a "
+          f"finite non-zero gradient in the last step; " + check_updates(
+              before, after, DCN_WATCHED + ("neck.fpn_convs.0.conv.weight",
+                                            "rpn_head.rpn_cls.weight",
+                                            "roi_head.bbox_head.1.fc_cls.weight")))
+    del before
+
+    phase("17 K5 and K6 vs their plain version on a training step's own inputs")
+    calls = record_dcn_bwd_calls(state, batch, gen)
+    print(f"captured the {len(calls)} deformable convs' backward inputs of one step; checked: "
+          f"{', '.join(DCN_CHECKED)} (stride 2 and 1 of each stage)")
+    k5_err, k6_err = check_k5_k6(calls, DCN_CHECKED, "R-101-DCN")
+    xcalls = x101_dcn_inputs()
+    check_k5_k6(xcalls, [c[0] for c in xcalls], "X-101-64x4d-DCN")
+    del xcalls
+
+    phase("18 reference: float32 R-101-DCN train step on the card vs the CPU")
+
+    def prepare(m):
+        open_residuals(m)
+        set_exact_offsets(m)
+
+    # With the residual branches open, float32 gradients through R-101's 33
+    # active blocks flip ReLUs whose pre-activation sits at rounding level
+    # on one device only, and at 192x288 a layer4 channel sums only 108
+    # pixels, so a single flip shows in a leaf's relative error. The
+    # backbone's limits sit between the sound run's errors and those of the
+    # planted faults below, both measured in this phase (PERF.md).
+    train_card_vs_cpu(htd_r101_dcn_2x, prepare, backbone_limit=1e-2, dcn_limit=1e-2, faults=(
+        ("K5's plain version drops each sample's last corner from d_x",
+         dropped_corner("deform_conv2d_backward_input_plain")),
+        ("K6's plain version drops each sample's last corner from d_off and d_w",
+         dropped_corner("deform_conv2d_backward_offset_weight_plain"))))
+
+    phase("19 R-101-DCN training timings")
+    time_steps(state, batch, gen, "R-101-DCN", card)
+    tot = {k: 0.0 for k in ("k5", "k6", "k5_plain", "k6_plain", "cudnn", "k5_b", "k5_o", "k6_b",
+                            "k6_o")}
+    per_stage = {}
+    for name, x, off, w, g, stride, groups in calls:
+        d_col = launch_deform_conv_bwd_input(x.shape, off, w, g, stride, 1, 1, groups)[1]
+        k5 = cuda_ms(lambda: launch_deform_conv_bwd_input(x.shape, off, w, g, stride, 1, 1, groups))
+        k6 = cuda_ms(lambda: launch_deform_conv_bwd_offset_weight(x, off, g, d_col, w.shape,
+                                                                  stride, 1, 1, groups))
+        k5_plain = cuda_ms(lambda: deform_conv2d_backward_input_plain(
+            x.shape, off, w, g, stride, 1, 1, groups), iters=1, warmup=1)
+        k6_plain = cuda_ms(lambda: deform_conv2d_backward_offset_weight_plain(
+            x, off, g, d_col, w.shape, stride, 1, 1, groups), iters=1, warmup=1)
+        x_nchw, w_oihw, g_nchw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2)
+        cudnn = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            g_nchw, x_nchw, w_oihw, None, [stride, stride], [1, 1], [1, 1], False, [0, 0], groups,
+            [True, True, False]))
+        k5_b, k5_g, k5_f, k6_b, k6_g, k6_f, corners = dcn_bwd_work(x, off, w.shape, g, stride,
+                                                                   groups)
+        k5_o = k5_g / BF16_FLOP_PER_S * 1e3 + k5_f / FP32_FLOP_PER_S * 1e3
+        k6_o = k6_g / BF16_FLOP_PER_S * 1e3 + k6_f / FP32_FLOP_PER_S * 1e3
+        for key, v in (("k5", k5), ("k6", k6), ("k5_plain", k5_plain), ("k6_plain", k6_plain),
+                       ("cudnn", cudnn), ("k5_b", k5_b / HBM_BYTES_PER_S * 1e3), ("k5_o", k5_o),
+                       ("k6_b", k6_b / HBM_BYTES_PER_S * 1e3), ("k6_o", k6_o)):
+            tot[key] += v
+        stage = per_stage.setdefault(name.split(".")[0], [0, 0.0, 0.0])
+        stage[0] += 1
+        stage[1] += k5
+        stage[2] += k6
+        if name in ("layer2.0", "layer2.1", "layer3.1", "layer4.1"):
+            partials = load()[0].htd_deform_conv_bwd_dw_partials(
+                g.shape[0], g.shape[1], g.shape[2], x.shape[-1], g.shape[-1], groups)
+            print(f"{name} (stride {stride}, {x.shape[-1]} ch, {x.shape[1]}x{x.shape[2]} -> "
+                  f"{g.shape[1]}x{g.shape[2]}): K5 {k5 * 1e3:.1f} us (bound "
+                  f"{max(k5_b / HBM_BYTES_PER_S * 1e3, k5_o) * 1e3:.1f}: {k5_b / 1e6:.1f} MB, "
+                  f"{k5_g / 1e9:.2f} GFLOP d_col, {corners / 1e6:.2f}M live corners -> "
+                  f"{corners * x.shape[-1] / 4 / 1e6:.1f}M 16-byte atomics); K6 {k6 * 1e3:.1f} us "
+                  f"(bound {max(k6_b / HBM_BYTES_PER_S * 1e3, k6_o) * 1e3:.1f}: {k6_b / 1e6:.1f} "
+                  f"MB, {k6_g / 1e9:.2f} GFLOP d_col and d_w, d_w in {partials} partials, "
+                  f"{partials * w.numel() / 4 / 1e6:.2f}M 16-byte atomics); cuDNN conv backward "
+                  f"(d_x, d_w) {cudnn * 1e3:.1f} us; plain K5 {k5_plain:.2f} ms, K6 "
+                  f"{k6_plain:.2f} ms")
+        del d_col
+    print("per stage (launches, K5 ms, K6 ms): " + "; ".join(
+        f"{st} {n} {a:.3f} {b:.3f}" for st, (n, a, b) in per_stage.items()))
+    k5_bound, k6_bound = max(tot["k5_b"], tot["k5_o"]), max(tot["k6_b"], tot["k6_o"])
+    print(f"K5 per step ({len(calls)} launches): {tot['k5']:.3f} ms; bound {k5_bound:.4f} ms "
+          f"(bytes at 3.35 TB/s {tot['k5_b']:.4f} ms, operations {tot['k5_o']:.4f} ms: d_col at "
+          f"989 TFLOP/s bf16, the scatter at 67 TFLOP/s float32)")
+    print(f"K6 per step ({len(calls)} launches): {tot['k6']:.3f} ms; bound {k6_bound:.4f} ms "
+          f"(bytes {tot['k6_b']:.4f} ms, operations {tot['k6_o']:.4f} ms: d_col and d_w at 989 "
+          f"TFLOP/s bf16, sampling and d_off at 67 TFLOP/s float32); neither bound counts the "
+          f"float32 d_col that K5 writes and K6 reads back")
+    print(f"plain versions per step: K5's {tot['k5_plain']:.3f} ms, K6's {tot['k6_plain']:.3f} "
+          f"ms; no single PyTorch call computes either (library: none); context: cuDNN's "
+          f"regular-conv backward (d_x, d_w) of the same shapes {tot['cudnn']:.3f} ms per step, "
+          f"not the same function ({card})")
+    profile_step(state, batch, gen)
+    return [
+        {"name": "deform_conv_bwd_input", "route": "cuda",
+         "source": "htd_tpu_torch/csrc/deform_conv_bwd_input.cu",
+         "replaces": "htd_tpu/ops/dcn_pallas.py:313",
+         "launches": train_counts["deform_conv_bwd_input"], "max_abs_err": k5_err,
+         "ms": tot["k5"], "plain_ms": tot["k5_plain"], "bound_ms": k5_bound,
+         "bound_by": "bytes" if tot["k5_b"] >= tot["k5_o"] else "operations",
+         "library_ms": None},
+        {"name": "deform_conv_bwd_offset_weight", "route": "cuda",
+         "source": "htd_tpu_torch/csrc/deform_conv_bwd_offset_weight.cu",
+         "replaces": "htd_tpu/ops/dcn_pallas.py:478",
+         "launches": train_counts["deform_conv_bwd_offset_weight"], "max_abs_err": k6_err,
+         "ms": tot["k6"], "plain_ms": tot["k6_plain"], "bound_ms": k6_bound,
+         "bound_by": "bytes" if tot["k6_b"] >= tot["k6_o"] else "operations",
+         "library_ms": None},
+    ]
 
 
 def main():
@@ -1075,15 +1532,17 @@ def main():
 
 def run() -> None:
     """The inference phases 1-11 under `torch.inference_mode`, then the
-    training phases 12-15 with autograd (models built in inference mode
+    training phases 12-19 with autograd (models built in inference mode
     hold inference tensors, which autograd rejects), then the result."""
     with torch.inference_mode():
         card, kind, kernels, t_start = main()
     kernels.append(train_phases(card))
+    kernels.extend(dcn_train_phases(card, images()))
     print(f"kernel times are per image (K2: the sum of its 3 calls per request; K3: of its "
-          f"30 launches per R-101-DCN request) and, for K4, per train step (its 3 calls); "
-          f"launches are over the {len(REQUEST_SHAPES)} main-path requests (K1, K2: R-50; K3: "
-          f"R-101-DCN) and the {TRAIN_STEPS} main-path train steps (K4); max_abs_err is "
+          f"30 launches per R-101-DCN request) and per train step (K4: its 3 calls, R-50; K5, "
+          f"K6: their 30 launches each, R-101-DCN); launches are over the {len(REQUEST_SHAPES)} "
+          f"main-path requests (K1, K2: R-50; K3: R-101-DCN) and the {TRAIN_STEPS} main-path "
+          f"train steps of each training path (K4: R-50; K5, K6: R-101-DCN); max_abs_err is "
           f"bfloat16 vs the plain version; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,14 +9,11 @@
 // gathers the four bilinear corners of every sample directly, so it is
 // exact for every offset.
 //
-// Function (the JAX `_dcn_xla_impl(impl="gather")`):
-//   y = (oy*stride - pad + ky*dil) + off_y;  x likewise with off_x
-//   (one correctly rounded float32 add, so floor() agrees bit for bit)
-//   inside = y > -1 && y < H && x > -1 && x < W
-//   corners (y0, x0), (y0, x0+1), (y0+1, x0), (y0+1, x0+1) with weights
-//   (1-ly)(1-lx), (1-ly)lx, ly(1-lx), ly*lx; a corner outside the map
-//   weighs 0; out[o] = sum_k sum_c sample(k, c) * W[k][c - g*cg][o] over the
-//   input channels c of o's weight group g.
+// Function (the JAX `_dcn_xla_impl(impl="gather")`): each tap's bilinear
+//   sample, with the corners and weights of deform_geom.cuh (shared with
+//   the backward kernels K5 and K6, so that all three decide floor() and
+//   the corner bounds alike); out[o] = sum_k sum_c sample(k, c) *
+//   W[k][c - g*cg][o] over the input channels c of o's weight group g.
 //   Layouts: x (N, H, W, Cin), offsets (N, Ho, Wo, 18) [tap][(y, x)],
 //   weight in (Cout, 3, 3, Cin/groups) memory order (the channels_last
 //   memory of the mmcv (Cout, Cin/groups, 3, 3) parameter, so the kernel
@@ -38,61 +35,16 @@
 // output channels' groups, and each thread only runs over its own group.
 // Tensor cores (mma / wgmma), TMA and pipelining are later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "deform_geom.cuh"
 
 namespace {
 
-constexpr int kTaps = 9;
 constexpr int kPix = 64;      // output pixels per block
 constexpr int kOut = 64;      // output channels per block
 constexpr int kChunk = 32;    // input channels per shared-memory chunk
 constexpr int kThreads = 256; // 16 pixel quads x 16 channel quads
 static_assert(kChunk == 32 && kOut % 4 == 0 && kChunk * kOut % kThreads == 0,
               "the weight staging maps 8 channels x 4 out channels onto a warp");
-
-struct DcnParams {
-  int h, w, cin, ho, wo, cout, cg, og, stride, pad, dil;
-};
-
-template <typename T> struct Vec;
-
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float (&v)[N]) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  }
-  __device__ __forceinline__ static float one(const float* p) { return *p; }
-  __device__ __forceinline__ static void store4(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&v)[N]) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
-    }
-  }
-  __device__ __forceinline__ static float one(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  __device__ __forceinline__ static void store4(__nv_bfloat16* p, const float (&v)[4]) {
-    uint2 x;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
-    h[0] = __floats2bfloat162_rn(v[0], v[1]);
-    h[1] = __floats2bfloat162_rn(v[2], v[3]);
-    *reinterpret_cast<uint2*>(p) = x;
-  }
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -136,31 +88,18 @@ deform_conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ offsets,
     const int ky = tap / 3, kx = tap - ky * 3;
     if (tid < kPix) {
       const int pix = pix0 + tid;
-      float w00 = 0.0f, w01 = 0.0f, w10 = 0.0f, w11 = 0.0f;
-      int i00 = 0, i01 = 0, i10 = 0, i11 = 0;
+      Corners c = no_corners();
       if (pix < npix) {
         const int oy = pix / p.wo, ox = pix - oy * p.wo;
         const float dy = Vec<T>::one(oimg + (int64_t)pix * (2 * kTaps) + 2 * tap);
         const float dx = Vec<T>::one(oimg + (int64_t)pix * (2 * kTaps) + 2 * tap + 1);
-        const float ys = __fadd_rn((float)(oy * p.stride - p.pad + ky * p.dil), dy);
-        const float xs = __fadd_rn((float)(ox * p.stride - p.pad + kx * p.dil), dx);
-        if (ys > -1.0f && ys < (float)p.h && xs > -1.0f && xs < (float)p.w) {
-          const float y0 = floorf(ys), x0 = floorf(xs);
-          const float ly = __fsub_rn(ys, y0), lx = __fsub_rn(xs, x0);
-          const float hy = __fsub_rn(1.0f, ly), hx = __fsub_rn(1.0f, lx);
-          const int yi = (int)y0, xi = (int)x0;
-          const bool y0_ok = yi >= 0, y1_ok = yi + 1 < p.h;
-          const bool x0_ok = xi >= 0, x1_ok = xi + 1 < p.w;
-          if (y0_ok && x0_ok) { w00 = __fmul_rn(hy, hx); i00 = yi * p.w + xi; }
-          if (y0_ok && x1_ok) { w01 = __fmul_rn(hy, lx); i01 = yi * p.w + xi + 1; }
-          if (y1_ok && x0_ok) { w10 = __fmul_rn(ly, hx); i10 = (yi + 1) * p.w + xi; }
-          if (y1_ok && x1_ok) { w11 = __fmul_rn(ly, lx); i11 = (yi + 1) * p.w + xi + 1; }
-        }
+        c = sample_corners(oy, ox, ky, kx, dy, dx, p);
       }
-      corner_idx[0][tid] = i00; corner_w[0][tid] = w00;
-      corner_idx[1][tid] = i01; corner_w[1][tid] = w01;
-      corner_idx[2][tid] = i10; corner_w[2][tid] = w10;
-      corner_idx[3][tid] = i11; corner_w[3][tid] = w11;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        corner_idx[q][tid] = c.idx[q];
+        corner_w[q][tid] = c.w[q];
+      }
     }
     __syncthreads();
 
@@ -247,15 +186,10 @@ extern "C" int htd_deform_conv_fwd(const void* x, const void* offsets, const voi
                                    void* out, int n, int h, int w, int cin, int ho, int wo,
                                    int cout, int groups, int stride, int pad, int dil,
                                    int dtype, cudaStream_t stream) {
-  if (dtype != 0 && dtype != 1) return -1;
-  if (n < 1 || h < 1 || w < 1 || ho < 1 || wo < 1 || groups < 1) return -1;
-  if (cin % groups || cout % groups) return -1;
-  const int vec = dtype == 0 ? Vec<float>::N : Vec<__nv_bfloat16>::N;
   DcnParams p;
-  p.h = h; p.w = w; p.cin = cin; p.ho = ho; p.wo = wo; p.cout = cout;
-  p.cg = cin / groups; p.og = cout / groups;
-  p.stride = stride; p.pad = pad; p.dil = dil;
-  if (p.cg % vec || p.og % 4 || n > 65535) return -1;
+  if (!fill_params(p, n, h, w, cin, ho, wo, cout, groups, stride, pad, dil, dtype)) return -1;
+  const int vec = dtype == 0 ? Vec<float>::N : Vec<__nv_bfloat16>::N;
+  if (p.cg % vec || p.og % 4) return -1;
   dim3 grid((ho * wo + kPix - 1) / kPix, (cout + kOut - 1) / kOut, n);
   if (dtype == 0) {
     deform_conv_fwd_kernel<float><<<grid, kThreads, 0, stream>>>(

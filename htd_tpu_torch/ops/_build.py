@@ -110,6 +110,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.htd_roi_align_bwd.restype = i32
     lib.htd_deform_conv_fwd.argtypes = [vp, vp, vp, vp] + [i32] * 12 + [vp]
     lib.htd_deform_conv_fwd.restype = i32
+    lib.htd_deform_conv_bwd_input.argtypes = [vp] * 5 + [i32] * 12 + [vp]
+    lib.htd_deform_conv_bwd_input.restype = i32
+    lib.htd_deform_conv_bwd_offset_weight.argtypes = [vp] * 6 + [i32] * 12 + [vp]
+    lib.htd_deform_conv_bwd_offset_weight.restype = i32
+    lib.htd_deform_conv_bwd_dw_partials.argtypes = [i32] * 6
+    lib.htd_deform_conv_bwd_dw_partials.restype = i32
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,10 +22,11 @@ import torch
 
 from htd_tpu_torch.ops.pyramid import Pyramid, PyramidGeometry
 
-# kernel name -> launches since the last reset (K3's launcher, in
-# `ops/dcn_cuda.py`, counts here too)
+# kernel name -> launches since the last reset (the launchers of K3, K5
+# and K6, in `ops/dcn_cuda.py`, count here too)
 launch_counts: Dict[str, int] = {"pyramid_pack": 0, "roi_align": 0, "deform_conv": 0,
-                                 "roi_align_bwd": 0}
+                                 "roi_align_bwd": 0, "deform_conv_bwd_input": 0,
+                                 "deform_conv_bwd_offset_weight": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -6,9 +6,12 @@ training forward, sums the loss terms whose key contains `loss` (mmdet
 `_parse_losses`), backpropagates, and takes one SGD step at the scheduled
 learning rate. Parameters and the SGD state stay float32; the forward
 computes in `cfg.compute_dtype` under `torch.autocast`, as the JAX package
-casts its float32 parameters per op, so the kernels K1, K2 and K4 see
-bfloat16 features while the losses stay float32. The multi-device path
-(DDP) is not ported yet.
+casts its float32 parameters per op, so the kernels see bfloat16 features
+while the losses stay float32. Every preset trains: a step runs K1
+(pyramid pack) once, K2 (RoIAlign) and its backward K4 three times each
+and, with deformable convs (R-101-DCN, X-101-DCN: 30 of them in layer2-4),
+K3 forward and K5 + K6 backward once per deformable conv. The multi-device
+path (DDP) is not ported yet.
 """
 
 from __future__ import annotations

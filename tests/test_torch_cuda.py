@@ -68,7 +68,8 @@ def test_kernels_match_plain(cuda, dtype):
         assert _rel_err(k[lvl], p) <= tol
     torch.cuda.synchronize()
     assert launch_counts == {"pyramid_pack": 1, "roi_align": 3, "deform_conv": 0,
-                             "roi_align_bwd": 0}
+                             "roi_align_bwd": 0, "deform_conv_bwd_input": 0,
+                             "deform_conv_bwd_offset_weight": 0}
 
 
 @pytest.mark.cuda
@@ -193,16 +194,124 @@ def test_roi_align_bwd_matches_plain(cuda, all_levels, dtype):
         assert _rel_err(f.grad, ref) <= (1e-5 if dtype == torch.float32 else 1e-2)
 
 
+def _bwd_err(k, p, dtype):
+    """Largest |k - p| relative to max |p|, and its limit: 1e-5 where both
+    are float32 sums of the same products in another order; in bfloat16
+    one more bfloat16 ulp of the largest value, for the final rounding."""
+    scale = p.float().abs().max().item()
+    err = (k.float() - p.float()).abs().max().item() / scale
+    ulp = 0.0 if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(scale)) - 7) / scale
+    return err, 1e-5 + ulp
+
+
 @pytest.mark.cuda
-def test_train_step_launches(cuda):
-    """One bfloat16 train step of HTD R-50 at full depth and width (a small
-    256x384 batch of 2): K1 once, K2 three times, K4 three times; finite
-    float32 losses."""
-    from htd_tpu_torch import htd_r50_1x
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 64])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_conv_bwd_matches_plain(cuda, stride, groups, dtype):
+    """K5 (d_x, and the d_col it hands K6) and K6 (d_offsets, d_weight)
+    against `deform_conv2d_backward_plain` on the same inputs, twice (the
+    atomics sum in a run-dependent order): within `_bwd_err`'s limit."""
+    from htd_tpu_torch.ops.dcn import deform_conv2d_backward_plain
+    from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
+                                            launch_deform_conv_bwd_offset_weight)
+
+    x, off, wgt = _dcn_inputs(cuda, dtype, stride, groups)
+    g = torch.randn(off.shape[:3] + (wgt.shape[-1],), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(1)).to(dtype)
+    ref = deform_conv2d_backward_plain(x, off, wgt, g, stride=stride, groups=groups)
+    for _ in range(2):
+        d_x, d_col = launch_deform_conv_bwd_input(x.shape, off, wgt, g, stride, 1, 1, groups)
+        d_off, d_w = launch_deform_conv_bwd_offset_weight(x, off, g, d_col, wgt.shape, stride,
+                                                          1, 1, groups)
+        got = (d_x, d_off, d_w.to(dtype))
+        for name, k, p in zip(("d_x", "d_off", "d_w"), got, ref):
+            assert k.shape == p.shape and k.dtype == p.dtype, name
+            err, lim = _bwd_err(k, p, dtype)
+            assert err <= lim, f"{name}: {err:.3g} (limit {lim:.3g})"
+
+
+@pytest.mark.cuda
+def test_deform_conv_bwd_rejects_what_it_does_not_take(cuda):
+    """K5 and K6 raise, rather than fall back or copy, on a cotangent that
+    is not contiguous, inputs of two dtypes, two deform groups, and a d_col
+    that is not K5's float32 one."""
+    from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
+                                            launch_deform_conv_bwd_offset_weight)
+
+    x, off, wgt = _dcn_inputs(cuda, torch.float32, 1, 1)
+    g = torch.randn(off.shape[:3] + (wgt.shape[-1],), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        launch_deform_conv_bwd_input(x.shape, off, wgt, g.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), 1, 1, 1, 1)
+    with pytest.raises(ValueError, match="one dtype"):
+        launch_deform_conv_bwd_input(x.shape, off, wgt, g.bfloat16(), 1, 1, 1, 1)
+    with pytest.raises(ValueError, match="deform group"):
+        launch_deform_conv_bwd_input(x.shape, off, wgt, g, 1, 1, 2, 1)
+    _, d_col = launch_deform_conv_bwd_input(x.shape, off, wgt, g, 1, 1, 1, 1)
+    with pytest.raises(ValueError, match="d_col"):
+        launch_deform_conv_bwd_offset_weight(x, off, g, d_col.bfloat16(), wgt.shape, 1, 1, 1, 1)
+    with pytest.raises(ValueError, match="one dtype"):
+        launch_deform_conv_bwd_offset_weight(x.bfloat16(), off, g, d_col, wgt.shape, 1, 1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_deform_conv_module_trains_on_cuda(cuda):
+    """`DeformConv2d` on the card with float32 parameters under bfloat16
+    autocast, fed bfloat16 activations as the network feeds it: the
+    weight and offsets are cast to the input's dtype, the
+    output comes from `_DeformConv2d`, one backward launches K5 and K6 once
+    each, and the input and every parameter get a finite float32 gradient
+    within 3e-2 of the float32 CPU module's largest value (bfloat16
+    activations and cotangents). The offset conv has zero weights and a
+    bias of eighths off the integers, so the offsets are the same in both
+    dtypes: d_offsets jumps where a sample crosses an integer, and
+    bfloat16 offsets from a random offset conv would move many samples
+    into another cell."""
+    from htd_tpu_torch.ops.dcn import DeformConv2d
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+
+    rng = np.random.RandomState(2)
+    w_np = rng.normal(0, 0.05, (128, 128, 3, 3)).astype(np.float32)
+    bias = (rng.randint(-2, 2, 18) + rng.randint(1, 8, 18) / 8).astype(np.float32)
+    x_np = rng.normal(0, 1, (2, 128, 20, 30)).astype(np.float32)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        m = DeformConv2d(128, 128, stride=2)
+        with torch.no_grad():
+            m.weight.copy_(torch.from_numpy(w_np))
+            m.conv_offset.weight.zero_()
+            m.conv_offset.bias.copy_(torch.from_numpy(bias))
+        m = m.to(dev).to(memory_format=torch.channels_last)
+        x = torch.from_numpy(x_np).to(dev).to(memory_format=torch.channels_last)
+        x.requires_grad_(True)
+        reset_launch_counts()
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=dev == "cuda"):
+            out = m(x.to(torch.bfloat16) if dev == "cuda" else x)
+        out.float().square().sum().backward()
+        grads.append([x.grad] + [p.grad for p in m.parameters()])
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert type(out.grad_fn.next_functions[0][0]).__name__ == "_DeformConv2dBackward"
+    assert (launch_counts["deform_conv"], launch_counts["deform_conv_bwd_input"],
+            launch_counts["deform_conv_bwd_offset_weight"]) == (1, 1, 1)
+    for c, k in zip(*grads):
+        assert k.dtype == torch.float32 and torch.isfinite(k).all()
+        assert (k.cpu() - c).abs().max().item() <= 3e-2 * c.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["htd_r50_1x", "htd_r101_dcn_2x", "htd_x101_dcn_2x"])
+def test_train_step_launches(cuda, preset):
+    """One bfloat16 train step of HTD R-50 / R-101-DCN / X-101-64x4d-DCN at
+    full depth and width (a small 256x384 batch of 2): K1 once, K2 and K4
+    three times each, and with the 30 deformable convs K3, K5 and K6 30
+    times each; finite float32 losses."""
+    from htd_tpu_torch import config as PC
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
     from htd_tpu_torch.train.train_step import TrainBatch, create_train_state, train_step
 
-    state = create_train_state(htd_r50_1x(compute_dtype="bfloat16"), seed=0)
+    state = create_train_state(getattr(PC, preset)(compute_dtype="bfloat16"), seed=0)
     rng = np.random.RandomState(0)
     boxes = np.zeros((2, 100, 4), np.float32)
     boxes[:, :3] = [[20, 30, 90, 120], [100, 40, 300, 230], [10, 150, 60, 200]]
@@ -215,6 +324,8 @@ def test_train_step_launches(cuda):
     reset_launch_counts()
     metrics = train_step(state, batch, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    assert launch_counts == {"pyramid_pack": 1, "roi_align": 3, "deform_conv": 0,
-                             "roi_align_bwd": 3}
+    dcn = 0 if preset == "htd_r50_1x" else 30
+    assert launch_counts == {"pyramid_pack": 1, "roi_align": 3, "deform_conv": dcn,
+                             "roi_align_bwd": 3, "deform_conv_bwd_input": dcn,
+                             "deform_conv_bwd_offset_weight": dcn}
     assert all(v.dtype == torch.float32 and torch.isfinite(v).item() for v in metrics.values())
