@@ -61,8 +61,26 @@ script exits non-zero without its final line:
  19. R-101-DCN training timings: median and p90 per step, images/s, K5 and
      K6 per launch and per step beside their bounds, their plain version,
      cuDNN's regular-conv backward of the same shapes (context only), a
-     device-time profile of one step.
-It needs CUDA: with no GPU, or run outside the repository, it fails.
+     device-time profile of one step;
+ 20. K7 (the FPN upsample-add) and K8 (the layout fence) held to their
+     plain versions, bit for bit, on the main path's own laterals (phase 3's
+     first request, the three top-down pairs) in bfloat16 and float32, K7's
+     channels_last output and autograd function; K7's times per image
+     beside its bound, its plain version and `lat + F.interpolate`;
+ 21. main path: one R-101-DCN bfloat16 request with HTD_FPN_FENCE,
+     HTD_RPN_FENCE and HTD_DCN_FENCE set: detections bit-identical to the
+     unfenced request, K8 launched 3 + 5 + 30 times; K8's time on the
+     largest fenced tensor beside its bound, its plain version and
+     `clone`;
+ 22. main path: `aug_inference_detector` on R-101-DCN bfloat16, two scales
+     with flip (4 augs, K7 6 times and K3 60 times per aug); one aug at the
+     test scale against `inference_detector` in float32; warm latency;
+ 23. main path: `evaluate_dataset` and `evaluate_proposals` of R-50
+     bfloat16 at batch 8 on a synthetic mini-COCO of 16 seeded images; the
+     evaluator's self-check (the ground truth as detections scores mAP 1);
+     images/s.
+Every forward launches K7 3 times (one per FPN top-down add), whatever its
+batch. It needs CUDA: with no GPU, or run outside the repository, it fails.
 """
 
 from __future__ import annotations
@@ -103,6 +121,9 @@ DCN_WATCHED = ("backbone.layer2.0.conv2.weight", "backbone.layer2.1.conv2.conv_o
 X101_CONVS = (("layer2.0", 200, 336, 512, 2), ("layer3.1", 50, 84, 1024, 1),
               ("layer4.1", 25, 42, 2048, 1))
 TIMED_STEPS = 10           # phase 15's warm steps
+TTA_SCALES = ((1333, 800), (1600, 1000))   # phase 22, each with and without flip
+TTA_TIMED = 5              # phase 22's warm TTA calls
+MINI_COCO_IMAGES = 16      # phase 23's seeded images, half landscape
 TRAIN_BUCKET = (800, 1344)
 TRAIN_IMG_SHAPES = [(800, 1333), (750, 1344)]
 # seeded gts of the training batch: (x1, y1, w, h) in px, several scales
@@ -139,6 +160,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, cold: bool = False) -> float:
+    """Device time of fn() in ms: the summed device time of the kernels
+    and copies that `iters` runs launch, from a `torch.profiler` trace,
+    over `iters`. Unlike `cuda_ms` it leaves out the host's dispatch, which
+    sets the pace of a short call launched from Python. With `cold`, a
+    256 MB `bitwise_not_` before each run evicts the 50 MB L2 cache, so
+    that a byte-bound call reads its inputs from device memory; its own
+    kernels are left out of the sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda") if cold else None
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if cold:
+                flush.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("htd.") and "bitwise_not" not in e.key) / iters / 1e3
 
 
 def images(seed: int = 0):
@@ -462,7 +507,8 @@ def check_k3(captured, names):
 def run_requests(model, imgs, cfg, per_request_k3: int):
     """The main path: `inference_detector` on each image with the launch
     counts set to 0 just before and read just after; every request must
-    launch K1 and K2 and, with deformable convs, K3 `per_request_k3` times."""
+    launch K1 and K2, K7 3 times and, with deformable convs, K3
+    `per_request_k3` times."""
     from htd_tpu_torch import inference_detector
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
@@ -474,7 +520,7 @@ def run_requests(model, imgs, cfg, per_request_k3: int):
         counts = {k: launch_counts[k] - before[k] for k in launch_counts}
         check_detections(boxes, scores, labels, img, cfg)
         if counts["pyramid_pack"] <= 0 or counts["roi_align"] <= 0 \
-                or counts["deform_conv"] != per_request_k3:
+                or counts["deform_conv"] != per_request_k3 or counts["upsample_add"] != 3:
             fail(f"unexpected launches on request {img.shape}: {counts}")
         print(f"request {img.shape[1]}x{img.shape[0]}: {len(scores)} detections, "
               f"top scores {np.round(scores[:3], 4).tolist()}, labels "
@@ -1053,9 +1099,12 @@ def train_phases(card):
 
 def step_launches(dcn: int) -> dict:
     """Each kernel's launches in one train step with `dcn` deformable
-    convs: K1 once, K2 and K4 three times, K3, K5 and K6 once per DCN."""
+    convs: K1 once, K2 and K4 three times, K3, K5 and K6 once per DCN, K7
+    three times (the FPN's top-down adds; their backward is plain torch),
+    K8 never (the fence switches are off)."""
     return {"pyramid_pack": 1, "roi_align": 3, "deform_conv": dcn, "roi_align_bwd": 3,
-            "deform_conv_bwd_input": dcn, "deform_conv_bwd_offset_weight": dcn}
+            "deform_conv_bwd_input": dcn, "deform_conv_bwd_offset_weight": dcn,
+            "upsample_add": 3, "layout_fence": 0}
 
 
 def open_residuals(model) -> None:
@@ -1379,8 +1428,351 @@ def dcn_train_phases(card, imgs):
     ]
 
 
+@contextlib.contextmanager
+def recording(module, name: str, keep):
+    """While active, `module.name` (a kernel launcher) is wrapped: each call
+    first hands its arguments to `keep`, then launches as before."""
+    orig = getattr(module, name)
+
+    def rec(*args):
+        keep(*args)
+        return orig(*args)
+
+    setattr(module, name, rec)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def capture_laterals(model, img):
+    """The three (low, lat) pairs that K7 gets on one request, cloned."""
+    from htd_tpu_torch import inference_detector
+    from htd_tpu_torch.ops import elementwise_cuda
+
+    pairs = []
+    with recording(elementwise_cuda, "launch_upsample_add",
+                   lambda low, lat: pairs.append((low.clone(), lat.clone()))):
+        inference_detector(model, img)
+    if len(pairs) != 3:
+        fail(f"expected 3 K7 calls per request, got {len(pairs)}")
+    return pairs
+
+
+def k7_phase(pairs, card):
+    """Phase 20; returns the max abs errors of K7 and K8 (bfloat16) and
+    K7's times per image."""
+    import torch.nn.functional as F
+
+    from htd_tpu_torch.ops.fence import layout_fence, layout_fence_plain
+    from htd_tpu_torch.ops.upsample import pool2x2_sum, upsample2x_add, upsample2x_add_plain
+
+    phase("20 K7 and K8 vs their plain versions on the main path's own laterals")
+    print("top-down pairs of phase 3's first request (low -> lat, NHWC): "
+          + ", ".join(f"{tuple(lo.shape[1:3])} -> {tuple(la.shape[1:3])}" for lo, la in pairs)
+          + f", {pairs[0][0].shape[-1]} channels, {pairs[0][0].dtype}")
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = 0.0
+        for low, lat in pairs:
+            low, lat = low.to(dtype), lat.to(dtype)
+            k, p = upsample2x_add(low, lat), upsample2x_add_plain(low, lat)
+            if not k.permute(0, 3, 1, 2).is_contiguous(memory_format=torch.channels_last):
+                fail("K7's output is not channels_last as NCHW")
+            f = layout_fence(lat)
+            if not (torch.equal(k, p) and torch.equal(f, layout_fence_plain(lat))
+                    and f.stride() == lat.stride()):
+                fail(f"K7 or K8 differs from its plain version in {dtype}")
+            worst = max(worst, (k.float() - p.float()).abs().max().item())
+            # the autograd function: d_lat = g, d_low = 2x2 sum-pool of g
+            a, b = low.clone().requires_grad_(True), lat.clone().requires_grad_(True)
+            with torch.enable_grad():
+                out = upsample2x_add(a, b)
+                if type(out.grad_fn).__name__ != "_Upsample2xAddBackward":
+                    fail(f"K7's output has grad_fn {out.grad_fn}")
+                g = torch.randn_like(out)
+                out.backward(g)
+            if not (torch.equal(b.grad, g) and torch.equal(a.grad, pool2x2_sum(g))):
+                fail(f"K7's gradients differ from the plain backward in {dtype}")
+        torch.cuda.synchronize()
+        errs[dtype] = worst
+        print(f"{str(dtype)[6:]}: K7 and K8 bit-equal to their plain versions on the 3 pairs "
+              f"(K7 max abs err {worst:.3g}); K7's output channels_last as NCHW; grad_fn "
+              f"_Upsample2xAddBackward with d_lat = g and d_low = the 2x2 sum-pool of g")
+    # device time (profiler) and time per call (events, host dispatch included)
+    t = {"ms": 0.0, "plain_ms": 0.0, "two_call_ms": 0.0, "call_ms": 0.0, "bytes": 0}
+    for low, lat in pairs:
+        low_nchw, lat_nchw = low.permute(0, 3, 1, 2), lat.permute(0, 3, 1, 2)
+        fns = {"ms": lambda: upsample2x_add(low, lat),
+               "plain_ms": lambda: upsample2x_add_plain(low, lat),
+               "two_call_ms": lambda: lat_nchw + F.interpolate(low_nchw, scale_factor=2,
+                                                               mode="nearest")}
+        got = {k: device_ms(fn, iters=50, cold=True) for k, fn in fns.items()}
+        got["call_ms"] = cuda_ms(fns["ms"], iters=50)
+        got["bytes"] = (low.numel() + 2 * lat.numel()) * lat.element_size()
+        for key, v in got.items():
+            t[key] += v
+        print(f"K7 {tuple(low.shape[1:3])} -> {tuple(lat.shape[1:3])}: device {got['ms'] * 1e3:.1f} "
+              f"us, L2 flushed (per call with host dispatch {got['call_ms'] * 1e3:.1f} us); plain "
+              f"{got['plain_ms'] * 1e3:.1f} us; lat + F.interpolate {got['two_call_ms'] * 1e3:.1f} "
+              f"us; bound {got['bytes'] / HBM_BYTES_PER_S * 1e6:.1f} us "
+              f"({got['bytes'] / 1e6:.2f} MB)")
+    t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"K7 per image (3 launches): device {t['ms'] * 1e3:.1f} us, "
+          f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound {t['bound_ms'] * 1e3:.1f} us "
+          f"({t['bytes'] / 1e6:.2f} MB: low and lat read, out written, at 3.35 TB/s); per call "
+          f"with host dispatch {t['call_ms'] * 1e3:.1f} us; plain (device) "
+          f"{t['plain_ms'] * 1e3:.1f} us; context: lat + F.interpolate(low, scale_factor=2, "
+          f"mode='nearest'), two PyTorch calls, device {t['two_call_ms'] * 1e3:.1f} us ({card})")
+    return errs[torch.bfloat16], t
+
+
+def fence_phase(model, img, cfg, card):
+    """Phase 21; returns K8's launches on the fenced request and its
+    timings."""
+    import os
+
+    from htd_tpu_torch import inference_detector
+    from htd_tpu_torch.ops import elementwise_cuda
+    from htd_tpu_torch.ops.fence import layout_fence, layout_fence_plain
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+
+    phase("21 main path: R-101-DCN bfloat16 request with the three layout fences on")
+    switches = ("HTD_FPN_FENCE", "HTD_RPN_FENCE", "HTD_DCN_FENCE")
+    base = inference_detector(model, img)
+    fenced = []
+    saved = {k: os.environ.get(k) for k in switches}
+    try:
+        os.environ.update({k: "1" for k in switches})
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with recording(elementwise_cuda, "launch_layout_fence", fenced.append):
+            dets = inference_detector(model, img)
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    n_dcn = len(dcn_convs(model))
+    want = 3 + len(cfg.rpn.anchor.strides) + n_dcn
+    print(f"{', '.join(switches)} = 1 for one request {img.shape[1]}x{img.shape[0]}, then "
+          f"restored: launches {counts}; K8 {counts['layout_fence']} (expected 3 FPN sums + "
+          f"{len(cfg.rpn.anchor.strides)} RPN levels + {n_dcn} deformable-conv inputs = {want})")
+    if counts["layout_fence"] != want or counts["upsample_add"] != 3 \
+            or counts["deform_conv"] != n_dcn:
+        fail(f"unexpected launches on the fenced request: {counts}")
+    same = all(np.array_equal(a, b) for a, b in zip(base, dets))
+    print(f"detections of the fenced request bit-identical to the unfenced one: {same} "
+          f"({len(dets[1])} detections)")
+    if not same or len(dets[1]) == 0:
+        fail("the fenced request's detections differ from the unfenced request's")
+    x = max(fenced, key=lambda f: f.numel() * f.element_size())
+    ms = device_ms(lambda: layout_fence(x), iters=50, cold=True)
+    call = cuda_ms(lambda: layout_fence(x), iters=50)
+    plain = device_ms(lambda: layout_fence_plain(x), iters=50, cold=True)
+    lib = device_ms(lambda: x.clone(), iters=50, cold=True)
+    nbytes = 2 * x.numel() * x.element_size()
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"K8 on the largest fenced tensor {tuple(x.shape)} {x.dtype} strides {x.stride()}: "
+          f"device {ms * 1e3:.1f} us (L2 flushed), {100 * bound / ms:.1f}% of its bound "
+          f"{bound * 1e3:.1f} us "
+          f"({nbytes / 1e6:.2f} MB read and written at 3.35 TB/s); per call with host dispatch "
+          f"{call * 1e3:.1f} us; plain (empty_like + copy_, device) {plain * 1e3:.1f} us; clone() "
+          f"(device) {lib * 1e3:.1f} us ({card})")
+    return counts["layout_fence"], {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                                    "library_ms": lib}
+
+
+def match_detections(ref, got, box_tol: float = 1e-2, score_tol: float = 1e-3):
+    """Rows of `got` (boxes, scores, labels) without a counterpart in `ref`
+    of the same label, boxes within `box_tol` px and score within
+    `score_tol`, each counterpart used once; and the largest box and score
+    differences of the matched rows."""
+    used = np.zeros(len(ref[1]), bool)
+    unmatched, box_err, score_err = 0, 0.0, 0.0
+    for b, s, lab in zip(*got):
+        d = np.abs(ref[0] - b).max(axis=1) + 1e9 * (used | (ref[2] != lab))
+        j = int(np.argmin(d)) if len(d) else -1
+        if j >= 0 and d[j] <= box_tol and abs(ref[1][j] - s) <= score_tol:
+            used[j] = True
+            box_err, score_err = max(box_err, float(d[j])), max(score_err, abs(ref[1][j] - s))
+        else:
+            unmatched += 1
+    return unmatched, box_err, score_err
+
+
+def tta_phase(model, stds, imgs, card):
+    """Phase 22."""
+    from htd_tpu_torch import (aug_inference_detector, htd_r101_dcn_2x, inference_detector,
+                               init_detector)
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+
+    phase("22 main path: aug_inference_detector, R-101-DCN bfloat16, 2 scales x flip")
+    cfg = model.cfg
+    img = imgs[0]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    boxes, scores, labels = aug_inference_detector(model, img, scales=TTA_SCALES, flip=True)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    n_augs = 2 * len(TTA_SCALES)
+    check_detections(boxes, scores, labels, img, cfg)
+    want = {"upsample_add": 6 * n_augs, "deform_conv": 2 * len(dcn_convs(model)) * n_augs,
+            "pyramid_pack": n_augs, "roi_align": 3 * n_augs}
+    print(f"scales {TTA_SCALES} x [no flip, flip] = {n_augs} augs on {img.shape[1]}x"
+          f"{img.shape[0]}: {len(scores)} detections (max_per_img {cfg.rcnn_test.max_per_img}), "
+          f"top scores {np.round(scores[:3], 4).tolist()}, labels {labels[:3].tolist()}; "
+          f"launches {counts}")
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"expected launches {want} (K7 6 per aug: the proposal and cascade passes)")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m32 = init_detector(htd_r101_dcn_2x(), seed=0)
+    scale_scores(m32)
+    set_offsets(m32, stds, seed=0)
+    ref = inference_detector(m32, img)
+    one = aug_inference_detector(m32, img, scales=(m32.cfg.test_scale,), flip=False)
+    unmatched, box_err, score_err = match_detections(ref, one)
+    print(f"float32, one aug at the test scale without flip vs inference_detector: {len(one[1])} "
+          f"vs {len(ref[1])} detections, {unmatched} without a counterpart; matched rows max box "
+          f"err {box_err:.3g} px (limit 1e-2), max score err {score_err:.3g} (limit 1e-3)")
+    if unmatched or len(one[1]) != len(ref[1]) or len(ref[1]) == 0:
+        fail("the identity aug disagrees with inference_detector")
+    del m32
+
+    lat = []
+    for i in range(TTA_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aug_inference_detector(model, imgs[i % len(imgs)], scales=TTA_SCALES, flip=True)
+        torch.cuda.synchronize()
+        if i:
+            lat.append((time.perf_counter() - t0) * 1e3)
+    print(f"warm TTA latency per image ({n_augs} augs, preprocessing included), {len(lat)} "
+          f"requests: median {statistics.median(lat):.2f} ms, min {min(lat):.2f} ms ({card})")
+
+
+class SeededCoco:
+    """A mini-COCO of MINI_COCO_IMAGES seeded images: the annotation file in
+    a temporary directory, the pixels drawn from the seed by `load_image`
+    (the card's machine has no OpenCV)."""
+
+    def __init__(self, root: str, seed: int = 0):
+        from htd_tpu_torch.data.coco import CocoDataset
+
+        rng = np.random.RandomState(seed)
+        images, anns = [], []
+        for i in range(MINI_COCO_IMAGES):
+            long_side, short_side = int(rng.randint(640, 1281)), int(rng.randint(480, 641))
+            h, w = (short_side, long_side) if i % 2 == 0 else (long_side, short_side)
+            images.append(dict(id=i + 1, file_name=f"{i}.jpg", height=h, width=w))
+            for _ in range(rng.randint(2, 7)):
+                bw, bh = rng.uniform(24, w / 2), rng.uniform(24, h / 2)
+                x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                anns.append(dict(id=len(anns) + 1, image_id=i + 1,
+                                 category_id=int(rng.choice([1, 2, 3])),
+                                 bbox=[x, y, bw, bh], area=bw * bh, iscrowd=0))
+        path = f"{root}/ann.json"
+        with open(path, "w") as f:
+            json.dump(dict(images=images, annotations=anns, categories=[
+                dict(id=k, name=f"c{k}") for k in (1, 2, 3)]), f)
+        seed_of = {im["id"]: seed * 1000 + im["id"] for im in images}
+
+        class Dataset(CocoDataset):
+            def load_image(self, rec):
+                r = np.random.RandomState(seed_of[rec.img_id])
+                return r.randint(0, 256, (rec.height, rec.width, 3)).astype(np.uint8)
+
+        self.dataset = Dataset(path, test_mode=True)
+
+
+def eval_phase(card):
+    """Phase 23."""
+    import tempfile
+
+    from htd_tpu_torch import evaluate_dataset, evaluate_proposals, htd_r50_1x, init_detector
+    from htd_tpu_torch.data.coco_eval import evaluate_coco_map
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+
+    phase("23 main path: evaluate_dataset and evaluate_proposals, R-50 bfloat16, batch 8")
+    model = init_detector(htd_r50_1x(compute_dtype="bfloat16"), seed=0)
+    scale_scores(model)
+    with tempfile.TemporaryDirectory() as root:
+        ds = SeededCoco(root).dataset
+    n_land = sum(r.landscape for r in ds.records)
+    gt = ds.groundtruth()
+    print(f"mini-COCO: {len(ds)} seeded images ({n_land} landscape, {len(ds) - n_land} portrait, "
+          f"sides {min(min(r.height, r.width) for r in ds.records)}-"
+          f"{max(max(r.height, r.width) for r in ds.records)} px), "
+          f"{sum(len(r.boxes) for r in ds.records)} gt boxes over {len(ds.cat_ids)} categories")
+    perfect = {k: (b, np.ones(len(b), np.float32), lab) for k, (b, lab, _) in gt.items()}
+    self_check = evaluate_coco_map(perfect, gt, len(ds.cat_ids))
+    print(f"evaluator self-check, the ground truth as detections (score 1): mAP "
+          f"{self_check['mAP']}, AR@100 {self_check['AR@100']}")
+    if self_check["mAP"] != 1.0:
+        fail("the COCO evaluator does not give mAP 1 on the ground truth")
+    n_batches = -(-n_land // 8) + -(-(len(ds) - n_land) // 8)
+    for run in ("first", "warm"):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = evaluate_dataset(model, ds, batch_size=8, log_every=0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(launch_counts)
+        print(f"evaluate_dataset ({run}): {len(ds) / dt:.2f} images/s ({dt:.2f} s, {n_batches} "
+              f"batches of 8); launches {counts}; " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in metrics.items()) + f" ({card})")
+        if counts["upsample_add"] != 3 * n_batches or counts["pyramid_pack"] != n_batches:
+            fail(f"expected K7 3 and K1 1 launches per batch, got {counts}")
+        if not all(math.isfinite(v) or (math.isnan(v) and k in ("mAP_s", "mAP_m", "mAP_l"))
+                   for k, v in metrics.items()):
+            fail(f"non-finite metrics {metrics}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ar = evaluate_proposals(model, ds, batch_size=8)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"evaluate_proposals: {len(ds) / dt:.2f} images/s; " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ar.items()))
+    if not all(0.0 <= v <= 1.0 for v in ar.values()):
+        fail(f"proposal recall outside [0, 1]: {ar}")
+
+
+def tta_eval_phases(card, pairs, k7_launches, imgs):
+    """Phases 20-23; returns the kernel records of K7 and K8."""
+    from htd_tpu_torch import htd_r101_dcn_2x, init_detector
+
+    k7_err, k7 = k7_phase(pairs, card)    # with autograd, for K7's gradients
+    with torch.inference_mode():
+        cfg = htd_r101_dcn_2x(compute_dtype="bfloat16")
+        model = init_detector(cfg, seed=0)
+        scale_scores(model)
+        stds = offset_stds(model, imgs[0])
+        set_offsets(model, stds, seed=0)
+        k8_launches, k8 = fence_phase(model, imgs[0], cfg, card)
+        tta_phase(model, stds, imgs, card)
+        del model
+        eval_phase(card)
+    return [
+        {"name": "upsample_add", "route": "cuda", "source": "htd_tpu_torch/csrc/upsample_add.cu",
+         "replaces": "htd_tpu/ops/upsample.py:70", "launches": k7_launches,
+         "max_abs_err": k7_err, "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+         "bound_ms": k7["bound_ms"], "bound_by": "bytes", "library_ms": None},
+        {"name": "layout_fence", "route": "cuda", "source": "htd_tpu_torch/csrc/layout_fence.cu",
+         "replaces": "htd_tpu/ops/fence.py:31", "launches": k8_launches, "max_abs_err": 0.0,
+         "ms": k8["ms"], "plain_ms": k8["plain_ms"], "bound_ms": k8["bound_ms"],
+         "bound_by": "bytes", "library_ms": k8["library_ms"]},
+    ]
+
+
 def main():
-    """Phases 1-11 (inference); returns the card's lines and the kernel records."""
+    """Phases 1-11 (inference); returns the card's lines, the kernel records,
+    K7's launches on the main path and the laterals of its first request."""
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py needs an NVIDIA GPU")
     from htd_tpu_torch import htd_r50_1x, inference_detector, init_detector
@@ -1431,7 +1823,7 @@ def main():
     boxes, scores, labels = inference_detector(gpu32, imgs[0])
     check_detections(boxes, scores, labels, imgs[0], ref_cfg)
     counts = {k: launch_counts[k] - before[k] for k in launch_counts}
-    if counts["pyramid_pack"] <= 0 or counts["roi_align"] <= 0:
+    if counts["pyramid_pack"] <= 0 or counts["roi_align"] <= 0 or counts["upsample_add"] != 3:
         fail(f"a kernel was not launched on the float32 request: {counts}")
     print(f"float32 request {imgs[0].shape[1]}x{imgs[0].shape[0]} at full size: "
           f"{len(scores)} detections, launches {counts}")
@@ -1485,6 +1877,9 @@ def main():
     print(f"K1 pyramid_pack: {k1_ms * 1e3:.1f} us; plain {k1_plain * 1e3:.1f} us; zeros+copy_ "
           f"{k1_lib * 1e3:.1f} us; bound {k1_bound * 1e3:.1f} us ({k1_bytes / 1e6:.1f} MB "
           f"at 3.35 TB/s) ({card})")
+    print(f"K1 device time (profiler, host dispatch left out): "
+          f"{device_ms(lambda: pack_pyramid(levels)) * 1e3:.1f} us; zeros+copy_ "
+          f"{device_ms(lambda: k1_library(levels, geom)) * 1e3:.1f} us ({card})")
 
     calls = [("stage-0 level-mapped S=4", props, lv0, 4, False),
              ("stage-1 level-mapped S=4", rois1, lv1, 4, False),
@@ -1509,6 +1904,7 @@ def main():
               f"({card})")
 
     profile_request(model, imgs[0])
+    pairs = capture_laterals(model, imgs[0])    # for phase 20
     del model, levels, pyr, props, rois1
     k3 = dcn_phases(imgs, card)
 
@@ -1527,23 +1923,28 @@ def main():
          "library_ms": None},
         k3,
     ]
-    return card, kind, kernels, t_start
+    return card, kind, kernels, t_start, main_counts["upsample_add"], pairs
 
 
 def run() -> None:
     """The inference phases 1-11 under `torch.inference_mode`, then the
     training phases 12-19 with autograd (models built in inference mode
-    hold inference tensors, which autograd rejects), then the result."""
+    hold inference tensors, which autograd rejects), then phases 20-23
+    (TTA and evaluation), then the result."""
     with torch.inference_mode():
-        card, kind, kernels, t_start = main()
+        card, kind, kernels, t_start, k7_launches, pairs = main()
     kernels.append(train_phases(card))
     kernels.extend(dcn_train_phases(card, images()))
+    kernels.extend(tta_eval_phases(card, [(lo.clone(), la.clone()) for lo, la in pairs],
+                                   k7_launches, images()))
     print(f"kernel times are per image (K2: the sum of its 3 calls per request; K3: of its "
-          f"30 launches per R-101-DCN request) and per train step (K4: its 3 calls, R-50; K5, "
+          f"30 launches per R-101-DCN request; K7: of its 3 launches per R-50 request; K8: one "
+          f"launch on the largest fenced tensor) and per train step (K4: its 3 calls, R-50; K5, "
           f"K6: their 30 launches each, R-101-DCN); launches are over the {len(REQUEST_SHAPES)} "
-          f"main-path requests (K1, K2: R-50; K3: R-101-DCN) and the {TRAIN_STEPS} main-path "
-          f"train steps of each training path (K4: R-50; K5, K6: R-101-DCN); max_abs_err is "
-          f"bfloat16 vs the plain version; total {time.perf_counter() - t_start:.1f} s")
+          f"main-path requests (K1, K2, K7: R-50; K3: R-101-DCN), the {TRAIN_STEPS} main-path "
+          f"train steps of each training path (K4: R-50; K5, K6: R-101-DCN) and the fenced "
+          f"request (K8: R-101-DCN); max_abs_err is bfloat16 vs the plain version; total "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

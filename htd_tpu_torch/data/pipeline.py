@@ -1,8 +1,9 @@
-"""Test-time image preprocessing on torch tensors.
+"""Image preprocessing on torch tensors.
 
 A copy of the JAX package's framework-free helpers (`rescale_size`,
-`bucket_shape`; `htd_tpu/data/pipeline.py`) and a torch `preprocess`:
-keep-ratio resize, BGR -> RGB, normalize, zero-pad into a static bucket.
+`bucket_shape`; `htd_tpu/data/pipeline.py`), a torch `preprocess`:
+keep-ratio resize, optional horizontal flip (with the gt boxes), BGR ->
+RGB, normalize, zero-pad into a static bucket, and `pad_gt`.
 The resize is `F.interpolate(bilinear, align_corners=False)` rounded to
 uint8; cv2's INTER_LINEAR rounds with fixed-point weights, so a pixel may
 differ from cv2's by one grey level. It runs on the caller's device, so
@@ -16,6 +17,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from htd_tpu_torch.ops.boxes import bbox_flip
 
 MEAN_RGB = (123.675, 116.28, 103.53)
 STD_RGB = (58.395, 57.12, 57.375)
@@ -41,18 +44,34 @@ def bucket_shape(scale: Tuple[int, int], landscape: bool) -> Tuple[int, int]:
     return ceil32(long_side), ceil32(short_side)
 
 
+def resize_bilinear(img: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
+    """(H, W, 3) uint8 -> (new_h, new_w, 3) float32 holding uint8 values:
+    bilinear with half-pixel centres, rounded to the nearest grey level."""
+    x = img.permute(2, 0, 1)[None].to(torch.float32)
+    x = F.interpolate(x, size=(new_h, new_w), mode="bilinear", align_corners=False,
+                      antialias=False)
+    return x.round().clamp(0, 255)[0].permute(1, 2, 0)
+
+
 class ProcessedImage(NamedTuple):
     image: torch.Tensor         # (H, W, 3) float32, normalized, zero-padded
     img_shape: torch.Tensor     # (2,) resized (h, w), float32
     scale_factor: torch.Tensor  # (4,) (w, h, w, h) resize factors, float32
+    boxes: Optional[torch.Tensor] = None   # (N, 4) gt boxes, resized and flipped
+    labels: Optional[torch.Tensor] = None  # (N,) their labels
+    flipped: bool = False
 
 
 def preprocess(img_bgr, scale: Tuple[int, int] = (1333, 800),
-               bucket: Optional[Tuple[int, int]] = None, device="cpu") -> ProcessedImage:
-    """Resize (keep ratio) -> BGR to RGB -> normalize -> pad to `bucket`.
+               bucket: Optional[Tuple[int, int]] = None, device="cpu", flip: bool = False,
+               boxes=None, labels=None) -> ProcessedImage:
+    """Resize (keep ratio) -> flip -> BGR to RGB -> normalize -> pad to
+    `bucket`, the JAX package's order (mmdet Resize, RandomFlip, Normalize,
+    Pad).
 
     `img_bgr` is an (H, W, 3) uint8 numpy array or tensor; the work runs
-    on `device`.
+    on `device`. `boxes` (N, 4) are scaled, clipped to the resized shape
+    and, with `flip`, mirrored in the resized width (not the bucket's).
     """
     if isinstance(img_bgr, np.ndarray):
         img_bgr = np.ascontiguousarray(img_bgr)  # e.g. a channel-flipped view
@@ -61,10 +80,20 @@ def preprocess(img_bgr, scale: Tuple[int, int] = (1333, 800),
         raise ValueError(f"expected an (H, W, 3) uint8 image, got {tuple(img.shape)} {img.dtype}")
     h, w = int(img.shape[0]), int(img.shape[1])
     new_h, new_w, _ = rescale_size(h, w, scale)
-    x = img.permute(2, 0, 1)[None].to(torch.float32)
-    x = F.interpolate(x, size=(new_h, new_w), mode="bilinear", align_corners=False,
-                      antialias=False)
-    x = x.round().clamp(0, 255)[0].permute(1, 2, 0)       # (new_h, new_w, 3), uint8 values
+    x = resize_bilinear(img, new_h, new_w)
+    ws, hs = new_w / w, new_h / h
+    scale_factor = torch.tensor([ws, hs, ws, hs], dtype=torch.float32, device=x.device)
+    if boxes is not None:
+        boxes = torch.as_tensor(boxes, dtype=torch.float32, device=x.device).reshape(-1, 4)
+        boxes = boxes * scale_factor
+        boxes = torch.stack([boxes[:, 0].clamp(0, new_w), boxes[:, 1].clamp(0, new_h),
+                             boxes[:, 2].clamp(0, new_w), boxes[:, 3].clamp(0, new_h)], -1)
+    if flip:
+        x = x.flip(1)
+        if boxes is not None:
+            boxes = bbox_flip(boxes, (new_h, new_w))
+    if labels is not None:
+        labels = torch.as_tensor(labels, device=x.device)
     x = x.flip(-1)                                        # BGR -> RGB
     mean = torch.tensor(MEAN_RGB, dtype=torch.float32, device=x.device)
     std = torch.tensor(STD_RGB, dtype=torch.float32, device=x.device)
@@ -73,9 +102,23 @@ def preprocess(img_bgr, scale: Tuple[int, int] = (1333, 800),
         bucket = (ceil32(new_h), ceil32(new_w))
     padded = torch.zeros((bucket[0], bucket[1], 3), dtype=torch.float32, device=x.device)
     padded[:new_h, :new_w] = x
-    ws, hs = new_w / w, new_h / h
     return ProcessedImage(
         padded,
         torch.tensor([new_h, new_w], dtype=torch.float32, device=x.device),
-        torch.tensor([ws, hs, ws, hs], dtype=torch.float32, device=x.device),
+        scale_factor, boxes, labels, flip,
     )
+
+
+def pad_gt(boxes, labels, max_gt: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-image gts padded to `max_gt` rows: boxes (max_gt, 4) float32,
+    labels (max_gt,) int32 and the validity mask, on the boxes' device."""
+    boxes = torch.as_tensor(boxes, dtype=torch.float32).reshape(-1, 4)
+    labels = torch.as_tensor(labels, device=boxes.device)
+    n = min(len(boxes), max_gt)
+    out_b = torch.zeros((max_gt, 4), dtype=torch.float32, device=boxes.device)
+    out_l = torch.zeros((max_gt,), dtype=torch.int32, device=boxes.device)
+    out_v = torch.zeros((max_gt,), dtype=torch.bool, device=boxes.device)
+    out_b[:n] = boxes[:n]
+    out_l[:n] = labels[:n].to(torch.int32)
+    out_v[:n] = True
+    return out_b, out_l, out_v

@@ -193,6 +193,15 @@ class HTDDetector(nn.Module):
                     for i in range(boxes.shape[0])]
             return Detections(*(torch.stack(t) for t in zip(*dets)))
 
+    def rpn_proposals(self, images: torch.Tensor, img_shapes: torch.Tensor):
+        """Proposals in the (augmented) input frame: boxes (B, P, 4),
+        scores (B, P), valid (B, P), P = `proposal_test.nms_post`."""
+        img_shapes = img_shapes.to(device=self.device, dtype=torch.float32)
+        with record_function("htd.backbone_fpn"):
+            feats = self._features(images)
+        with record_function("htd.rpn_proposals"):
+            return self._proposals(feats, img_shapes)
+
     def stages_forward(self, images, img_shapes, rois, roi_valid):
         """Both cascade stages on given proposals. Returns decoded boxes
         (B, P, 4) clipped to the image and softmax scores (B, P, C+1)

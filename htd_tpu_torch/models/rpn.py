@@ -6,7 +6,8 @@ conv with 1x1 objectness and box heads on every level, then per level the
 resized shape), delta decode clipped to the image, level-aware batched
 NMS and the `nms_post` cap. Outputs have fixed capacity with validity
 masks. Top-k ties break by anchor index (a stable sort), as the JAX
-package's `top_k` does.
+package's `top_k` does. With `HTD_RPN_FENCE=1` each level entering the head
+is fenced (kernel K8 on CUDA), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from htd_tpu_torch.config import ProposalConfig
 from htd_tpu_torch.ops.anchors import AnchorGenerator
 from htd_tpu_torch.ops.boxes import delta2bbox
+from htd_tpu_torch.ops.fence import fenced
 from htd_tpu_torch.ops.nms import NEG_INF, batched_nms
 
 
@@ -38,7 +40,7 @@ class RPNHead(nn.Module):
         deltas, float32, in the JAX package's layout."""
         scores, deltas = [], []
         for f in feats:
-            t = F.relu(self.rpn_conv(f))
+            t = F.relu(self.rpn_conv(fenced(f, "HTD_RPN_FENCE")))
             scores.append(self.rpn_cls(t).permute(0, 2, 3, 1).float())
             deltas.append(self.rpn_reg(t).permute(0, 2, 3, 1).float())
         return scores, deltas

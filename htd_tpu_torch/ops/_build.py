@@ -116,6 +116,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.htd_deform_conv_bwd_offset_weight.restype = i32
     lib.htd_deform_conv_bwd_dw_partials.argtypes = [i32] * 6
     lib.htd_deform_conv_bwd_dw_partials.restype = i32
+    lib.htd_upsample_add.argtypes = [vp, vp, vp] + [i32] * 5 + [vp]
+    lib.htd_upsample_add.restype = i32
+    lib.htd_layout_fence.argtypes = [vp, vp, ctypes.c_longlong, vp]
+    lib.htd_layout_fence.restype = i32
 
 
 @functools.lru_cache(maxsize=None)

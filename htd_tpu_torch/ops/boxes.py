@@ -114,6 +114,34 @@ def bbox_overlaps(bboxes1, bboxes2, mode: str = "iou", is_aligned: bool = False,
     return overlap / union.clamp(min=eps)
 
 
+def bbox_flip(boxes, img_shape, direction: str = "horizontal"):
+    """Flip boxes inside an image of `img_shape` = (h, w) (a pair or a
+    tensor)."""
+    h = torch.as_tensor(img_shape[0], dtype=boxes.dtype, device=boxes.device)
+    w = torch.as_tensor(img_shape[1], dtype=boxes.dtype, device=boxes.device)
+    if direction == "horizontal":
+        return torch.stack([w - boxes[..., 2], boxes[..., 1], w - boxes[..., 0], boxes[..., 3]],
+                           dim=-1)
+    if direction == "vertical":
+        return torch.stack([boxes[..., 0], h - boxes[..., 3], boxes[..., 2], h - boxes[..., 1]],
+                           dim=-1)
+    raise ValueError(direction)
+
+
+def bbox_mapping(boxes, img_shape, scale_factor, flip: bool,
+                 flip_direction: str = "horizontal"):
+    """Original image frame -> an augmented frame: scale, then flip."""
+    new = boxes * torch.as_tensor(scale_factor, dtype=boxes.dtype, device=boxes.device)
+    return bbox_flip(new, img_shape, flip_direction) if flip else new
+
+
+def bbox_mapping_back(boxes, img_shape, scale_factor, flip: bool,
+                      flip_direction: str = "horizontal"):
+    """An augmented frame -> the original image frame: unflip, then unscale."""
+    new = bbox_flip(boxes, img_shape, flip_direction) if flip else boxes
+    return new / torch.as_tensor(scale_factor, dtype=boxes.dtype, device=boxes.device)
+
+
 def map_roi_levels(boxes, num_levels: int, finest_scale: float = 56.0):
     """FPN level per roi: floor(log2(sqrt(area)/finest + 1e-6)), int32."""
     w = boxes[..., 2] - boxes[..., 0]

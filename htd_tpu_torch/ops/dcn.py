@@ -35,6 +35,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from htd_tpu_torch.ops.fence import fenced
+
 
 def _out_size(size: int, k: int, stride: int, dilation: int) -> int:
     pad = (k - 1) // 2 * dilation
@@ -240,11 +242,13 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
     launch backward (3x3, deform_groups 1, inputs of one dtype; x and
     offsets contiguous, the weight's memory in (Cout, kh, kw, Cin / groups)
     order as `DeformConv2d.hwio_weight()` gives it); the plain versions on
-    the CPU."""
+    the CPU. With `HTD_DCN_FENCE=1`, x is fenced first (kernel K8 on CUDA),
+    as in the JAX package."""
     _check(x, offsets, weight, stride, dilation, deform_groups, groups)
     dev = x.device.type
     if dev not in ("cuda", "cpu"):
         raise ValueError(f"deform_conv2d runs on cuda or cpu tensors, not {dev}")
+    x = fenced(x, "HTD_DCN_FENCE")
     return _DeformConv2d.apply(x, offsets, weight, stride, dilation, deform_groups, groups)
 
 

@@ -69,7 +69,8 @@ def test_kernels_match_plain(cuda, dtype):
     torch.cuda.synchronize()
     assert launch_counts == {"pyramid_pack": 1, "roi_align": 3, "deform_conv": 0,
                              "roi_align_bwd": 0, "deform_conv_bwd_input": 0,
-                             "deform_conv_bwd_offset_weight": 0}
+                             "deform_conv_bwd_offset_weight": 0, "upsample_add": 0,
+                             "layout_fence": 0}
 
 
 @pytest.mark.cuda
@@ -305,8 +306,9 @@ def test_deform_conv_module_trains_on_cuda(cuda):
 def test_train_step_launches(cuda, preset):
     """One bfloat16 train step of HTD R-50 / R-101-DCN / X-101-64x4d-DCN at
     full depth and width (a small 256x384 batch of 2): K1 once, K2 and K4
-    three times each, and with the 30 deformable convs K3, K5 and K6 30
-    times each; finite float32 losses."""
+    three times each, K7 three times (the FPN's top-down adds), and with
+    the 30 deformable convs K3, K5 and K6 30 times each; finite float32
+    losses; P5's lateral conv gets a finite non-zero gradient."""
     from htd_tpu_torch import config as PC
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
     from htd_tpu_torch.train.train_step import TrainBatch, create_train_state, train_step
@@ -327,5 +329,162 @@ def test_train_step_launches(cuda, preset):
     dcn = 0 if preset == "htd_r50_1x" else 30
     assert launch_counts == {"pyramid_pack": 1, "roi_align": 3, "deform_conv": dcn,
                              "roi_align_bwd": 3, "deform_conv_bwd_input": dcn,
-                             "deform_conv_bwd_offset_weight": dcn}
+                             "deform_conv_bwd_offset_weight": dcn, "upsample_add": 3,
+                             "layout_fence": 0}
     assert all(v.dtype == torch.float32 and torch.isfinite(v).item() for v in metrics.values())
+    g = state.model.neck.lateral_convs[3].conv.weight.grad
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+def _up_pair(dev, dtype, b, h, w, c, channels_last=True, seed=0):
+    """NHWC views of NCHW low (B, C, h, w) and lat (B, C, 2h, 2w) in
+    channels_last (or contiguous) memory, as the FPN hands them over."""
+    rng = np.random.RandomState(seed)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    return [torch.from_numpy(rng.normal(0, 1, (b, c, hh, ww)).astype(np.float32)).to(dev, dtype)
+            .contiguous(memory_format=fmt).permute(0, 2, 3, 1)
+            for hh, ww in ((h, w), (2 * h, 2 * w))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 7, 13, 256), (1, 25, 21, 256), (3, 5, 9, 24)],
+                         ids=["odd", "p5_like", "narrow"])
+def test_upsample_add_matches_plain(cuda, dtype, shape):
+    """K7 is bit-equal to its plain version (one add in the inputs' dtype)
+    at odd widths, one launch; its output is contiguous NHWC, i.e.
+    channels_last as NCHW; the launcher's output is the autograd
+    function's."""
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+    from htd_tpu_torch.ops.upsample import upsample2x_add, upsample2x_add_plain
+
+    low, lat = _up_pair(cuda, dtype, *shape)
+    reset_launch_counts()
+    k = upsample2x_add(low, lat)
+    torch.cuda.synchronize()
+    assert launch_counts["upsample_add"] == 1
+    assert k.dtype == dtype and k.is_contiguous()
+    assert k.permute(0, 3, 1, 2).is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(k, upsample2x_add_plain(low, lat))
+
+
+@pytest.mark.cuda
+def test_upsample_add_rejects_what_it_does_not_take(cuda):
+    """An NCHW-contiguous lateral (not channels_last) raises rather than
+    being copied; so do two dtypes at the launcher, channels that are not a
+    16-byte multiple, and a CPU tensor beside a CUDA one. A pair that is
+    not exactly 2x takes the resize branch and launches nothing."""
+    from htd_tpu_torch.ops.elementwise_cuda import launch_upsample_add
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+    from htd_tpu_torch.ops.upsample import upsample2x_add
+
+    low, lat = _up_pair(cuda, torch.float32, 1, 6, 10, 32)
+    nlow, nlat = _up_pair(cuda, torch.float32, 1, 6, 10, 32, channels_last=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        upsample2x_add(nlow, nlat)
+    with pytest.raises(ValueError, match="contiguous"):
+        upsample2x_add(low, nlat)
+    with pytest.raises(ValueError, match="one dtype"):
+        launch_upsample_add(low.bfloat16(), lat)
+    with pytest.raises(ValueError, match="16 bytes"):
+        upsample2x_add(*_up_pair(cuda, torch.float32, 1, 6, 10, 6))
+    with pytest.raises(ValueError):
+        upsample2x_add(low.cpu(), lat)
+    reset_launch_counts()
+    out = upsample2x_add(low, lat[:, :11])
+    assert out.shape == (1, 11, 20, 32) and launch_counts["upsample_add"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_add_autograd(cuda, dtype):
+    """The output carries `_Upsample2xAdd`'s grad_fn; d_lat = g and d_low =
+    the 2x2 sum-pool of g, equal to the plain autograd's on the CPU (the
+    pool sums four values, in float32 within 1e-6 of max |g|, in bfloat16
+    within one rounding)."""
+    from htd_tpu_torch.ops.upsample import upsample2x_add
+
+    low, lat = _up_pair(cuda, dtype, 2, 7, 13, 64)
+    g = torch.randn(lat.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    g = g.to(dtype)
+    grads = []
+    for dev in (cuda, "cpu"):
+        a, b = (x.to(dev).detach().requires_grad_(True) for x in (low, lat))
+        out = upsample2x_add(a, b)
+        assert type(out.grad_fn).__name__ == "_Upsample2xAddBackward"
+        out.backward(g.to(dev))
+        grads.append((a.grad.cpu().float(), b.grad.cpu().float()))
+    (kl, kt), (pl, pt) = grads
+    assert torch.equal(kt, pt)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+    assert (kl - pl).abs().max().item() <= tol * pl.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layout_fence_matches_plain(cuda, dtype):
+    """K8 copies ranks 2-5, odd sizes (a tail of bytes beyond the last
+    16-byte vector) and a channels_last tensor bit for bit, into a fresh
+    tensor with the input's strides, one launch each; the gradient passes
+    through `_LayoutFence`; a tensor with gaps raises."""
+    from htd_tpu_torch.ops.fence import layout_fence, layout_fence_plain
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+
+    shapes = [(33, 7), (5, 11, 13), (2, 256, 25, 21), (2, 3, 7, 9, 5)]
+    xs = [torch.randn(s, device=cuda).to(dtype) for s in shapes]
+    xs[2] = xs[2].contiguous(memory_format=torch.channels_last)
+    reset_launch_counts()
+    for x in xs:
+        k = layout_fence(x)
+        assert k.stride() == x.stride() and k.data_ptr() != x.data_ptr()
+        assert torch.equal(k, layout_fence_plain(x))
+    torch.cuda.synchronize()
+    assert launch_counts["layout_fence"] == len(xs)
+    x = xs[2].detach().requires_grad_(True)
+    out = layout_fence(x)
+    assert type(out.grad_fn).__name__ == "_LayoutFenceBackward"
+    out.float().square().sum().backward()
+    assert torch.equal(x.grad, (2 * x.detach().float()).to(dtype))
+    with pytest.raises(ValueError, match="dense"):
+        layout_fence(xs[0][:, :5])
+
+
+@pytest.mark.cuda
+def test_fpn_gradients_through_k7(cuda):
+    """The port's FPN on the card (float32, TF32 off) with K7 in its
+    top-down adds gives the same outputs and the same gradients for C2-C5
+    and every FPN parameter as the two-op form `lat + resize_nearest(low)`,
+    within 1e-5 of each tensor's largest value (cuDNN's backward sums in
+    its own order); P5's lateral among them."""
+    from htd_tpu_torch.models.fpn import FPN
+    from htd_tpu_torch.models.layers import resize_nearest
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+
+    torch.manual_seed(0)
+    neck = FPN().to(cuda).to(memory_format=torch.channels_last)
+    rng = np.random.RandomState(4)
+    cs = [rng.normal(0, 1, (2, c, 64 >> i, 96 >> i)).astype(np.float32)
+          for i, c in enumerate((256, 512, 1024, 2048))]
+
+    def run(use_op):
+        neck.zero_grad()
+        xs = [torch.from_numpy(c).to(cuda).contiguous(memory_format=torch.channels_last)
+              .requires_grad_(True) for c in cs]
+        if use_op:
+            outs = neck(xs)
+        else:
+            lats = [m(x) for m, x in zip(neck.lateral_convs, xs)]
+            for i in range(3, 0, -1):
+                lats[i - 1] = lats[i - 1] + resize_nearest(lats[i], lats[i - 1].shape[-2:])
+            outs = [f(x) for f, x in zip(neck.fpn_convs, lats)]
+        sum(torch.sin(o).sum() for o in outs[:4]).backward()
+        return [o.detach() for o in outs[:4]] + [x.grad for x in xs] + \
+            [p.grad.clone() for p in neck.parameters()]
+
+    reset_launch_counts()
+    got = run(True)
+    torch.cuda.synchronize()
+    assert launch_counts["upsample_add"] == 3
+    assert neck.lateral_convs[3].conv.weight.grad.abs().max() > 0
+    for a, b in zip(got, run(False)):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
