@@ -15,38 +15,56 @@
 //
 // Function (the JAX `_dcn_dx_folded`, the vjp of the gather form in x):
 //   d_col[n, p, k, c] = sum_o g[n, p, o] * W[o][k][c - gi*cg] over the
-//   output channels o of c's weight group gi;
+//   output channels o of c's weight group gi, float32 sums of the operands'
+//   products (g and W are both in x's dtype, as the JAX package casts
+//   them);
 //   d_x[n, corner, c] += w_corner(n, p, k) * d_col[n, p, k, c] for the four
-//   corners of each sample (deform_geom.cuh: the geometry K3 samples with).
-//   Layouts: g (N, Ho, Wo, Cout), offsets (N, Ho, Wo, 18), weight in
+//   corners of each sample (deform_geom.cuh: the geometry K3 samples with),
+//   at the offsets of c's deform group.
+//   Layouts: g (N, Ho, Wo, Cout), offsets (N, Ho, Wo, dg * 18), weight in
 //   (Cout, 3, 3, Cin/groups) memory order (K3's), float32 or bfloat16 of
 //   one dtype; d_x (N, H, W, Cin) float32, zeroed by the caller;
-//   d_col (N, Ho, Wo, 9, Cin) float32. Sums are float32.
+//   d_col (N, Ho, Wo, 9, Cin) float32.
 //
 // Bound on the H100: operations for d_col (2 * Ho * Wo * 9 * Cin/groups *
 // Cout per image, 1152-4608 multiply-adds per d_col element in
 // R-101-DCN), and the bytes of d_col written in float32 for K6, which in
-// R-101-DCN outweigh the d_col product at the bf16 tensor-core rate.
-// Design (CUDA cores, right first, the transpose of K3): one block per tile
-// of 64 output pixels x 64 input channels of one image. For each tap, 64
-// threads compute the tile's corners and weights into shared memory; per
-// chunk of 32 output channels the block stages g (64 pixels) and W_t (64
-// channels) in float32, and each thread accumulates a 4-pixel x 4-channel
-// d_col tile in registers, running only over its own weight group's output
-// channels. The finished tile is stored to d_col (K6 reads it rather than
-// forming the product again) and added to each sample's four corners with
-// 16-byte float4 `atomicAdd` (sm_90): four neighbouring channels of one
-// pixel per atomic, so a warp's atomics cover 256 contiguous bytes of two
-// pixels. Corners of zero weight add nothing. The atomics sum in an order
-// that changes from run to run; the result agrees with the plain version to
-// float32 rounding. Tensor cores, TMA and fewer atomics are later work.
+// R-101-DCN outweigh the d_col product at the bf16 tensor-core rate, and
+// the float4 atomics of the corner scatter. Both paths store each finished
+// d_col tile (K6 reads it rather than forming the product again) and add
+// it to each sample's four corners with 16-byte float4 `atomicAdd` (sm_90):
+// four neighbouring channels of one pixel per atomic. Corners of zero
+// weight add nothing. The atomics sum in an order that changes from run to
+// run; the result agrees with the plain version to float32 rounding. Two
+// paths, picked statically by dtype and weight groups:
+//
+// - bfloat16 with one weight group (R-101-DCN training): per tap, d_col =
+//   g . W_tap on the tensor cores. A block owns 64 pixels x 64 input
+//   channels of one image (one deform group: Cin / dg is a multiple of
+//   64), so that each of R-101-DCN's stages launches at least 2 x 132
+//   blocks at batch 2 (layer 4: 33 x 8). It runs over (tap, 64-channel
+//   chunk of Cout): the g tile (pixels x Cout chunk, row-major in g's NHWC
+//   memory) and the W_tap tile (Cout chunk x channels, rows of the
+//   weight's memory) arrive by cp.async in a ring of three padded shared
+//   tile pairs, two chunks ahead; four warps (32 x 32 each) contract them with mma.sync.m16n8k16,
+//   A through ldmatrix and B through ldmatrix.trans, float32 sums. After a
+//   tap's last chunk the block stages its float32 d_col tile in shared
+//   memory and writes it out and scatters it with float4 atomics, reading
+//   the tap's corners from a table written once per block.
+// - float32, or grouped weights (X-101-64x4d-DCN): CUDA cores, the
+//   transpose of K3's. One block per 64 output pixels x 64 input channels;
+//   per tap, 64 threads write the corner table; per chunk of 32 output
+//   channels the block stages g and W_t in float32, and each thread
+//   accumulates a 4-pixel x 4-channel d_col tile in registers, running
+//   only over its own weight group's output channels.
 
 #include "deform_geom.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
 constexpr int kPix = 64;      // output pixels per block
-constexpr int kCin = 64;      // input channels per block
+constexpr int kCin = 64;      // input channels per block (within one deform group)
 constexpr int kChunk = 32;    // output channels per shared-memory chunk
 constexpr int kThreads = 256; // 16 pixel quads x 16 channel quads
 static_assert(kChunk * kCin % kThreads == 0, "the weight staging covers the chunk evenly");
@@ -68,6 +86,7 @@ deform_conv_bwd_input_kernel(const T* __restrict__ g, const T* __restrict__ offs
   const int pix0 = blockIdx.x * kPix;
   const int c0 = blockIdx.y * kCin;
   const int c_end = min(c0 + kCin, p.cin);
+  const int dgi = c0 / p.cdg;
   // output channels of the groups this block's input channels belong to
   const int o_lo = (c0 / p.cg) * p.og;
   const int o_hi = ((c_end - 1) / p.cg + 1) * p.og;
@@ -80,7 +99,6 @@ deform_conv_bwd_input_kernel(const T* __restrict__ g, const T* __restrict__ offs
   const int g_lo = my_g * p.og, g_hi = g_lo + p.og;
 
   const T* gimg = g + (int64_t)img * npix * p.cout;
-  const T* oimg = offsets + (int64_t)img * npix * (2 * kTaps);
   float* dximg = d_x + (int64_t)img * p.h * p.w * p.cin;
 
   for (int tap = 0; tap < kTaps; ++tap) {
@@ -90,9 +108,8 @@ deform_conv_bwd_input_kernel(const T* __restrict__ g, const T* __restrict__ offs
       Corners c = no_corners();
       if (pix < npix) {
         const int oy = pix / p.wo, ox = pix - oy * p.wo;
-        const float dy = Vec<T>::one(oimg + (int64_t)pix * (2 * kTaps) + 2 * tap);
-        const float dx = Vec<T>::one(oimg + (int64_t)pix * (2 * kTaps) + 2 * tap + 1);
-        c = sample_corners(oy, ox, ky, kx, dy, dx, p);
+        const float2 d = tap_offset(offsets, (int64_t)img * npix + pix, dgi, tap, p);
+        c = sample_corners(oy, ox, ky, kx, d.x, d.y, p);
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -180,22 +197,209 @@ deform_conv_bwd_input_kernel(const T* __restrict__ g, const T* __restrict__ offs
   }
 }
 
+// ---- the tensor-core path: bfloat16, one weight group ----
+
+constexpr int kTcM = 64;          // output pixels per block
+constexpr int kTcN = 64;          // input channels per block (d_col columns)
+constexpr int kTcK = 64;          // output channels per K chunk
+constexpr int kTcThreads = 128;   // 4 warps: 2 (pixels) x 2 (channels), 32 x 32 each
+constexpr int kTcRow = 64 + 8;    // padded shared row, bf16 elements (144 bytes)
+constexpr int kTcStage = kTcN + 4;  // padded float32 staging row
+static_assert(kTcM * kTcK / 8 % kTcThreads == 0 && kTcM * kTcN / 4 % kTcThreads == 0,
+              "tile / thread mapping");
+
+constexpr int kTcStages = 3;      // (A, B) tile pairs in flight: chunk k's, k+1's, k+2's
+
+// Dynamic shared memory of one block: a ring of kTcStages g (A) and W_tap
+// (B) tiles, the float32 d_col staging tile, and the corner indices and
+// weights of the 9 taps for the block's pixels.
+constexpr size_t kTcSmem = (size_t)kTcStages * (kTcM + kTcK) * kTcRow * sizeof(__nv_bfloat16) +
+                           (size_t)kTcM * kTcStage * sizeof(float) +
+                           (size_t)kTaps * 4 * kTcM * (sizeof(int) + sizeof(float));
+
+__global__ void __launch_bounds__(kTcThreads)
+deform_conv_bwd_input_tc_kernel(const __nv_bfloat16* __restrict__ g,
+                                const __nv_bfloat16* __restrict__ offsets,
+                                const __nv_bfloat16* __restrict__ weight,
+                                float* __restrict__ d_x, float* __restrict__ d_col,
+                                const DcnParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto As = reinterpret_cast<__nv_bfloat16(*)[kTcM][kTcRow]>(smem);        // [pixel][o]
+  auto Bs = reinterpret_cast<__nv_bfloat16(*)[kTcK][kTcRow]>(             // [o][channel]
+      smem + kTcStages * kTcM * kTcRow * sizeof(__nv_bfloat16));
+  auto stage = reinterpret_cast<float(*)[kTcStage]>(
+      smem + kTcStages * (kTcM + kTcK) * kTcRow * sizeof(__nv_bfloat16));
+  int* cidx = reinterpret_cast<int*>(&stage[kTcM][0]);
+  float* cw = reinterpret_cast<float*>(cidx + kTaps * 4 * kTcM);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int img = blockIdx.z;
+  const int npix = p.ho * p.wo;
+  const int pix0 = blockIdx.x * kTcM;
+  const int c0 = blockIdx.y * kTcN;
+  const int dgi = c0 / p.cdg;
+  const int chunks = (p.cout + kTcK - 1) / kTcK;  // K chunks per tap
+  const int kt_total = kTaps * chunks;
+  const __nv_bfloat16* gimg = g + (int64_t)img * npix * p.cout;
+  float* dximg = d_x + (int64_t)img * p.h * p.w * p.cin;
+
+  // corner tables: entry tap * 4 + corner, per pixel
+  for (int e = tid; e < kTaps * kTcM; e += kTcThreads) {
+    const int px = e % kTcM, tap = e / kTcM;
+    const int pix = pix0 + px;
+    Corners c = no_corners();
+    if (pix < npix) {
+      const int oy = pix / p.wo, ox = pix - oy * p.wo;
+      const int ky = tap / 3, kx = tap - ky * 3;
+      const float2 d = tap_offset(offsets, (int64_t)img * npix + pix, dgi, tap, p);
+      c = sample_corners(oy, ox, ky, kx, d.x, d.y, p);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      cidx[(tap * 4 + q) * kTcM + px] = c.idx[q];
+      cw[(tap * 4 + q) * kTcM + px] = c.w[q];
+    }
+  }
+
+  // chunk kt: tap kt / chunks, output channels o0 = (kt % chunks) * kTcK..;
+  // rows past the image's pixels or Cout are zero-filled
+  auto load = [&](int kt, int buf) {
+    const int tap = kt / chunks, o0 = (kt - tap * chunks) * kTcK;
+#pragma unroll
+    for (int j = 0; j < kTcM * kTcK / 8 / kTcThreads; ++j) {
+      const int e = tid + j * kTcThreads;
+      const int row = e >> 3, c16 = e & 7;
+      const int pix = pix0 + row, o = o0 + c16 * 8;
+      const bool ok = pix < npix && o < p.cout;
+      cp_async16(&As[buf][row][c16 * 8], ok ? gimg + (int64_t)pix * p.cout + o : g, ok);
+    }
+#pragma unroll
+    for (int j = 0; j < kTcK * kTcN / 8 / kTcThreads; ++j) {
+      const int e = tid + j * kTcThreads;
+      const int row = e >> 3, c16 = e & 7;
+      const int o = o0 + row;
+      const bool ok = o < p.cout;
+      cp_async16(&Bs[buf][row][c16 * 8],
+                 ok ? weight + ((int64_t)o * kTaps + tap) * p.cin + c0 + c16 * 8 : weight, ok);
+    }
+    cp_async_commit();
+  };
+
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
+
+  // one cp.async group per chunk (empty past the last chunk), so that
+  // waiting for all but the newest group waits for the current chunk only
+  load(0, 0);
+  if (kt_total > 1) load(1, 1); else cp_async_commit();
+  for (int kt = 0; kt < kt_total; ++kt) {
+    const int buf = kt % kTcStages;
+    cp_async_wait<1>();   // chunk kt's tiles have landed
+    // after this barrier every warp is done with iteration kt - 1, whose
+    // ring slot chunk kt + 2 now takes, and with its staging-tile reads
+    __syncthreads();
+    if (kt + 2 < kt_total) load(kt + 2, (kt + 2) % kTcStages); else cp_async_commit();
+#pragma unroll
+    for (int kk = 0; kk < kTcK; kk += 16) {
+      uint32_t a[2][4], b[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldmatrix_x4(a[i], &As[buf][wm + i * 16 + (lane & 15)][kk + (lane >> 4) * 8]);
+      // B is [o][channel] (channel contiguous): matrix l / 8 covers o rows
+      // kk + (l / 8 % 2) * 8.., channels + (l / 16) * 8..
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+        ldmatrix_x4_trans(b[nb], &Bs[buf][kk + (lane & 7) + ((lane >> 3) & 1) * 8]
+                                    [wn + nb * 16 + (lane >> 4) * 8]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16_16816(acc[i][j], a[i], b[j >> 1][(j & 1) * 2], b[j >> 1][(j & 1) * 2 + 1]);
+    }
+
+    const int tap = kt / chunks;
+    if (kt - tap * chunks != chunks - 1) continue;
+    // the tap's d_col tile is complete: stage it, write it, scatter it
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = wm + i * 16 + (lane >> 2) + half * 8;
+          const int c = wn + j * 8 + (lane & 3) * 2;
+          *reinterpret_cast<float2*>(&stage[r][c]) =
+              make_float2(acc[i][j][half * 2], acc[i][j][half * 2 + 1]);
+          acc[i][j][half * 2] = acc[i][j][half * 2 + 1] = 0.0f;
+        }
+    __syncthreads();
+#pragma unroll 2
+    for (int j = 0; j < kTcM * kTcN / 4 / kTcThreads; ++j) {
+      const int e = tid + j * kTcThreads;
+      const int px = e >> 4, c4 = (e & 15) * 4;
+      const int pix = pix0 + px;
+      if (pix >= npix) continue;
+      const float4 v = *reinterpret_cast<const float4*>(&stage[px][c4]);
+      *reinterpret_cast<float4*>(d_col + (((int64_t)img * npix + pix) * kTaps + tap) * p.cin
+                                 + c0 + c4) = v;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float wq = cw[(tap * 4 + q) * kTcM + px];
+        if (wq == 0.0f) continue;
+        atomicAdd(reinterpret_cast<float4*>(dximg + (int64_t)cidx[(tap * 4 + q) * kTcM + px]
+                                                * p.cin + c0 + c4),
+                  make_float4(__fmul_rn(wq, v.x), __fmul_rn(wq, v.y), __fmul_rn(wq, v.z),
+                              __fmul_rn(wq, v.w)));
+      }
+    }
+    // the staging tile is rewritten only after the next iteration's barrier
+  }
+}
+
 }  // namespace
 
-// g (n, ho, wo, cout), offsets (n, ho, wo, 18), weight (cout, 3, 3,
-// cin/groups), all contiguous, one dtype: 0 = float32, 1 = bfloat16.
-// d_x (n, h, w, cin) float32, zeroed by the caller, K5 adds into it;
-// d_col (n, ho, wo, 9, cin) float32, written. Needs cin/groups a multiple
-// of 4 and cout/groups a multiple of the 16-byte vector (4 float32,
-// 8 bfloat16). Returns cudaGetLastError() after the launch (0 on success);
-// -1 on bad arguments.
+// g (n, ho, wo, cout), offsets (n, ho, wo, deform_groups * 18), weight
+// (cout, 3, 3, cin/groups), all contiguous, one dtype: 0 = float32,
+// 1 = bfloat16. d_x (n, h, w, cin) float32, zeroed by the caller, K5 adds
+// into it; d_col (n, ho, wo, 9, cin) float32, written. bfloat16 with
+// groups == 1 takes the tensor-core path (*path = 1; needs cout a multiple
+// of 8), everything else the CUDA-core path (*path = 0; needs cin/groups
+// a multiple of 4 and cout/groups a multiple of the 16-byte vector, 4
+// float32 or 8 bfloat16). Both need cin/deform_groups a multiple of 64
+// (a block's 64 input channels lie in one deform group), or one deform
+// group and cin a multiple of 4 (CUDA cores) or 64 (tensor cores).
+// Returns cudaGetLastError() after the launch (0 on success); -1 on bad
+// arguments.
 extern "C" int htd_deform_conv_bwd_input(const void* g, const void* offsets, const void* weight,
                                          float* d_x, float* d_col, int n, int h, int w,
                                          int cin, int ho, int wo, int cout, int groups,
-                                         int stride, int pad, int dil, int dtype,
-                                         cudaStream_t stream) {
+                                         int deform_groups, int stride, int pad, int dil,
+                                         int dtype, int* path, cudaStream_t stream) {
   DcnParams p;
-  if (!fill_params(p, n, h, w, cin, ho, wo, cout, groups, stride, pad, dil, dtype)) return -1;
+  if (!fill_params(p, n, h, w, cin, ho, wo, cout, groups, deform_groups, stride, pad, dil,
+                   dtype))
+    return -1;
+  if (p.dg > 1 && p.cdg % kCin) return -1;
+  if (dtype == 1 && groups == 1) {
+    if (cin % kTcN || cout % 8) return -1;
+    if (cudaFuncSetAttribute(deform_conv_bwd_input_tc_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmem)
+        != cudaSuccess)
+      return (int)cudaGetLastError();
+    dim3 grid((ho * wo + kTcM - 1) / kTcM, cin / kTcN, n);
+    deform_conv_bwd_input_tc_kernel<<<grid, kTcThreads, kTcSmem, stream>>>(
+        static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(offsets),
+        static_cast<const __nv_bfloat16*>(weight), d_x, d_col, p);
+    *path = 1;
+    return (int)cudaGetLastError();
+  }
   const int vec = dtype == 0 ? Vec<float>::N : Vec<__nv_bfloat16>::N;
   if (p.cg % 4 || p.og % vec) return -1;
   dim3 grid((ho * wo + kPix - 1) / kPix, (cin + kCin - 1) / kCin, n);
@@ -208,5 +412,6 @@ extern "C" int htd_deform_conv_bwd_input(const void* g, const void* offsets, con
         static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(offsets),
         static_cast<const __nv_bfloat16*>(weight), d_x, d_col, p);
   }
+  *path = 0;
   return (int)cudaGetLastError();
 }

@@ -16,12 +16,14 @@
 //   d_off[n, p, k, x] likewise with dwx (deform_geom.cuh: unit slope inside
 //   a floor cell, out-of-map corners 0);
 //   d_w[o][k][c - gi*cg] = sum_{n, p} sample(n, p, k, c) * g[n, p, o] over
-//   the input channels c of o's weight group gi.
+//   the input channels c of o's weight group gi. With deform groups, a
+//   group's d_off sums over its own channels, and each channel is sampled
+//   at its group's offsets.
 //   d_col is K5's float32 output: K6 reads it rather than forming
 //   g . W_t^T a second time, which would double the launch's operations.
-//   Layouts: x (N, H, W, Cin), offsets (N, Ho, Wo, 18), g (N, Ho, Wo,
-//   Cout), one dtype, float32 or bfloat16; d_col (N, Ho, Wo, 9, Cin)
-//   float32; d_off (N, Ho, Wo, 18) in the offsets' dtype, written;
+//   Layouts: x (N, H, W, Cin), offsets (N, Ho, Wo, dg * 18), g (N, Ho,
+//   Wo, Cout), one dtype, float32 or bfloat16; d_col (N, Ho, Wo, 9, Cin)
+//   float32; d_off (N, Ho, Wo, dg * 18) in the offsets' dtype, written;
 //   d_w float32 in (Cout, 3, 3, Cin/groups) memory order (K3's weight
 //   order), zeroed by the caller. Sums are float32.
 //
@@ -68,40 +70,43 @@ deform_conv_bwd_offset_kernel(const T* __restrict__ x, const T* __restrict__ off
   const T* ximg = x + (int64_t)img * p.h * p.w * p.cin;
   for (int tap = 0; tap < kTaps; ++tap) {
     const int ky = tap / 3, kx = tap - ky * 3;
-    const float dy = Vec<T>::one(offsets + q * (2 * kTaps) + 2 * tap);
-    const float dx = Vec<T>::one(offsets + q * (2 * kTaps) + 2 * tap + 1);
-    const Corners c = sample_corners(oy, ox, ky, kx, dy, dx, p);
     const float* dc = d_col + (q * kTaps + tap) * p.cin;
-    float acc_y = 0.0f, acc_x = 0.0f;
-    for (int ch = lane * 4; ch < p.cin; ch += 128) {
-      const float4 d4 = *reinterpret_cast<const float4*>(dc + ch);
-      const float d[4] = {d4.x, d4.y, d4.z, d4.w};
-      float sy[4] = {0.0f, 0.0f, 0.0f, 0.0f}, sx[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    // each deform group's offsets get the sum over its own channels
+    for (int dgi = 0; dgi < p.dg; ++dgi) {
+      const float2 d = tap_offset(offsets, q, dgi, tap, p);
+      const Corners c = sample_corners(oy, ox, ky, kx, d.x, d.y, p);
+      float acc_y = 0.0f, acc_x = 0.0f;
+      for (int ch = dgi * p.cdg + lane * 4; ch < (dgi + 1) * p.cdg; ch += 128) {
+        const float4 d4 = *reinterpret_cast<const float4*>(dc + ch);
+        const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+        float sy[4] = {0.0f, 0.0f, 0.0f, 0.0f}, sx[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (c.dwy[k] == 0.0f && c.dwx[k] == 0.0f) continue;
-        float v[4];
-        Vec<T>::load4(ximg + (int64_t)c.idx[k] * p.cin + ch, v);
+        for (int k = 0; k < 4; ++k) {
+          if (c.dwy[k] == 0.0f && c.dwx[k] == 0.0f) continue;
+          float v[4];
+          Vec<T>::load4(ximg + (int64_t)c.idx[k] * p.cin + ch, v);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            sy[j] += c.dwy[k] * v[j];
+            sx[j] += c.dwx[k] * v[j];
+          }
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          sy[j] += c.dwy[k] * v[j];
-          sx[j] += c.dwx[k] * v[j];
+          acc_y += dv[j] * sy[j];
+          acc_x += dv[j] * sx[j];
         }
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc_y += d[j] * sy[j];
-        acc_x += d[j] * sx[j];
+      for (int s = 16; s > 0; s >>= 1) {
+        acc_y += __shfl_xor_sync(0xffffffffu, acc_y, s);
+        acc_x += __shfl_xor_sync(0xffffffffu, acc_x, s);
       }
-    }
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      acc_y += __shfl_xor_sync(0xffffffffu, acc_y, s);
-      acc_x += __shfl_xor_sync(0xffffffffu, acc_x, s);
-    }
-    if (lane == 0) {
-      d_off[q * (2 * kTaps) + 2 * tap] = Vec<T>::from(acc_y);
-      d_off[q * (2 * kTaps) + 2 * tap + 1] = Vec<T>::from(acc_x);
+      if (lane == 0) {
+        T* o = d_off + q * (2 * kTaps * p.dg) + (dgi * kTaps + tap) * 2;
+        o[0] = Vec<T>::from(acc_y);
+        o[1] = Vec<T>::from(acc_x);
+      }
     }
   }
 }
@@ -114,8 +119,10 @@ deform_conv_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ off
   constexpr int V = Vec<T>::N;
   __shared__ __align__(16) float samp[kPx][kC + 4];   // [pixel][input channel]
   __shared__ __align__(16) float gsm[kPx][kO + 4];    // [pixel][output channel]
-  __shared__ int corner_row[4][kPx];                  // pixel row of x, image included
-  __shared__ float corner_w[4][kPx];
+  // per deform group slot (the block's channels span at most two: Cin/dg
+  // is a multiple of kC), corner pixel rows of x (image included), weights
+  __shared__ int corner_row[2][4][kPx];
+  __shared__ float corner_w[2][4][kPx];
 
   const int tid = threadIdx.x;
   const int o0 = blockIdx.x * kO;
@@ -128,6 +135,7 @@ deform_conv_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ off
   const int c0 = ci_lo + (blockIdx.y / kTaps) * kC;
   if (c0 >= ci_hi) return;
   const int c_end = min(c0 + kC, ci_hi);
+  const int dg0 = c0 / p.cdg, slots = (c_end - 1) / p.cdg - dg0 + 1;
   const int npix = p.ho * p.wo;
   const int64_t total = (int64_t)p.n * npix;
   const int64_t q_begin = (int64_t)blockIdx.z * px_per_split;
@@ -144,22 +152,22 @@ deform_conv_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ off
     for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
 
   for (int64_t q0 = q_begin; q0 < q_end; q0 += kPx) {
-    if (tid < kPx) {
-      const int64_t q = q0 + tid;
+    if (tid < kPx * slots) {
+      const int slot = tid / kPx, px = tid - slot * kPx;
+      const int64_t q = q0 + px;
       Corners c = no_corners();
       int row0 = 0;
       if (q < q_end) {
         const int img = (int)(q / npix), pix = (int)(q - (int64_t)img * npix);
         const int oy = pix / p.wo, ox = pix - oy * p.wo;
-        const float dy = Vec<T>::one(offsets + q * (2 * kTaps) + 2 * tap);
-        const float dx = Vec<T>::one(offsets + q * (2 * kTaps) + 2 * tap + 1);
-        c = sample_corners(oy, ox, ky, kx, dy, dx, p);
+        const float2 d = tap_offset(offsets, q, dg0 + slot, tap, p);
+        c = sample_corners(oy, ox, ky, kx, d.x, d.y, p);
         row0 = img * p.h * p.w;
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        corner_row[k][tid] = row0 + c.idx[k];
-        corner_w[k][tid] = c.w[k];
+        corner_row[slot][k][px] = row0 + c.idx[k];
+        corner_w[slot][k][px] = c.w[k];
       }
     }
     __syncthreads();
@@ -171,12 +179,13 @@ deform_conv_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ off
 #pragma unroll
       for (int v = 0; v < V; ++v) s[v] = 0.0f;
       if (ch < c_end) {
+        const int slot = ch / p.cdg - dg0;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          const float wk = corner_w[k][px];
+          const float wk = corner_w[slot][k][px];
           if (wk != 0.0f) {
             float val[V];
-            Vec<T>::load(x + (int64_t)corner_row[k][px] * p.cin + ch, val);
+            Vec<T>::load(x + (int64_t)corner_row[slot][k][px] * p.cin + ch, val);
 #pragma unroll
             for (int v = 0; v < V; ++v) s[v] += wk * val[v];
           }
@@ -265,24 +274,28 @@ bool dw_split(const DcnParams& p, DwSplit& out) {
 
 }  // namespace
 
-// x (n, h, w, cin), offsets (n, ho, wo, 18), g (n, ho, wo, cout), all
-// contiguous, one dtype: 0 = float32, 1 = bfloat16; d_col (n, ho, wo, 9,
-// cin) float32 from K5. d_off (n, ho, wo, 18) in that dtype, written; d_w
-// (cout, 3, 3, cin/groups) float32, zeroed by the caller, K6 adds into it.
-// Needs cin/groups and cout/groups multiples of the 16-byte vector (4
-// float32, 8 bfloat16). Returns cudaGetLastError() after the two launches
-// (0 on success); -1 on bad arguments.
+// x (n, h, w, cin), offsets (n, ho, wo, deform_groups * 18), g (n, ho,
+// wo, cout), all contiguous, one dtype: 0 = float32, 1 = bfloat16; d_col
+// (n, ho, wo, 9, cin) float32 from K5. d_off (n, ho, wo, deform_groups *
+// 18) in that dtype, written; d_w (cout, 3, 3, cin/groups) float32, zeroed
+// by the caller, K6 adds into it. Needs cin/groups and cout/groups
+// multiples of the 16-byte vector (4 float32, 8 bfloat16) and, with more
+// than one deform group, cin/deform_groups a multiple of 64. Returns
+// cudaGetLastError() after the two launches (0 on success); -1 on bad
+// arguments.
 extern "C" int htd_deform_conv_bwd_offset_weight(const void* x, const void* offsets,
                                                  const void* g, const float* d_col,
                                                  void* d_off, float* d_w, int n, int h, int w,
                                                  int cin, int ho, int wo, int cout, int groups,
-                                                 int stride, int pad, int dil, int dtype,
-                                                 cudaStream_t stream) {
+                                                 int deform_groups, int stride, int pad, int dil,
+                                                 int dtype, cudaStream_t stream) {
   DcnParams p;
   DwSplit split;
-  if (!fill_params(p, n, h, w, cin, ho, wo, cout, groups, stride, pad, dil, dtype)) return -1;
+  if (!fill_params(p, n, h, w, cin, ho, wo, cout, groups, deform_groups, stride, pad, dil,
+                   dtype))
+    return -1;
   const int vec = dtype == 0 ? Vec<float>::N : Vec<__nv_bfloat16>::N;
-  if (p.cg % vec || p.og % vec || !dw_split(p, split)) return -1;
+  if (p.cg % vec || p.og % vec || (p.dg > 1 && p.cdg % kC) || !dw_split(p, split)) return -1;
   const int64_t total = (int64_t)n * ho * wo;
   const dim3 grid_off((unsigned)((total + kWarps - 1) / kWarps));
   if (dtype == 0) {
@@ -308,7 +321,7 @@ extern "C" int htd_deform_conv_bwd_dw_partials(int n, int ho, int wo, int cin, i
                                                int groups) {
   DcnParams p;
   DwSplit split;
-  if (!fill_params(p, n, 1, 1, cin, ho, wo, cout, groups, 1, 1, 1, 0) ||
+  if (!fill_params(p, n, 1, 1, cin, ho, wo, cout, groups, 1, 1, 1, 1, 0) ||
       !dw_split(p, split))
     return -1;
   return split.partials;

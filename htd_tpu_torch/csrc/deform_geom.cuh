@@ -27,8 +27,11 @@ namespace {
 
 constexpr int kTaps = 9;
 
+// cg, og: input and output channels per weight group; dg, cdg: deform
+// groups and input channels per deform group (channel c is sampled at the
+// offsets of deform group c / cdg)
 struct DcnParams {
-  int n, h, w, cin, ho, wo, cout, cg, og, stride, pad, dil;
+  int n, h, w, cin, ho, wo, cout, cg, og, dg, cdg, stride, pad, dil;
 };
 
 template <typename T> struct Vec;
@@ -42,6 +45,8 @@ template <> struct Vec<float> {
   __device__ __forceinline__ static void load4(const float* p, float (&v)[4]) { load(p, v); }
   __device__ __forceinline__ static float one(const float* p) { return *p; }
   __device__ __forceinline__ static float from(float v) { return v; }
+  // v rounded to T's precision and back (a no-op for float)
+  __device__ __forceinline__ static float round(float v) { return v; }
   __device__ __forceinline__ static void store4(float* p, const float (&v)[4]) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
@@ -69,6 +74,9 @@ template <> struct Vec<__nv_bfloat16> {
     return __bfloat162float(*p);
   }
   __device__ __forceinline__ static __nv_bfloat16 from(float v) { return __float2bfloat16_rn(v); }
+  __device__ __forceinline__ static float round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
   __device__ __forceinline__ static void store4(__nv_bfloat16* p, const float (&v)[4]) {
     uint2 x;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
@@ -94,6 +102,24 @@ __device__ __forceinline__ Corners no_corners() {
     c.w[q] = c.dwy[q] = c.dwx[q] = 0.0f;
   }
   return c;
+}
+
+// The offsets (dy, dx) of tap `tap` and deform group `g` at output pixel q
+// (image included) in the (N, Ho, Wo, dg * 18) [group][tap][(y, x)] layout.
+template <typename T>
+__device__ __forceinline__ float2 tap_offset(const T* offsets, int64_t q, int g, int tap,
+                                             const DcnParams& p) {
+  const T* o = offsets + q * (2 * kTaps * p.dg) + (g * kTaps + tap) * 2;
+  return make_float2(Vec<T>::one(o), Vec<T>::one(o + 1));
+}
+
+// s += w * v per channel, the product and the sum each rounded once (no
+// FMA): adding the four corners in order from s = 0 gives the sample the
+// plain version computes, bit for bit.
+template <int V>
+__device__ __forceinline__ void add_corner(float (&s)[V], float w, const float (&v)[V]) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) s[i] = __fadd_rn(s[i], __fmul_rn(w, v[i]));
 }
 
 // Sample of tap (ky, kx) at output pixel (oy, ox) moved by (dy, dx).
@@ -126,12 +152,13 @@ __device__ __forceinline__ Corners sample_corners(int oy, int ox, int ky, int kx
 // Fills the parameters from the host's shape arguments; false on
 // arguments the kernels do not take (dtype 0 = float32, 1 = bfloat16).
 inline bool fill_params(DcnParams& p, int n, int h, int w, int cin, int ho, int wo, int cout,
-                        int groups, int stride, int pad, int dil, int dtype) {
+                        int groups, int deform_groups, int stride, int pad, int dil, int dtype) {
   if (dtype != 0 && dtype != 1) return false;
   if (n < 1 || h < 1 || w < 1 || ho < 1 || wo < 1 || groups < 1 || n > 65535) return false;
-  if (cin % groups || cout % groups) return false;
+  if (deform_groups < 1 || cin % groups || cout % groups || cin % deform_groups) return false;
   p.n = n; p.h = h; p.w = w; p.cin = cin; p.ho = ho; p.wo = wo; p.cout = cout;
   p.cg = cin / groups; p.og = cout / groups;
+  p.dg = deform_groups; p.cdg = cin / deform_groups;
   p.stride = stride; p.pad = pad; p.dil = dil;
   return true;
 }

@@ -4,10 +4,11 @@ A copy of the JAX package's framework-free helpers (`rescale_size`,
 `bucket_shape`; `htd_tpu/data/pipeline.py`), a torch `preprocess`:
 keep-ratio resize, optional horizontal flip (with the gt boxes), BGR ->
 RGB, normalize, zero-pad into a static bucket, and `pad_gt`.
-The resize is `F.interpolate(bilinear, align_corners=False)` rounded to
-uint8; cv2's INTER_LINEAR rounds with fixed-point weights, so a pixel may
-differ from cv2's by one grey level. It runs on the caller's device, so
-no cv2 or PIL is needed.
+The resize is cv2's `INTER_LINEAR` for uint8 (the JAX package's
+`_resize_bilinear`, as mmcv rescales), reproduced bit for bit: cv2's
+11-bit fixed-point coefficients and its integer horizontal and vertical
+passes, in integer torch ops on the caller's device, so no cv2 or PIL is
+needed.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from htd_tpu_torch.ops.boxes import bbox_flip
 
@@ -44,13 +44,51 @@ def bucket_shape(scale: Tuple[int, int], landscape: bool) -> Tuple[int, int]:
     return ceil32(long_side), ceil32(short_side)
 
 
+_COEF_SCALE = 2048  # cv2's INTER_RESIZE_COEF_SCALE (11 fractional bits)
+
+
+def _linear_taps(src: int, dst: int, clamp_frac: bool):
+    """cv2's per-axis INTER_LINEAR table: the first source index of each
+    output index and the two 11-bit coefficients. Positions are
+    float32((i + 0.5) * scale - 0.5) with scale = 1 / (dst / src) in
+    float64; the fraction and the coefficients are float32, rounded half to
+    even. The horizontal axis (`clamp_frac`) pins a tap that falls off
+    either edge to the edge pixel with coefficients (2048, 0); the vertical
+    axis keeps the fraction and only clips the row indices."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = (f - s).astype(np.float32)
+    s = s.astype(np.int64)
+    if clamp_frac:
+        low, high = s < 0, s >= src - 1
+        f[low | high] = 0.0
+        s[low] = 0
+        s[high] = src - 1
+    a0 = np.rint((np.float32(1.0) - f) * np.float32(_COEF_SCALE)).astype(np.int32)
+    a1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int32)
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), a0, a1
+
+
 def resize_bilinear(img: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
     """(H, W, 3) uint8 -> (new_h, new_w, 3) float32 holding uint8 values:
-    bilinear with half-pixel centres, rounded to the nearest grey level."""
-    x = img.permute(2, 0, 1)[None].to(torch.float32)
-    x = F.interpolate(x, size=(new_h, new_w), mode="bilinear", align_corners=False,
-                      antialias=False)
-    return x.round().clamp(0, 255)[0].permute(1, 2, 0)
+    cv2.resize(INTER_LINEAR) bit for bit. The horizontal pass sums
+    a0 * src[s] + a1 * src[s + 1] in int32; the vertical pass rounds
+    (((b0 * (S0 >> 4)) >> 16) + ((b1 * (S1 >> 4)) >> 16) + 2) >> 2, as cv2's
+    fixed-point cast does, and clamps to [0, 255]."""
+    h, w = int(img.shape[0]), int(img.shape[1])
+    dev = img.device
+
+    def table(src, dst, clamp):
+        return [torch.from_numpy(a).to(dev) for a in _linear_taps(src, dst, clamp)]
+
+    x0, x1, a0, a1 = table(w, new_w, True)
+    y0, y1, b0, b1 = table(h, new_h, False)
+    src = img.to(torch.int32)
+    rows = src[:, x0] * a0[:, None] + src[:, x1] * a1[:, None]     # (H, new_w, 3)
+    top = (b0[:, None, None] * (rows[y0] >> 4)) >> 16
+    bottom = (b1[:, None, None] * (rows[y1] >> 4)) >> 16
+    return ((top + bottom + 2) >> 2).clamp(0, 255).to(torch.float32)
 
 
 class ProcessedImage(NamedTuple):

@@ -108,11 +108,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.htd_roi_align_bwd.argtypes = [vp, f32p, i32p, vp, i32, i32, f32p, i32p, i32p,
                                       i32p, i32, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.htd_roi_align_bwd.restype = i32
-    lib.htd_deform_conv_fwd.argtypes = [vp, vp, vp, vp] + [i32] * 12 + [vp]
+    lib.htd_deform_conv_fwd.argtypes = [vp, vp, vp, vp] + [i32] * 13 + [i32p, vp]
     lib.htd_deform_conv_fwd.restype = i32
-    lib.htd_deform_conv_bwd_input.argtypes = [vp] * 5 + [i32] * 12 + [vp]
+    lib.htd_deform_conv_bwd_input.argtypes = [vp] * 5 + [i32] * 13 + [i32p, vp]
     lib.htd_deform_conv_bwd_input.restype = i32
-    lib.htd_deform_conv_bwd_offset_weight.argtypes = [vp] * 6 + [i32] * 12 + [vp]
+    lib.htd_deform_conv_bwd_offset_weight.argtypes = [vp] * 6 + [i32] * 13 + [vp]
     lib.htd_deform_conv_bwd_offset_weight.restype = i32
     lib.htd_deform_conv_bwd_dw_partials.argtypes = [i32] * 6
     lib.htd_deform_conv_bwd_dw_partials.restype = i32

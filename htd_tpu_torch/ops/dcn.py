@@ -130,9 +130,11 @@ def _sample_positions(n: int, ho: int, wo: int, kh: int, kw: int, stride: int,
 def deform_conv2d_plain(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
                         stride: int = 1, dilation: int = 1, deform_groups: int = 1,
                         groups: int = 1) -> torch.Tensor:
-    """The plain version of K3: gathers every (pixel, tap) sample, then
-    contracts per weight group. Samples and sums are float32 whatever the
-    input dtype; the result is cast to x's dtype."""
+    """The plain version of K3: gathers every (pixel, tap) sample, blends
+    its four corners in float32 and rounds it once to x's dtype (a no-op in
+    float32; in bfloat16 the sample K3's tensor cores contract, and the TPU
+    kernel's `samp` in the stripe's dtype), then contracts per weight group
+    with float32 sums; the result is cast to x's dtype."""
     _check(x, offsets, weight, stride, dilation, deform_groups, groups)
     n, h, w, cin = x.shape
     kh, kw, cg, cout = weight.shape
@@ -146,7 +148,7 @@ def deform_conv2d_plain(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Te
         _bilinear_gather(flat[..., g * cdg:(g + 1) * cdg], h, w, ys[..., g, :], xs[..., g, :])
         for g in range(deform_groups)], dim=-1)                 # (N, Ho, Wo, K, Cin)
     og = cout // groups
-    col = col.reshape(n, ho * wo, k, groups, cg)
+    col = col.to(x.dtype).to(torch.float32).reshape(n, ho * wo, k, groups, cg)
     wg = weight.to(torch.float32).reshape(k, cg, groups, og)
     out = torch.einsum("npkgc,kcgo->npgo", col, wg)
     return out.reshape(n, ho, wo, cout).to(x.dtype)
@@ -239,11 +241,14 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
     """DCNv1: x (N, H, W, Cin), offsets (N, Ho, Wo, dg * 2 * kh * kw),
     weight (kh, kw, Cin / groups, Cout) -> (N, Ho, Wo, Cout), differentiable
     in all three. On CUDA one K3 launch forward and one K5 and one K6
-    launch backward (3x3, deform_groups 1, inputs of one dtype; x and
+    launch backward (3x3, any number of deform groups, Cin / deform_groups
+    a multiple of 64 when there are several; inputs of one dtype; x and
     offsets contiguous, the weight's memory in (Cout, kh, kw, Cin / groups)
-    order as `DeformConv2d.hwio_weight()` gives it); the plain versions on
-    the CPU. With `HTD_DCN_FENCE=1`, x is fenced first (kernel K8 on CUDA),
-    as in the JAX package."""
+    order as `DeformConv2d.hwio_weight()` gives it). K3 and K5 run on the
+    tensor cores in bfloat16 with one weight group and on the CUDA cores
+    otherwise (`ops.dcn_cuda`); the plain versions on the CPU. With
+    `HTD_DCN_FENCE=1`, x is fenced first (kernel K8 on CUDA), as in the JAX
+    package."""
     _check(x, offsets, weight, stride, dilation, deform_groups, groups)
     dev = x.device.type
     if dev not in ("cuda", "cpu"):

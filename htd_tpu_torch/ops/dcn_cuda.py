@@ -10,24 +10,36 @@ adds one to its entry in `launch_counts`. There is no fallback: a CUDA
 tensor goes through the kernel or the call raises. The public wrapper
 that picks between the kernels and their plain versions by device is
 `ops.dcn.deform_conv2d`.
+
+K3 and K5 each have two paths, picked in C by dtype and weight groups
+(not a fallback: each input takes exactly one): bfloat16 with one weight
+group runs on the tensor cores, float32 or grouped weights on the CUDA
+cores. The kernel reports the path it launched, and the launcher counts
+it in `path_counts` (`deform_conv_tc` / `deform_conv_cc`, likewise for
+`deform_conv_bwd_input`) beside its one entry in `launch_counts`.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 
-from htd_tpu_torch.ops.roi_align_cuda import _DTYPE_CODE, _check, _stream, launch_counts
+from htd_tpu_torch.ops.roi_align_cuda import (_DTYPE_CODE, _check, _stream, launch_counts,
+                                              path_counts)
 
 
 def _check_inputs(name: str, weight_shape, groups: int, deform_groups: int,
                   channel_vec: Tuple[int, int], **tensors: torch.Tensor) -> None:
-    """What K3, K5 and K6 share: CUDA tensors of one dtype, 3x3 with one
-    deform group, Cin/groups and Cout/groups multiples of `channel_vec`
-    (in units of the 16-byte vector when 0), contiguous and 16-byte
-    aligned (a weight given as `weight` in (Cout, 3, 3, Cin/groups) memory
-    order)."""
+    """What K3, K5 and K6 share: CUDA tensors of one dtype, 3x3, Cin/groups
+    and Cout/groups multiples of `channel_vec` (in units of the 16-byte
+    vector when 0), contiguous and 16-byte aligned (a weight given as
+    `weight` in (Cout, 3, 3, Cin/groups) memory order). Any number of
+    deform groups: with more than one, Cin/deform_groups must be a
+    multiple of 64 (a kernel block's channels lie in one or two deform
+    groups); on the tensor-core path (bfloat16, one weight group) Cin
+    must be a multiple of 64 whatever the deform groups."""
     first = next(iter(tensors.values()))
     if any(t.device.type != "cuda" or t.device != first.device for t in tensors.values()):
         raise ValueError(f"{name} takes CUDA tensors on one device")
@@ -35,13 +47,22 @@ def _check_inputs(name: str, weight_shape, groups: int, deform_groups: int,
         raise ValueError(f"{name} takes float32 or bfloat16 tensors of one dtype, not "
                          + ", ".join(f"{k} {t.dtype}" for k, t in tensors.items()))
     kh, kw, cg, cout = weight_shape
-    if (kh, kw) != (3, 3) or deform_groups != 1:
-        raise ValueError(f"{name} takes 3x3 kernels with one deform group")
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"{name} takes 3x3 kernels")
+    if tensors["offsets"].shape[-1] != 18 * deform_groups:
+        raise ValueError(f"{name}: offsets of {tensors['offsets'].shape[-1]} channels do not "
+                         f"fit {deform_groups} deform groups of 18")
     vec = 16 // first.element_size()
     need_c, need_o = (m or vec for m in channel_vec)
     if cg % need_c or (cout // groups) % need_o:
         raise ValueError(f"{name} needs Cin/groups a multiple of {need_c} and Cout/groups of "
                          f"{need_o}, got {cg} and {cout // groups}")
+    cin = cg * groups
+    if (deform_groups > 1 and (cin // deform_groups) % 64) or \
+            (first.dtype == torch.bfloat16 and groups == 1 and cin % 64):
+        raise ValueError(f"{name} needs Cin/deform_groups a multiple of 64 with more than one "
+                         f"deform group, and Cin a multiple of 64 in bfloat16 with one weight "
+                         f"group; got Cin {cin}, {deform_groups} deform groups")
     for key, t in tensors.items():
         t = t.permute(3, 0, 1, 2) if key == "weight" else t
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -52,10 +73,11 @@ def _check_inputs(name: str, weight_shape, groups: int, deform_groups: int,
 def launch_deform_conv(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
                        stride: int, dilation: int, deform_groups: int,
                        groups: int) -> torch.Tensor:
-    """K3: x (N, H, W, Cin) and offsets (N, Ho, Wo, 18), contiguous; weight
-    (3, 3, Cin / groups, Cout) whose memory is in (Cout, 3, 3, Cin / groups)
-    order (`DeformConv2d.hwio_weight()`); CUDA tensors of one dtype ->
-    (N, Ho, Wo, Cout). Shapes were checked by `ops.dcn.deform_conv2d`."""
+    """K3: x (N, H, W, Cin) and offsets (N, Ho, Wo, deform_groups * 18),
+    contiguous; weight (3, 3, Cin / groups, Cout) whose memory is in
+    (Cout, 3, 3, Cin / groups) order (`DeformConv2d.hwio_weight()`); CUDA
+    tensors of one dtype -> (N, Ho, Wo, Cout). Shapes were checked by
+    `ops.dcn.deform_conv2d`."""
     from htd_tpu_torch.ops._build import load
 
     _check_inputs("K3", weight.shape, groups, deform_groups, (0, 4), x=x, offsets=offsets,
@@ -65,11 +87,14 @@ def launch_deform_conv(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Ten
     cout = weight.shape[-1]
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     lib, _ = load()
+    path = ctypes.c_int(-1)
     err = lib.htd_deform_conv_fwd(
         x.data_ptr(), offsets.data_ptr(), weight.data_ptr(), out.data_ptr(), n, h, w, cin,
-        ho, wo, cout, groups, stride, dilation, dilation, _DTYPE_CODE[x.dtype], _stream())
+        ho, wo, cout, groups, deform_groups, stride, dilation, dilation, _DTYPE_CODE[x.dtype],
+        ctypes.byref(path), _stream())
     _check(err, "deform_conv")
     launch_counts["deform_conv"] += 1
+    path_counts["deform_conv_tc" if path.value == 1 else "deform_conv_cc"] += 1
     return out
 
 
@@ -90,12 +115,14 @@ def launch_deform_conv_bwd_input(x_shape, offsets: torch.Tensor, weight: torch.T
     d_x = torch.zeros((n, h, w, cin), dtype=torch.float32, device=g.device)
     d_col = torch.empty((n, ho, wo, 9, cin), dtype=torch.float32, device=g.device)
     lib, _ = load()
+    path = ctypes.c_int(-1)
     err = lib.htd_deform_conv_bwd_input(
         g.data_ptr(), offsets.data_ptr(), weight.data_ptr(), d_x.data_ptr(), d_col.data_ptr(),
-        n, h, w, cin, ho, wo, cout, groups, stride, dilation, dilation,
-        _DTYPE_CODE[g.dtype], _stream())
+        n, h, w, cin, ho, wo, cout, groups, deform_groups, stride, dilation, dilation,
+        _DTYPE_CODE[g.dtype], ctypes.byref(path), _stream())
     _check(err, "deform_conv_bwd_input")
     launch_counts["deform_conv_bwd_input"] += 1
+    path_counts["deform_conv_bwd_input_tc" if path.value == 1 else "deform_conv_bwd_input_cc"] += 1
     return d_x.to(g.dtype), d_col
 
 
@@ -105,7 +132,7 @@ def launch_deform_conv_bwd_offset_weight(x: torch.Tensor, offsets: torch.Tensor,
                                          deform_groups: int, groups: int
                                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6: K3's x and offsets, the cotangent g and K5's d_col -> (d_off
-    (N, Ho, Wo, 18) in the offsets' dtype; d_w float32 of `weight_shape`
+    in the offsets' shape and dtype; d_w float32 of `weight_shape`
     (3, 3, Cin / groups, Cout), a view of (Cout, 3, 3, Cin / groups)
     memory as K3 reads the weight)."""
     from htd_tpu_torch.ops._build import load
@@ -125,8 +152,8 @@ def launch_deform_conv_bwd_offset_weight(x: torch.Tensor, offsets: torch.Tensor,
     lib, _ = load()
     err = lib.htd_deform_conv_bwd_offset_weight(
         x.data_ptr(), offsets.data_ptr(), g.data_ptr(), d_col.data_ptr(), d_off.data_ptr(),
-        d_w.data_ptr(), n, h, w, cin, ho, wo, cout, groups, stride, dilation, dilation,
-        _DTYPE_CODE[x.dtype], _stream())
+        d_w.data_ptr(), n, h, w, cin, ho, wo, cout, groups, deform_groups, stride, dilation,
+        dilation, _DTYPE_CODE[x.dtype], _stream())
     _check(err, "deform_conv_bwd_offset_weight")
     launch_counts["deform_conv_bwd_offset_weight"] += 1
     return d_off, d_w.permute(1, 2, 3, 0)

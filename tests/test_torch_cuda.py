@@ -85,16 +85,17 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         roi_align_pyramid(pyr, rois.cpu(), map_roi_levels(rois, 4).cpu(), STRIDES)
 
 
-def _dcn_inputs(dev, dtype, stride, groups, scale=2.5, n=2, h=23, w=37, seed=0):
+def _dcn_inputs(dev, dtype, stride, groups, scale=2.5, n=2, h=23, w=37, seed=0,
+                deform_groups=1, channels=None):
     """x (N, H, W, Cin), anisotropic offsets (some samples outside the
-    image), grouped HWIO weight. 1 group: 128 -> 96 channels (a ragged
-    output tile); 64 groups: 512 -> 512, 8 channels a group (X-101-DCN's
-    layer 2)."""
-    cin, cout = (128, 96) if groups == 1 else (512, 512)
+    image) for each deform group, grouped HWIO weight. 1 group: 128 -> 96
+    channels (a ragged output tile); 64 groups: 512 -> 512, 8 channels a
+    group (X-101-DCN's layer 2); `channels` (Cin, Cout) overrides both."""
+    cin, cout = channels or ((128, 96) if groups == 1 else (512, 512))
     rng = np.random.RandomState(seed)
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    off = rng.normal(0, 1, (n, ho, wo, 9, 2)) * [scale, scale / 2] + [0.0, 0.4]
-    arrs = (rng.normal(0, 1, (n, h, w, cin)), off.reshape(n, ho, wo, 18),
+    off = rng.normal(0, 1, (n, ho, wo, deform_groups * 9, 2)) * [scale, scale / 2] + [0.0, 0.4]
+    arrs = (rng.normal(0, 1, (n, h, w, cin)), off.reshape(n, ho, wo, deform_groups * 18),
             rng.normal(0, (9 * cin / groups) ** -0.5, (3, 3, cin // groups, cout)))
     x, off, w = [torch.from_numpy(a.astype(np.float32)).to(dev, dtype) for a in arrs]
     # K3 reads the weight in (Cout, 3, 3, Cin/groups) memory order
@@ -109,15 +110,18 @@ def test_deform_conv_matches_plain(cuda, stride, groups, dtype):
     """K3 against its plain version: within 1e-4 (float32) / 1e-2
     (bfloat16) of the plain version's largest magnitude. Both sum in
     float32, in different orders; in bfloat16 the outputs differ by one
-    final rounding."""
+    final rounding. bfloat16 with one weight group takes the tensor
+    cores, everything else the CUDA cores."""
     from htd_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_plain
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
 
     x, off, wgt = _dcn_inputs(cuda, dtype, stride, groups)
     reset_launch_counts()
     k = deform_conv2d(x, off, wgt, stride=stride, groups=groups)
     torch.cuda.synchronize()
     assert launch_counts["deform_conv"] == 1
+    tc = dtype == torch.bfloat16 and groups == 1
+    assert (path_counts["deform_conv_tc"], path_counts["deform_conv_cc"]) == (tc, not tc)
     p = deform_conv2d_plain(x, off, wgt, stride=stride, groups=groups)
     assert k.shape == p.shape and k.dtype == dtype
     assert _rel_err(k, p) <= (1e-4 if dtype == torch.float32 else 1e-2)
@@ -141,8 +145,9 @@ def test_deform_conv_zero_offsets_is_conv2d(cuda, groups):
 @pytest.mark.cuda
 def test_deform_conv_rejects_what_it_does_not_take(cuda):
     """A non-contiguous input raises rather than falling back or copying;
-    so do an HWIO-contiguous weight, two deform groups and a dtype
-    mismatch."""
+    so do an HWIO-contiguous weight, deform groups of fewer than 64
+    channels (128 channels in 4 groups: a kernel block's channels would
+    span more than two) and a dtype mismatch."""
     from htd_tpu_torch.ops.dcn import deform_conv2d
 
     x, off, wgt = _dcn_inputs(cuda, torch.float32, 1, 1)
@@ -151,8 +156,8 @@ def test_deform_conv_rejects_what_it_does_not_take(cuda):
         deform_conv2d(nchw.permute(0, 2, 3, 1), off, wgt)
     with pytest.raises(ValueError, match="memory order"):
         deform_conv2d(x, off, wgt.contiguous())
-    with pytest.raises(ValueError):
-        deform_conv2d(x, off.repeat(1, 1, 1, 2), wgt, deform_groups=2)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        deform_conv2d(x, off.repeat(1, 1, 1, 4), wgt, deform_groups=4)
     with pytest.raises(ValueError):
         deform_conv2d(x, off.bfloat16(), wgt)
 
@@ -232,11 +237,103 @@ def test_deform_conv_bwd_matches_plain(cuda, stride, groups, dtype):
             assert err <= lim, f"{name}: {err:.3g} (limit {lim:.3g})"
 
 
+def _ulp_limit(k, p, rel):
+    """Largest |k - p| relative to max |p|, and its limit: `rel` for float32
+    sums in another order, plus one bfloat16 ulp of max |p| where the
+    outputs are rounded to bfloat16."""
+    err, lim = _bwd_err(k, p, p.dtype)
+    return err, lim - 1e-5 + rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_groups_match_plain(cuda, stride, dtype):
+    """Two deform groups (each sampling its 64 channels at its own offsets,
+    the offsets of the second group drawn apart from the first): K3, K5
+    and K6 against their plain versions, within `_bwd_err`'s limit (1e-4
+    for K3's forward: its tensor cores sum over 9 x 128 products in float32
+    in their own order). K3 and K5 take the tensor cores in bfloat16 and
+    the CUDA cores in float32."""
+    from htd_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_backward_plain, \
+        deform_conv2d_plain
+    from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
+                                            launch_deform_conv_bwd_offset_weight)
+    from htd_tpu_torch.ops.roi_align_cuda import path_counts, reset_launch_counts
+
+    x, off, wgt = _dcn_inputs(cuda, dtype, stride, 1, deform_groups=2, seed=3)
+    reset_launch_counts()
+    k = deform_conv2d(x, off, wgt, stride=stride, deform_groups=2)
+    p = deform_conv2d_plain(x, off, wgt, stride=stride, deform_groups=2)
+    err, lim = _ulp_limit(k, p, 1e-4)
+    assert err <= lim, f"K3: {err:.3g} (limit {lim:.3g})"
+    # the groups differ: the same conv with the first group's offsets for both is another function
+    same = deform_conv2d_plain(x, off[..., :18].repeat(1, 1, 1, 2).contiguous(), wgt,
+                               stride=stride, deform_groups=2)
+    assert (same.float() - p.float()).abs().max() > 0.1 * p.float().abs().max()
+    g = torch.randn(off.shape[:3] + (wgt.shape[-1],), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(4)).to(dtype)
+    ref = deform_conv2d_backward_plain(x, off, wgt, g, stride=stride, deform_groups=2)
+    d_x, d_col = launch_deform_conv_bwd_input(x.shape, off, wgt, g, stride, 1, 2, 1)
+    d_off, d_w = launch_deform_conv_bwd_offset_weight(x, off, g, d_col, wgt.shape, stride, 1, 2,
+                                                      1)
+    torch.cuda.synchronize()
+    for name, k, p in zip(("d_x", "d_off", "d_w"), (d_x, d_off, d_w.to(dtype)), ref):
+        assert k.shape == p.shape and k.dtype == p.dtype, name
+        err, lim = _bwd_err(k, p, dtype)
+        assert err <= lim, f"{name}: {err:.3g} (limit {lim:.3g})"
+    tc = int(dtype == torch.bfloat16)
+    assert path_counts == {"deform_conv_tc": tc, "deform_conv_cc": 1 - tc,
+                           "deform_conv_bwd_input_tc": tc, "deform_conv_bwd_input_cc": 1 - tc}
+
+
+# R-101-DCN's deformable convs at 800x1344: (channels, input size, stride)
+R101_DCN_SHAPES = {"layer2": (128, (100, 168), 1), "layer2.0": (128, (200, 336), 2),
+                   "layer3.0": (256, (100, 168), 2), "layer3": (256, (50, 84), 1),
+                   "layer4.0": (512, (50, 84), 2), "layer4": (512, (25, 42), 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("conv", list(R101_DCN_SHAPES))
+def test_tensor_core_paths_at_r101_shapes(cuda, conv, n):
+    """bfloat16 K3 and K5 on the tensor cores at R-101-DCN's stage shapes
+    (layer 4's 25x42 map a ragged pixel count, strides 1 and 2, batch 1 as
+    in inference and 2 as in training) against their plain versions: K3's
+    output and K5's d_x within 1e-4 of max |plain| plus one bfloat16 ulp
+    (the same bfloat16 samples and operands, float32 sums in another
+    order, then one rounding); K5's float32 d_col within 1e-4. One launch
+    each, both counted on the tensor-core path."""
+    from htd_tpu_torch.ops.dcn import (deform_conv2d, deform_conv2d_backward_input_plain,
+                                       deform_conv2d_plain)
+    from htd_tpu_torch.ops.dcn_cuda import launch_deform_conv_bwd_input
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
+
+    c, (h, w), stride = R101_DCN_SHAPES[conv]
+    x, off, wgt = _dcn_inputs(cuda, torch.bfloat16, stride, 1, n=n, h=h, w=w, channels=(c, c),
+                              seed=5)
+    g = torch.randn(off.shape[:3] + (c,), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(6)).bfloat16()
+    reset_launch_counts()
+    k = deform_conv2d(x, off, wgt, stride=stride)
+    d_x, d_col = launch_deform_conv_bwd_input(x.shape, off, wgt, g, stride, 1, 1, 1)
+    torch.cuda.synchronize()
+    assert launch_counts["deform_conv"] == launch_counts["deform_conv_bwd_input"] == 1
+    assert path_counts["deform_conv_tc"] == path_counts["deform_conv_bwd_input_tc"] == 1
+    err, lim = _ulp_limit(k, deform_conv2d_plain(x, off, wgt, stride=stride), 1e-4)
+    assert err <= lim, f"K3: {err:.3g} (limit {lim:.3g})"
+    p_x, p_col = deform_conv2d_backward_input_plain(x.shape, off, wgt, g, stride)
+    err, lim = _ulp_limit(d_x, p_x, 1e-4)
+    assert err <= lim, f"K5 d_x: {err:.3g} (limit {lim:.3g})"
+    err, lim = _ulp_limit(d_col, p_col, 1e-4)
+    assert err <= lim, f"K5 d_col: {err:.3g} (limit {lim:.3g})"
+
+
 @pytest.mark.cuda
 def test_deform_conv_bwd_rejects_what_it_does_not_take(cuda):
     """K5 and K6 raise, rather than fall back or copy, on a cotangent that
-    is not contiguous, inputs of two dtypes, two deform groups, and a d_col
-    that is not K5's float32 one."""
+    is not contiguous, inputs of two dtypes, offsets that do not fit the
+    deform groups, and a d_col that is not K5's float32 one."""
     from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
                                             launch_deform_conv_bwd_offset_weight)
 

@@ -1,6 +1,7 @@
 """Port parity: the deformable conv forward (`htd_tpu_torch.ops.dcn`, the
 plain version of kernel K3) against the JAX package's gather formulation
-and its Pallas kernel in interpret mode (float32, CPU). Inputs are made
+and its Pallas kernel in interpret mode (float32; bfloat16 against the
+gather run in bfloat16; CPU). Inputs are made
 with numpy from a seed, with anisotropic random offsets so that a swapped
 (y, x) layout cannot pass."""
 
@@ -73,6 +74,32 @@ def test_plain_matches_gather_deform_groups():
     ref = _jax_gather(x, off, wgt, 2, deform_groups=2)
     out = deform_conv2d(t(x), t(off), t(wgt), stride=2, deform_groups=2).numpy()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("deform_groups", [1, 2])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_plain_bf16_matches_gather_bf16(stride, deform_groups):
+    """bfloat16 inputs: the plain version (each sample blended in float32
+    and rounded once to bfloat16, float32 sums, as K3's tensor cores
+    compute it) against `_dcn_xla_impl(impl="gather")` run in bfloat16,
+    which rounds the corner weights, each corner product and each partial
+    sum of a sample to bfloat16: within 1.5e-2 of max |ref| (about four
+    bfloat16 ulps). Both against the float32 gather of the same bfloat16
+    values within 1e-2 of its max."""
+    x, off, wgt = _inputs(30 + stride, stride, 1, 2.5, deform_groups=deform_groups)
+    xb, ob, wb = (jnp.asarray(a, jnp.bfloat16) for a in (x, off, wgt))
+    ref = np.asarray(jax.jit(lambda a, b, c: _dcn_xla_impl(
+        a, b, c, stride, 1, deform_groups, "gather", 1, 128))(xb, ob, wb).astype(jnp.float32))
+    exact = _jax_gather(*(np.asarray(a.astype(jnp.float32)) for a in (xb, ob, wb)), stride,
+                        deform_groups)
+    out = deform_conv2d(*(t(a).bfloat16() for a in (x, off, wgt)), stride=stride,
+                        deform_groups=deform_groups)
+    assert out.dtype == torch.bfloat16
+    out = out.float().numpy()
+    scale = np.abs(exact).max()
+    assert np.abs(out - ref).max() <= 1.5e-2 * np.abs(ref).max()
+    assert np.abs(out - exact).max() <= 1e-2 * scale
+    assert np.abs(ref - exact).max() <= 1e-2 * scale
 
 
 @pytest.mark.parametrize("stride", [1, 2])

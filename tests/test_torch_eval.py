@@ -15,12 +15,10 @@ from htd_tpu import config as JC
 from htd_tpu.data import coco as jcoco
 from htd_tpu.data import coco_eval as jeval
 from htd_tpu.data import mean_ap as jmap
-from htd_tpu.data import pipeline as jpipe
 from htd_tpu_torch import apis as papis
 from htd_tpu_torch.data import coco as pcoco
 from htd_tpu_torch.data import coco_eval as peval
 from htd_tpu_torch.data import mean_ap as pmap
-from htd_tpu_torch.data import pipeline as ppipe
 from tests.test_e2e_parity import _assert_rows_match_or_tie
 from tests.torch_port import t, tiny_pair
 
@@ -62,15 +60,6 @@ def mini_coco(tmp_path_factory):
     return str(ann_file), str(root)
 
 
-@pytest.fixture
-def port_resize(monkeypatch):
-    """The JAX preprocess's cv2 resize replaced by the port's bilinear rule,
-    so that both packages see the same pixels (the two resizes are held to
-    each other within one grey level by test_torch_ops)."""
-    monkeypatch.setattr(jpipe, "_resize_bilinear", lambda img, h, w: ppipe.resize_bilinear(
-        torch.from_numpy(np.ascontiguousarray(img)), h, w).numpy().astype(np.uint8))
-
-
 @pytest.mark.parametrize("test_mode", [True, False])
 def test_dataset_matches(mini_coco, test_mode):
     """Records (ids, sizes, boxes, labels, crowd boxes), the label map,
@@ -105,7 +94,7 @@ def test_grouped_batches_match(mini_coco, shuffle, drop_last):
     assert all(len({pd.records[0].landscape for _ in b}) == 1 for b in p)
 
 
-def test_batch_makers_match(mini_coco, port_resize):
+def test_batch_makers_match(mini_coco):
     """`make_test_batch` (a short batch padded to 4 with id -1) and
     `make_train_batch` (seeded flips, gts padded to 8) give the JAX
     arrays bit for bit; `sample_mstrain_scale` draws the same scales."""
@@ -203,7 +192,7 @@ def pair():
     return cfg, jm, variables, port
 
 
-def test_evaluate_dataset_matches_jax(pair, mini_coco, port_resize):
+def test_evaluate_dataset_matches_jax(pair, mini_coco):
     """`evaluate_dataset` of the tiny detector at batch 3 over both
     orientations: per image the same detection count, boxes within 1e-2 px
     and scores within 1e-3 after matching rows; the COCO metrics within
@@ -226,7 +215,7 @@ def test_evaluate_dataset_matches_jax(pair, mini_coco, port_resize):
         assert abs(pmet[k] - jmet[k]) <= 1e-6 or (np.isnan(pmet[k]) and np.isnan(jmet[k])), k
 
 
-def test_evaluate_proposals_matches_jax(pair, mini_coco, port_resize):
+def test_evaluate_proposals_matches_jax(pair, mini_coco):
     """`evaluate_proposals` (AR@10, AR@48 over IoU 0.50:0.95) within 1e-6 of
     the JAX package's at batch 3."""
     cfg, jm, variables, port = pair

@@ -173,11 +173,30 @@ def test_roi_extractor_impl_names(rng):
         single_roi_extract_batched(pyr, rois, PC.RoIExtractorConfig(impl="window"))
 
 
+@pytest.mark.parametrize("hw,new_hw", [
+    ((480, 640), (800, 1067)), ((720, 1280), (750, 1333)), ((1000, 1500), (800, 1200)),
+    ((427, 640), (800, 1199)), ((960, 1280), (480, 640)), ((37, 53), (61, 89)),
+    ((89, 61), (40, 27)), ((1, 9), (3, 4)), ((5, 7), (5, 7))],
+    ids=["up", "up_wide", "down", "up_odd", "down_2x", "small_up", "small_down", "one_row",
+         "same"])
+def test_resize_bilinear_is_cv2(hw, new_hw):
+    """`resize_bilinear` is `cv2.resize(INTER_LINEAR)` bit for bit on seeded
+    uint8 images: upscales, downscales, an exact 2x downscale (which cv2
+    runs as INTER_AREA, the same function there), odd small sizes and the
+    identity."""
+    cv2 = pytest.importorskip("cv2")
+    img = np.random.RandomState(hw[0] * 7 + hw[1]).randint(0, 256, hw + (3,)).astype(np.uint8)
+    ref = cv2.resize(img, new_hw[::-1], interpolation=cv2.INTER_LINEAR)
+    got = ppipe.resize_bilinear(torch.from_numpy(img), *new_hw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == new_hw + (3,)
+    np.testing.assert_array_equal(got.numpy(), ref.astype(np.float32))
+
+
 @pytest.mark.parametrize("hw", [(480, 640), (333, 500), (800, 600)])
 def test_preprocess_matches(rng, hw):
-    """Resize + normalize + pad: shapes, scale factors and the bucket agree
-    exactly; pixels within one grey level of cv2's fixed-point rounding
-    (1 / 57.12 after normalisation)."""
+    """Resize + normalize + pad: shapes, scale factors, the bucket and the
+    pixels agree exactly (the port's resize is cv2's INTER_LINEAR bit for
+    bit)."""
     img = rng.randint(0, 256, hw + (3,)).astype(np.uint8)
     scale = (1333, 800)
     bucket = jpipe.bucket_shape(scale, hw[1] >= hw[0])
@@ -187,7 +206,7 @@ def test_preprocess_matches(rng, hw):
     np.testing.assert_array_equal(p.img_shape.numpy(), j.img_shape)
     np.testing.assert_array_equal(p.scale_factor.numpy(), j.scale_factor)
     assert p.image.shape == j.image.shape
-    assert np.abs(p.image.numpy() - j.image).max() <= 1.0 / 57.12 + 1e-5
+    np.testing.assert_array_equal(p.image.numpy(), j.image)
 
 
 def test_port_imports_no_jax():

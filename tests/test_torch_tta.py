@@ -31,15 +31,6 @@ def _boxes(rng, n, w=90.0, h=60.0):
     return np.concatenate([xy, np.minimum(xy + wh, [w, h])], 1).astype(np.float32)
 
 
-@pytest.fixture
-def port_resize(monkeypatch):
-    """The JAX preprocess's cv2 resize replaced by the port's bilinear rule,
-    so that both packages see the same pixels (the two resizes are held to
-    each other within one grey level by test_torch_ops)."""
-    monkeypatch.setattr(jpipe, "_resize_bilinear", lambda img, h, w: ppipe.resize_bilinear(
-        torch.from_numpy(np.ascontiguousarray(img)), h, w).numpy().astype(np.uint8))
-
-
 @pytest.mark.parametrize("direction", ["horizontal", "vertical"])
 def test_bbox_flip_and_mapping_match(rng, direction):
     """`bbox_flip`, `bbox_mapping` and `bbox_mapping_back` are bit-equal to
@@ -66,9 +57,8 @@ def test_bbox_flip_and_mapping_match(rng, direction):
 def test_preprocess_flip_boxes_match(rng, hw, flip):
     """Resize -> flip -> BGR to RGB -> normalize -> pad, with gt boxes
     scaled, clipped to the resized shape and mirrored in the resized width:
-    shapes, scale factors, boxes, labels and the flag agree exactly; pixels
-    within one grey level (cv2's fixed-point resize; 1 / 57.12 after
-    normalisation), and bit-equal under the port's resize rule."""
+    shapes, scale factors, boxes, labels, the flag and the pixels agree
+    exactly (the port's resize is cv2's INTER_LINEAR bit for bit)."""
     img = rng.randint(0, 256, hw + (3,)).astype(np.uint8)
     gts = np.concatenate([_boxes(rng, 5, hw[1], hw[0]), [[-4, 3, hw[1] + 9, 40]]]).astype(
         np.float32)
@@ -82,12 +72,12 @@ def test_preprocess_flip_boxes_match(rng, hw, flip):
     np.testing.assert_array_equal(p.boxes.numpy(), j.boxes)
     np.testing.assert_array_equal(p.labels.numpy(), j.labels)
     assert p.flipped == j.flipped == flip
-    assert np.abs(p.image.numpy() - j.image).max() <= 1.0 / 57.12 + 1e-5
+    np.testing.assert_array_equal(p.image.numpy(), j.image)
     new_h, new_w = (int(v) for v in j.img_shape)
     assert not p.image[new_h:].any() and not p.image[:, new_w:].any()
 
 
-def test_preprocess_flip_bit_equal_under_one_resize(rng, port_resize):
+def test_preprocess_flip_bit_equal_under_one_resize(rng):
     img = rng.randint(0, 256, (333, 500, 3)).astype(np.uint8)
     gts = _boxes(rng, 4, 500, 333)
     j = jpipe.preprocess(img, scale=(1333, 800), flip=True, boxes=gts)
@@ -164,7 +154,7 @@ def pair():
 SCALES = ((96, 64), (80, 56))   # one 64x96 bucket: one JAX compile per method
 
 
-def test_aug_inference_matches_jax(pair, port_resize):
+def test_aug_inference_matches_jax(pair):
     """Two scales with flip (4 augs) on the tiny detector: the same number
     of detections as the JAX package's `aug_inference_detector`, boxes
     within 1e-2 px and scores within 1e-3 after matching rows (score ties
