@@ -51,12 +51,14 @@ script exits non-zero without its final line:
      bn3 scales opened from zero and seeded offset convs) on phase 12's
      batch: finite losses, stem and layer1 bit-unchanged, every DCN weight
      and offset conv with a non-zero gradient, K1 1, K2 3, K3 30, K4 3, K5
-     30 and K6 30 launches per step, every K3 and K5 launch on the
+     30 and K6 30 launches per step, every K3, K5 and K6 launch on the
      tensor-core path;
  17. K5 and K6 held to their plain version on a training step's own
      inputs (one stride-2 and one stride-1 deformable conv of each stage),
      with one and (bfloat16) two deform groups, and on X-101-64x4d-DCN's
-     grouped shapes, in bfloat16 and float32, each run twice;
+     grouped shapes, in bfloat16 and float32, each run twice (bfloat16 K6
+     on the tensor cores within 1e-4 of max |plain| plus one bfloat16
+     ulp);
  18. reference: one float32 R-101-DCN train step on the card against the
      CPU (loss terms, every gradient, the DCN leaves and the backbone's
      other leaves held as groups of their own, and the parameters after
@@ -64,8 +66,10 @@ script exits non-zero without its final line:
      with a fault planted in K5's and in K6's plain version must fail;
  19. R-101-DCN training timings: median and p90 per step, images/s, K5 and
      K6 per launch and per step by events and by device time beside their
-     bounds, their plain version, cuDNN's regular-conv backward of the same
-     shapes (context only), a device-time profile of one step;
+     bounds (K6's d_off and d_w grids apart, per stage and per step, with
+     d_w's TFLOP/s), their plain version, cuDNN's regular-conv backward of
+     the same shapes (context only), probes of K5 and K6 with every sample
+     outside the image, a device-time profile of one step;
  20. K7 (the FPN upsample-add) and K8 (the layout fence) held to their
      plain versions, bit for bit, on the main path's own laterals (phase 3's
      first request, the three top-down pairs) in bfloat16 and float32, K7's
@@ -74,8 +78,10 @@ script exits non-zero without its final line:
  21. main path: one R-101-DCN bfloat16 request with HTD_FPN_FENCE,
      HTD_RPN_FENCE and HTD_DCN_FENCE set: detections bit-identical to the
      unfenced request, K8 launched 3 + 5 + 30 times; K8's time on the
-     largest fenced tensor beside its bound, its plain version and
-     `clone`;
+     largest fenced tensor and on the largest deformable-conv input beside
+     its bound, its plain version and `clone()` (K8 and `clone()` timed in
+     turns in one loop, L2 flushed before each call, medians of their
+     device times);
  22. main path: `aug_inference_detector` on R-101-DCN bfloat16, two scales
      with flip (4 augs, K7 6 times and K3 60 times per aug); one aug at the
      test scale against `inference_detector` in float32; warm latency;
@@ -127,6 +133,7 @@ X101_CONVS = (("layer2.0", 200, 336, 512, 2), ("layer3.1", 50, 84, 1024, 1),
 TIMED_STEPS = 10           # phase 15's warm steps
 TTA_SCALES = ((1333, 800), (1600, 1000))   # phase 22, each with and without flip
 TTA_TIMED = 5              # phase 22's warm TTA calls
+INTERLEAVED = 60           # phase 21's calls of K8 and clone(), each
 MINI_COCO_IMAGES = 16      # phase 23's seeded images, half landscape
 TRAIN_BUCKET = (800, 1344)
 TRAIN_IMG_SHAPES = [(800, 1333), (750, 1344)]
@@ -197,6 +204,38 @@ def device_times(fn, keys=(), iters: int = 20, cold: bool = False) -> dict:
 def device_ms(fn, iters: int = 20, cold: bool = False) -> float:
     """`device_times(fn)["all"]`: the device time of one fn() in ms."""
     return device_times(fn, (), iters, cold)["all"]
+
+
+def interleaved_ms(fns: dict, iters: int = INTERLEAVED):
+    """Median device time in ms of each of `fns` (name -> (callable, key)),
+    the callables timed in turns in one loop (so that clocks and
+    neighbours drift alike for all): before each call a 256 MB
+    `bitwise_not_` evicts the 50 MB L2 cache, and a profiler trace gives
+    each device op its own time, the host's dispatch left out. An op is
+    the first name's whose key its trace name contains (key "" takes every
+    op). Returns the medians and the number of ops traced per name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for fn, _ in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            for fn, _ in fns.values():
+                flush.bitwise_not_()
+                fn()
+        torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or "bitwise_not" in e.name:
+            continue
+        name = next(k for k, (_, key) in fns.items() if key in e.name)
+        times[name].append(e.device_time_total)
+    counts = {k: len(v) for k, v in times.items()}
+    if min(counts.values()) < iters // 2:
+        fail(f"the trace holds too few of the {iters} calls each: {counts}")
+    return {k: statistics.median(v) / 1e3 for k, v in times.items()}, counts
 
 
 def images(seed: int = 0):
@@ -1010,8 +1049,10 @@ def profile_step(state, batch, gen) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
+    # device ops only: the `htd.*` spans and the optimizer's own annotation
+    # (`Optimizer.step#SGD.step`) are ranges over ops counted already
     on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not e.key.startswith("htd.")]
+                 and not e.key.startswith(("htd.", "Optimizer."))]
     dev_us = sum(e.self_device_time_total for e in on_device)
     print(f"profiled train step: wall {wall:.2f} ms, device busy {dev_us / 1e3:.2f} ms "
           f"({100 * dev_us / 1e3 / wall:.1f}% of the wall time; profiling inflates the host side)")
@@ -1039,9 +1080,10 @@ def counted_steps(state, batch, gen, n_dcn: int) -> dict:
 
     torch.cuda.synchronize()
     reset_launch_counts()
-    # bfloat16 autocast, one weight group: every K3 and K5 launch on the tensor cores
+    # bfloat16 autocast, one weight group: every K3, K5 and K6 launch on the tensor cores
     want_paths = {"deform_conv_tc": n_dcn, "deform_conv_cc": 0, "deform_conv_bwd_input_tc": n_dcn,
-                  "deform_conv_bwd_input_cc": 0}
+                  "deform_conv_bwd_input_cc": 0, "deform_conv_bwd_offset_weight_tc": n_dcn,
+                  "deform_conv_bwd_offset_weight_cc": 0}
     for i in range(TRAIN_STEPS):
         start, start_paths = dict(launch_counts), dict(path_counts)
         metrics = train_step(state, batch, gen)
@@ -1054,12 +1096,12 @@ def counted_steps(state, batch, gen, n_dcn: int) -> dict:
         if counts != step_launches(n_dcn):
             fail(f"unexpected launches at step {i}: {counts}")
         if paths != want_paths:
-            fail(f"unexpected K3 / K5 paths at step {i}: {paths}")
+            fail(f"unexpected K3 / K5 / K6 paths at step {i}: {paths}")
         print(f"step {i} (lr {state.optimizer.param_groups[0]['lr']:.5f}): "
               + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()) + f"; launches {counts}")
     train_counts = dict(launch_counts)
-    print(f"main path launches over {TRAIN_STEPS} train steps: {train_counts}; K3 / K5 paths "
-          f"{dict(path_counts)}")
+    print(f"main path launches over {TRAIN_STEPS} train steps: {train_counts}; K3 / K5 / K6 "
+          f"paths {dict(path_counts)}")
     return train_counts
 
 
@@ -1295,18 +1337,22 @@ def check_k5_k6(calls, names, label, deform_groups: int = 1,
     `deform_conv2d_backward_plain` on `calls` named in `names`, in each of
     `dtypes`, each kernel run twice. Limit: 1e-5 of max |plain| (float32
     sums in another order, K5's and K6's atomics in a run-dependent one;
-    K5's bfloat16 d_col products on the tensor cores), plus one bfloat16
-    ulp of max |plain| where the output is rounded to bfloat16. Returns the
-    first dtype's max abs errors of K5 and K6."""
+    K5's bfloat16 d_col products on the tensor cores), 1e-4 for bfloat16
+    K6 (the limit of K3 and K5 on `mma.sync`: the same bfloat16-rounded
+    samples, float32 sums over up to 33600 pixels in tiles and ranges),
+    plus one bfloat16 ulp of max |plain| where the output is rounded to
+    bfloat16. Returns the first dtype's max abs errors of K5 and K6."""
     from htd_tpu_torch.ops.dcn import deform_conv2d_backward_plain
     from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
                                             launch_deform_conv_bwd_offset_weight)
+    from htd_tpu_torch.ops.roi_align_cuda import path_counts, reset_launch_counts
 
     errs = {}
     dg = deform_groups
     for dtype in dtypes:
         worst = {"d_x": [0.0, 0.0], "d_off": [0.0, 0.0], "d_w": [0.0, 0.0]}
         spread = 0.0
+        reset_launch_counts()
         for name, x, off, w, g, stride, groups in calls:
             if name not in names:
                 continue
@@ -1325,12 +1371,13 @@ def check_k5_k6(calls, names, label, deform_groups: int = 1,
                 p = ref[i].float()
                 scale = p.abs().max().item()
                 ulp = 0.0 if dtype == torch.float32 else bf16_ulp(scale)
+                rel = 1e-4 if dtype == torch.bfloat16 and key != "d_x" else 1e-5
                 e = max((r[i].float() - p).abs().max().item() for r in runs)
                 spread = max(spread, (runs[0][i].float() - runs[1][i].float()).abs().max().item()
                              / scale)
-                if e > 1e-5 * scale + ulp:
+                if e > rel * scale + ulp:
                     fail(f"{label} {name} {key} in {dtype}: max abs err {e:.3g}, limit "
-                         f"{1e-5 * scale + ulp:.3g} (max |plain| {scale:.3g})")
+                         f"{rel * scale + ulp:.3g} (max |plain| {scale:.3g})")
                 worst[key] = [max(worst[key][0], e), max(worst[key][1], e / scale)]
                 line.append(f"{key} {e:.3g} ({e / scale:.2g} of max |plain| {scale:.3g})")
             print(f"  {str(dtype)[6:]} {label} {name} (stride {stride}, {x.shape[-1]} ch, groups "
@@ -1338,11 +1385,14 @@ def check_k5_k6(calls, names, label, deform_groups: int = 1,
             del runs, ref
         torch.cuda.synchronize()
         errs[dtype] = (worst["d_x"][0], max(worst["d_off"][0], worst["d_w"][0]))
+        limits = "1e-5" if dtype == torch.float32 else \
+            "K5 1e-5, K6 1e-4, each + one bfloat16 ulp"
+        k6_paths = {k: v for k, v in path_counts.items() if k.startswith("deform_conv_bwd_off")}
         print(f"{str(dtype)[6:]} {label}, deform groups {dg}: K5 d_x max err "
               f"{worst['d_x'][1]:.3g}, K6 d_off "
-              f"{worst['d_off'][1]:.3g}, d_w {worst['d_w'][1]:.3g} of max |plain| (limit 1e-5"
-              f"{'' if dtype == torch.float32 else ' + one bfloat16 ulp'}); two runs differ by at "
-              f"most {spread:.3g} of max |plain|")
+              f"{worst['d_off'][1]:.3g}, d_w {worst['d_w'][1]:.3g} of max |plain| (limit "
+              f"{limits}); two runs differ by at most {spread:.3g} of max |plain|; K6 paths "
+              f"{k6_paths}")
     return errs[dtypes[0]]
 
 
@@ -1388,6 +1438,7 @@ def dcn_train_phases(card, imgs):
     from htd_tpu_torch.ops._build import load
     from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
                                             launch_deform_conv_bwd_offset_weight)
+    from htd_tpu_torch.ops.roi_align_cuda import _DTYPE_CODE
     from htd_tpu_torch.train.train_step import create_train_state
 
     phase("16 main path: HTD R-101-DCN training, bfloat16, batch 2 in the 800x1344 bucket")
@@ -1486,14 +1537,17 @@ def dcn_train_phases(card, imgs):
                        ("cudnn", cudnn), ("k5_b", k5_b / HBM_BYTES_PER_S * 1e3), ("k5_o", k5_o),
                        ("k6_b", k6_b / HBM_BYTES_PER_S * 1e3), ("k6_o", k6_o)):
             tot[key] += v
-        stage = per_stage.setdefault(name.split(".")[0], [0, 0.0, 0.0, []])
-        stage[0] += 1
-        stage[1] += k5
-        stage[2] += k6
+        # per stage: launches, K5 and K6 ms by events, the calls, d_w's
+        # operations, the bytes of K5's float32 d_col that K6's d_off reads
+        stage = per_stage.setdefault(name.split(".")[0], [0, 0.0, 0.0, [], 0, 0])
+        for i, v in ((0, 1), (1, k5), (2, k6), (4, k5_g), (5, d_col.numel() * 4)):
+            stage[i] += v
         stage[3].append((x, off, w, g, stride, groups))
         if name in ("layer2.0", "layer2.1", "layer3.1", "layer4.1"):
             partials = load()[0].htd_deform_conv_bwd_dw_partials(
-                g.shape[0], g.shape[1], g.shape[2], x.shape[-1], g.shape[-1], groups)
+                g.shape[0], g.shape[1], g.shape[2], x.shape[-1], g.shape[-1], groups,
+                _DTYPE_CODE[x.dtype])
+            vec = 2 if x.dtype == torch.bfloat16 and groups == 1 else 4  # tensor cores: float2
             print(f"{name} (stride {stride}, {x.shape[-1]} ch, {x.shape[1]}x{x.shape[2]} -> "
                   f"{g.shape[1]}x{g.shape[2]}): K5 {k5 * 1e3:.1f} us (bound "
                   f"{max(k5_b / HBM_BYTES_PER_S * 1e3, k5_o) * 1e3:.1f}: {k5_b / 1e6:.1f} MB, "
@@ -1501,45 +1555,57 @@ def dcn_train_phases(card, imgs):
                   f"{corners * x.shape[-1] / 4 / 1e6:.1f}M 16-byte atomics); K6 {k6 * 1e3:.1f} us "
                   f"(bound {max(k6_b / HBM_BYTES_PER_S * 1e3, k6_o) * 1e3:.1f}: {k6_b / 1e6:.1f} "
                   f"MB, {k6_g / 1e9:.2f} GFLOP d_col and d_w, d_w in {partials} partials, "
-                  f"{partials * w.numel() / 4 / 1e6:.2f}M 16-byte atomics); cuDNN conv backward "
-                  f"(d_x, d_w) {cudnn * 1e3:.1f} us; plain K5 {k5_plain:.2f} ms, K6 "
+                  f"{partials * w.numel() / vec / 1e6:.2f}M {4 * vec}-byte atomics); cuDNN conv "
+                  f"backward (d_x, d_w) {cudnn * 1e3:.1f} us; plain K5 {k5_plain:.2f} ms, K6 "
                   f"{k6_plain:.2f} ms")
         del d_col
     print("per stage (launches, K5 ms, K6 ms, by events): " + "; ".join(
-        f"{st} {n} {a:.3f} {b:.3f}" for st, (n, a, b, _) in per_stage.items()))
+        f"{st} {v[0]} {v[1]:.3f} {v[2]:.3f}" for st, v in per_stage.items()))
 
     def stage_backward(args):
         for x, off, w, g, stride, groups in args:
             d_col = launch_deform_conv_bwd_input(x.shape, off, w, g, stride, 1, 1, groups)[1]
             launch_deform_conv_bwd_offset_weight(x, off, g, d_col, w.shape, stride, 1, 1, groups)
 
-    # device time by stage: one profile over each stage's K5 and K6 calls
+    # device time by stage: one profile over each stage's K5 and K6 calls;
+    # K6's d_w against its product at the bf16 tensor-core rate, its d_off
+    # against reading K5's float32 d_col once
     keys = ("deform_conv_bwd_input", "deform_conv_bwd_offset", "deform_conv_bwd_weight")
-    dev = {k: 0.0 for k in keys + ("all",)}
-    for st, (n, _, _, args) in per_stage.items():
+    dev = {k: 0.0 for k in keys + ("all", "gemm", "dcol_bytes")}
+    for st, (n, _, _, args, gemm, dcol_bytes) in per_stage.items():
         t = device_times(lambda: stage_backward(args), keys, iters=3)
+        t["gemm"], t["dcol_bytes"] = gemm, dcol_bytes
         for k in dev:
             dev[k] += t[k]
-        print(f"  {st} ({n} convs) device: K5 kernel {t[keys[0]]:.3f} ms, K6 kernels "
-              f"{t[keys[1]]:.3f} + {t[keys[2]]:.3f} ms, the calls' other device work (zeroing "
-              f"d_x and d_w, the d_x cast) {t['all'] - sum(t[k] for k in keys):.3f} ms")
-    # what bounds K5: its launches with every sample outside the image (no
-    # corner atomics: the product and the d_col write) and with zero offsets
-    # (integer positions: one corner of weight 1, one atomic per 4
-    # channels), beside the step's own offsets
-    probe = {"far": 0.0, "zero": 0.0}
-    for st, (n, _, _, args) in per_stage.items():
+        print(f"  {st} ({n} convs) device: K5 kernel {t[keys[0]]:.3f} ms; K6 d_off "
+              f"{t[keys[1]]:.3f} ms (reading K5's float32 d_col, {dcol_bytes / 1e6:.0f} MB, takes "
+              f"{dcol_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s), d_w {t[keys[2]]:.3f} ms "
+              f"({gemm / 1e9:.1f} GFLOP, {gemm / t[keys[2]] / 1e9:.1f} TFLOP/s; the product at "
+              f"989 TFLOP/s bf16 {gemm / BF16_FLOP_PER_S * 1e3:.3f} ms); the calls' other device "
+              f"work (zeroing d_x and d_w, the d_x cast) "
+              f"{t['all'] - sum(t[k] for k in keys):.3f} ms ({card})")
+    # what bounds K5 and K6: their launches with every sample outside the
+    # image (no corner loads or atomics: K5's product and d_col write, K6's
+    # d_w product, g tiles and atomics) and with zero offsets (integer
+    # positions: one corner of weight 1), beside the step's own offsets
+    probe = {(label, k): 0.0 for label in ("far", "zero") for k in keys}
+    for st, (n, _, _, args, _, _) in per_stage.items():
         for label, fill in (("far", 1e4), ("zero", 0.0)):
             moved = [(x, torch.full_like(off, fill), w, g, stride, groups)
                      for x, off, w, g, stride, groups in args]
-            probe[label] += device_times(lambda: [launch_deform_conv_bwd_input(
-                x.shape, off, w, g, stride, 1, 1, groups) for x, off, w, g, stride, groups in moved],
-                (keys[0],), iters=3)[keys[0]]
+            t = device_times(lambda: stage_backward(moved), keys, iters=3)
+            for k in keys:
+                probe[label, k] += t[k]
             del moved
     print(f"K5 per step by device time: {dev[keys[0]]:.3f} ms with the step's offsets (up to four "
-          f"corner atomics per sample); {probe['zero']:.3f} ms with zero offsets (one); "
-          f"{probe['far']:.3f} ms with every sample outside the image (none: the d_col product "
-          f"and its float32 write)")
+          f"corner atomics per sample); {probe['zero', keys[0]]:.3f} ms with zero offsets (one); "
+          f"{probe['far', keys[0]]:.3f} ms with every sample outside the image (none: the d_col "
+          f"product and its float32 write)")
+    print(f"K6 d_w per step by device time: {dev[keys[2]]:.3f} ms with the step's offsets (up to "
+          f"four corner loads per sample); {probe['zero', keys[2]]:.3f} ms with zero offsets (one); "
+          f"{probe['far', keys[2]]:.3f} ms with every sample outside the image (none: the "
+          f"product, the g tiles and the atomics); d_off {dev[keys[1]]:.3f} / "
+          f"{probe['zero', keys[1]]:.3f} / {probe['far', keys[1]]:.3f} ms")
     k6_dev = dev[keys[1]] + dev[keys[2]]
     k5_bound, k6_bound = max(tot["k5_b"], tot["k5_o"]), max(tot["k6_b"], tot["k6_o"])
     print(f"K5 per step ({len(calls)} launches, bf16, tensor-core path): device "
@@ -1547,8 +1613,12 @@ def dcn_train_phases(card, imgs):
           f"{tot['k5']:.3f} ms (d_x zeroing and cast and the host's dispatch included); bound "
           f"{k5_bound:.4f} ms (bytes at 3.35 TB/s {tot['k5_b']:.4f} ms, operations "
           f"{tot['k5_o']:.4f} ms: d_col at 989 TFLOP/s bf16, the scatter at 67 TFLOP/s float32)")
-    print(f"K6 per step device {k6_dev:.3f} ms ({dev[keys[1]]:.3f} d_off + {dev[keys[2]]:.3f} "
-          f"d_w)")
+    print(f"K6 per step ({len(calls)} launches, bf16, d_w on the tensor cores): device "
+          f"{k6_dev:.3f} ms ({100 * max(tot['k6_b'], tot['k6_o']) / k6_dev:.1f}% of its bound): "
+          f"d_off {dev[keys[1]]:.3f} ms (K5's float32 d_col read once "
+          f"{dev['dcol_bytes'] / HBM_BYTES_PER_S * 1e3:.3f} ms), d_w {dev[keys[2]]:.3f} ms "
+          f"({dev['gemm'] / 1e9:.1f} GFLOP, {dev['gemm'] / dev[keys[2]] / 1e9:.1f} TFLOP/s; the "
+          f"product at 989 TFLOP/s bf16 {dev['gemm'] / BF16_FLOP_PER_S * 1e3:.3f} ms) ({card})")
     print(f"K6 per step ({len(calls)} launches): {tot['k6']:.3f} ms; bound {k6_bound:.4f} ms "
           f"(bytes {tot['k6_b']:.4f} ms, operations {tot['k6_o']:.4f} ms: d_col and d_w at 989 "
           f"TFLOP/s bf16, sampling and d_off at 67 TFLOP/s float32); neither bound counts the "
@@ -1570,8 +1640,10 @@ def dcn_train_phases(card, imgs):
         {"name": "deform_conv_bwd_offset_weight", "route": "cuda",
          "source": "htd_tpu_torch/csrc/deform_conv_bwd_offset_weight.cu",
          "replaces": "htd_tpu/ops/dcn_pallas.py:478",
-         "launches": train_counts["deform_conv_bwd_offset_weight"], "max_abs_err": k6_err,
-         "ms": tot["k6"], "device_ms": k6_dev, "plain_ms": tot["k6_plain"], "bound_ms": k6_bound,
+         "launches": train_counts["deform_conv_bwd_offset_weight"],
+         "path": "d_w on the tensor cores (mma.sync bf16), d_off on the CUDA cores",
+         "max_abs_err": k6_err, "ms": tot["k6"], "device_ms": k6_dev, "d_off_device_ms": dev[keys[1]],
+         "d_w_device_ms": dev[keys[2]], "plain_ms": tot["k6_plain"], "bound_ms": k6_bound,
          "bound_by": "bytes" if tot["k6_b"] >= tot["k6_o"] else "operations",
          "library_ms": None},
     ]
@@ -1718,21 +1790,27 @@ def fence_phase(model, img, cfg, card):
           f"({len(dets[1])} detections)")
     if not same or len(dets[1]) == 0:
         fail("the fenced request's detections differ from the unfenced request's")
-    x = max(fenced, key=lambda f: f.numel() * f.element_size())
-    ms = device_ms(lambda: layout_fence(x), iters=50, cold=True)
-    call = cuda_ms(lambda: layout_fence(x), iters=50)
-    plain = device_ms(lambda: layout_fence_plain(x), iters=50, cold=True)
-    lib = device_ms(lambda: x.clone(), iters=50, cold=True)
-    nbytes = 2 * x.numel() * x.element_size()
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"K8 on the largest fenced tensor {tuple(x.shape)} {x.dtype} strides {x.stride()}: "
-          f"device {ms * 1e3:.1f} us (L2 flushed), {100 * bound / ms:.1f}% of its bound "
-          f"{bound * 1e3:.1f} us "
-          f"({nbytes / 1e6:.2f} MB read and written at 3.35 TB/s); per call with host dispatch "
-          f"{call * 1e3:.1f} us; plain (empty_like + copy_, device) {plain * 1e3:.1f} us; clone() "
-          f"(device) {lib * 1e3:.1f} us ({card})")
-    return counts["layout_fence"], {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                                    "library_ms": lib}
+    # the deformable convs' inputs are fenced first, in the backbone
+    largest = max(fenced, key=lambda f: f.numel())
+    dcn_input = max(fenced[:n_dcn], key=lambda f: f.numel())
+    for label, x in (("the largest fenced tensor", largest),
+                     ("the largest deformable-conv input", dcn_input)):
+        t, traced = interleaved_ms({"K8": (lambda: layout_fence(x), "layout_fence"),
+                                    "clone": (lambda: x.clone(), "")})
+        plain = device_ms(lambda: layout_fence_plain(x), iters=50, cold=True)
+        call = cuda_ms(lambda: layout_fence(x), iters=50)
+        nbytes = 2 * x.numel() * x.element_size()
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"K8 on {label} {tuple(x.shape)} {x.dtype} strides {x.stride()}: K8 and clone() "
+              f"in turns, {INTERLEAVED} calls each ({traced} traced), L2 flushed, median device "
+              f"time: K8 {t['K8'] * 1e3:.2f} us ({100 * bound / t['K8']:.1f}% of its bound "
+              f"{bound * 1e3:.1f} us, {nbytes / 1e6:.2f} MB read and written at 3.35 TB/s), "
+              f"clone() {t['clone'] * 1e3:.2f} us; K8 / clone() {t['K8'] / t['clone']:.3f}; plain "
+              f"(empty_like + copy_, timed apart) {plain * 1e3:.2f} us; per K8 call with host "
+              f"dispatch {call * 1e3:.1f} us ({card})")
+        if x is largest:
+            k8 = {"ms": t["K8"], "plain_ms": plain, "bound_ms": bound, "library_ms": t["clone"]}
+    return counts["layout_fence"], k8
 
 
 def match_detections(ref, got, box_tol: float = 1e-2, score_tol: float = 1e-3):

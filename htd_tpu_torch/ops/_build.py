@@ -112,9 +112,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.htd_deform_conv_fwd.restype = i32
     lib.htd_deform_conv_bwd_input.argtypes = [vp] * 5 + [i32] * 13 + [i32p, vp]
     lib.htd_deform_conv_bwd_input.restype = i32
-    lib.htd_deform_conv_bwd_offset_weight.argtypes = [vp] * 6 + [i32] * 13 + [vp]
+    lib.htd_deform_conv_bwd_offset_weight.argtypes = [vp] * 6 + [i32] * 13 + [i32p, vp]
     lib.htd_deform_conv_bwd_offset_weight.restype = i32
-    lib.htd_deform_conv_bwd_dw_partials.argtypes = [i32] * 6
+    lib.htd_deform_conv_bwd_dw_partials.argtypes = [i32] * 7
     lib.htd_deform_conv_bwd_dw_partials.restype = i32
     lib.htd_upsample_add.argtypes = [vp, vp, vp] + [i32] * 5 + [vp]
     lib.htd_upsample_add.restype = i32

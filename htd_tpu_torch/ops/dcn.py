@@ -28,6 +28,15 @@ onto the same corners) and `deform_conv2d_backward_offset_weight_plain`
 (K6's: the corners' derivatives and an einsum). The kernels are exact for
 every offset: the TPU kernels' sample window and their capped correction
 passes have no counterpart here.
+
+In bfloat16 with one weight group the two products over samples run on
+the tensor cores: K3's output and K6's d_w contract each sample blended in
+float32 and rounded once to bfloat16 (the plain versions round at the same
+point), with float32 sums, so kernel and plain version differ only in
+summation order. On the H100, K3 and K6's d_w (2 * N * Ho * Wo * 9 * Cin
+* Cout operations, split over pixel ranges) are bounded by their
+`mma.sync` pipelines rather than their sampling, and K6's d_off by
+reading K5's float32 d_col.
 """
 
 from __future__ import annotations
@@ -194,7 +203,11 @@ def deform_conv2d_backward_offset_weight_plain(x: torch.Tensor, offsets: torch.T
     derivatives over the channels (`_bilinear_gather_grad`) and d_w
     contracts the samples, recomputed from x and the offsets as the JAX
     package's backward does, with g -> (d_off in the offsets' dtype, d_w
-    of `weight_shape` in float32)."""
+    of `weight_shape` in float32). Each sample is blended in float32 and
+    rounded once to x's dtype before the d_w contraction, as in
+    `deform_conv2d_plain` (a no-op in float32; in bfloat16 the operand K6's
+    tensor cores contract, and `col` in x's dtype as the JAX gather vjp
+    contracts it); d_off uses the unrounded corner values."""
     n, h, w, cin = x.shape
     kh, kw, cg, cout = weight_shape
     k, og = kh * kw, cout // groups
@@ -214,7 +227,7 @@ def deform_conv2d_backward_offset_weight_plain(x: torch.Tensor, offsets: torch.T
             dx = dx + dwx * dv
         col.append(col_g)
         d_off.append(torch.stack([dy, dx], -1))                  # (N, Ho, Wo, K, 2)
-    col = torch.cat(col, -1).reshape(n, ho * wo, k, groups, cg)
+    col = torch.cat(col, -1).to(x.dtype).to(torch.float32).reshape(n, ho * wo, k, groups, cg)
     g32 = g.to(torch.float32).reshape(n, ho * wo, groups, og)
     d_w = torch.einsum("npkgc,npgo->kcgo", col, g32).reshape(kh, kw, cg, cout)
     d_off = torch.stack(d_off, 3).reshape(n, ho, wo, deform_groups * 2 * k)
@@ -244,9 +257,9 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
     launch backward (3x3, any number of deform groups, Cin / deform_groups
     a multiple of 64 when there are several; inputs of one dtype; x and
     offsets contiguous, the weight's memory in (Cout, kh, kw, Cin / groups)
-    order as `DeformConv2d.hwio_weight()` gives it). K3 and K5 run on the
-    tensor cores in bfloat16 with one weight group and on the CUDA cores
-    otherwise (`ops.dcn_cuda`); the plain versions on the CPU. With
+    order as `DeformConv2d.hwio_weight()` gives it). K3, K5 and K6's d_w
+    run on the tensor cores in bfloat16 with one weight group and on the
+    CUDA cores otherwise (`ops.dcn_cuda`); the plain versions on the CPU. With
     `HTD_DCN_FENCE=1`, x is fenced first (kernel K8 on CUDA), as in the JAX
     package."""
     _check(x, offsets, weight, stride, dilation, deform_groups, groups)

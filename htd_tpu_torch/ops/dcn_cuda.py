@@ -11,12 +11,13 @@ tensor goes through the kernel or the call raises. The public wrapper
 that picks between the kernels and their plain versions by device is
 `ops.dcn.deform_conv2d`.
 
-K3 and K5 each have two paths, picked in C by dtype and weight groups
-(not a fallback: each input takes exactly one): bfloat16 with one weight
-group runs on the tensor cores, float32 or grouped weights on the CUDA
-cores. The kernel reports the path it launched, and the launcher counts
-it in `path_counts` (`deform_conv_tc` / `deform_conv_cc`, likewise for
-`deform_conv_bwd_input`) beside its one entry in `launch_counts`.
+K3, K5 and K6 (its d_weight product) each have two paths, picked in C by
+dtype and weight groups (not a fallback: each input takes exactly one):
+bfloat16 with one weight group runs on the tensor cores, float32 or
+grouped weights on the CUDA cores. The kernel reports the path it
+launched, and the launcher counts it in `path_counts` (`deform_conv_tc` /
+`deform_conv_cc`, likewise for `deform_conv_bwd_input` and
+`deform_conv_bwd_offset_weight`) beside its one entry in `launch_counts`.
 """
 
 from __future__ import annotations
@@ -134,7 +135,8 @@ def launch_deform_conv_bwd_offset_weight(x: torch.Tensor, offsets: torch.Tensor,
     """K6: K3's x and offsets, the cotangent g and K5's d_col -> (d_off
     in the offsets' shape and dtype; d_w float32 of `weight_shape`
     (3, 3, Cin / groups, Cout), a view of (Cout, 3, 3, Cin / groups)
-    memory as K3 reads the weight)."""
+    memory as K3 reads the weight). In bfloat16 with one weight group d_w
+    contracts the samples rounded to bfloat16 on the tensor cores."""
     from htd_tpu_torch.ops._build import load
 
     _check_inputs("K6", weight_shape, groups, deform_groups, (0, 0), x=x, offsets=offsets, g=g)
@@ -150,10 +152,13 @@ def launch_deform_conv_bwd_offset_weight(x: torch.Tensor, offsets: torch.Tensor,
     d_off = torch.empty_like(offsets)
     d_w = torch.zeros((cout, kh, kw, cg), dtype=torch.float32, device=x.device)
     lib, _ = load()
+    path = ctypes.c_int(-1)
     err = lib.htd_deform_conv_bwd_offset_weight(
         x.data_ptr(), offsets.data_ptr(), g.data_ptr(), d_col.data_ptr(), d_off.data_ptr(),
         d_w.data_ptr(), n, h, w, cin, ho, wo, cout, groups, deform_groups, stride, dilation,
-        dilation, _DTYPE_CODE[x.dtype], _stream())
+        dilation, _DTYPE_CODE[x.dtype], ctypes.byref(path), _stream())
     _check(err, "deform_conv_bwd_offset_weight")
     launch_counts["deform_conv_bwd_offset_weight"] += 1
+    path_counts["deform_conv_bwd_offset_weight_tc" if path.value == 1
+                else "deform_conv_bwd_offset_weight_cc"] += 1
     return d_off, d_w.permute(1, 2, 3, 0)

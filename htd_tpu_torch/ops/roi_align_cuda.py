@@ -29,11 +29,13 @@ launch_counts: Dict[str, int] = {"pyramid_pack": 0, "roi_align": 0, "deform_conv
                                  "roi_align_bwd": 0, "deform_conv_bwd_input": 0,
                                  "deform_conv_bwd_offset_weight": 0, "upsample_add": 0,
                                  "layout_fence": 0}
-# which path each launch of K3 and K5 took: `_tc` the tensor cores (bfloat16,
-# one weight group), `_cc` the CUDA cores (float32, or grouped weights);
-# reset with `launch_counts`
+# which path each launch of K3, K5 and K6 took: `_tc` the tensor cores
+# (bfloat16, one weight group), `_cc` the CUDA cores (float32, or grouped
+# weights); reset with `launch_counts`
 path_counts: Dict[str, int] = {"deform_conv_tc": 0, "deform_conv_cc": 0,
-                               "deform_conv_bwd_input_tc": 0, "deform_conv_bwd_input_cc": 0}
+                               "deform_conv_bwd_input_tc": 0, "deform_conv_bwd_input_cc": 0,
+                               "deform_conv_bwd_offset_weight_tc": 0,
+                               "deform_conv_bwd_offset_weight_cc": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

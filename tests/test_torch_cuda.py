@@ -284,7 +284,9 @@ def test_deform_groups_match_plain(cuda, stride, dtype):
         assert err <= lim, f"{name}: {err:.3g} (limit {lim:.3g})"
     tc = int(dtype == torch.bfloat16)
     assert path_counts == {"deform_conv_tc": tc, "deform_conv_cc": 1 - tc,
-                           "deform_conv_bwd_input_tc": tc, "deform_conv_bwd_input_cc": 1 - tc}
+                           "deform_conv_bwd_input_tc": tc, "deform_conv_bwd_input_cc": 1 - tc,
+                           "deform_conv_bwd_offset_weight_tc": tc,
+                           "deform_conv_bwd_offset_weight_cc": 1 - tc}
 
 
 # R-101-DCN's deformable convs at 800x1344: (channels, input size, stride)
@@ -297,16 +299,20 @@ R101_DCN_SHAPES = {"layer2": (128, (100, 168), 1), "layer2.0": (128, (200, 336),
 @pytest.mark.parametrize("n", [1, 2])
 @pytest.mark.parametrize("conv", list(R101_DCN_SHAPES))
 def test_tensor_core_paths_at_r101_shapes(cuda, conv, n):
-    """bfloat16 K3 and K5 on the tensor cores at R-101-DCN's stage shapes
-    (layer 4's 25x42 map a ragged pixel count, strides 1 and 2, batch 1 as
-    in inference and 2 as in training) against their plain versions: K3's
-    output and K5's d_x within 1e-4 of max |plain| plus one bfloat16 ulp
-    (the same bfloat16 samples and operands, float32 sums in another
-    order, then one rounding); K5's float32 d_col within 1e-4. One launch
-    each, both counted on the tensor-core path."""
+    """bfloat16 K3, K5 and K6 on the tensor cores at R-101-DCN's stage
+    shapes (layer 4's 25x42 map a ragged pixel count, strides 1 and 2,
+    batch 1 as in inference and 2 as in training) against their plain
+    versions: K3's output, K5's d_x and K6's d_off within 1e-4 of max
+    |plain| plus one bfloat16 ulp (the same bfloat16 samples and operands,
+    float32 sums in another order, then one rounding); K5's d_col and K6's
+    d_w (float32, from the bfloat16-rounded samples, split over pixel
+    ranges) within 1e-4. K6 reads K5's d_col, as in the backward. One
+    launch each, all counted on the tensor-core path."""
     from htd_tpu_torch.ops.dcn import (deform_conv2d, deform_conv2d_backward_input_plain,
+                                       deform_conv2d_backward_offset_weight_plain,
                                        deform_conv2d_plain)
-    from htd_tpu_torch.ops.dcn_cuda import launch_deform_conv_bwd_input
+    from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
+                                            launch_deform_conv_bwd_offset_weight)
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
 
     c, (h, w), stride = R101_DCN_SHAPES[conv]
@@ -317,9 +323,18 @@ def test_tensor_core_paths_at_r101_shapes(cuda, conv, n):
     reset_launch_counts()
     k = deform_conv2d(x, off, wgt, stride=stride)
     d_x, d_col = launch_deform_conv_bwd_input(x.shape, off, wgt, g, stride, 1, 1, 1)
+    d_off, d_w = launch_deform_conv_bwd_offset_weight(x, off, g, d_col, wgt.shape, stride, 1, 1,
+                                                      1)
     torch.cuda.synchronize()
-    assert launch_counts["deform_conv"] == launch_counts["deform_conv_bwd_input"] == 1
-    assert path_counts["deform_conv_tc"] == path_counts["deform_conv_bwd_input_tc"] == 1
+    assert launch_counts["deform_conv"] == launch_counts["deform_conv_bwd_input"] == \
+        launch_counts["deform_conv_bwd_offset_weight"] == 1
+    assert path_counts["deform_conv_tc"] == path_counts["deform_conv_bwd_input_tc"] == \
+        path_counts["deform_conv_bwd_offset_weight_tc"] == 1
+    p_off, p_w = deform_conv2d_backward_offset_weight_plain(x, off, g, d_col, wgt.shape, stride)
+    err, lim = _ulp_limit(d_off, p_off, 1e-4)
+    assert err <= lim, f"K6 d_off: {err:.3g} (limit {lim:.3g})"
+    err, lim = _ulp_limit(d_w, p_w, 1e-4)
+    assert err <= lim, f"K6 d_w: {err:.3g} (limit {lim:.3g})"
     err, lim = _ulp_limit(k, deform_conv2d_plain(x, off, wgt, stride=stride), 1e-4)
     assert err <= lim, f"K3: {err:.3g} (limit {lim:.3g})"
     p_x, p_col = deform_conv2d_backward_input_plain(x.shape, off, wgt, g, stride)
@@ -521,15 +536,21 @@ def test_upsample_add_autograd(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layout_fence_matches_plain(cuda, dtype):
     """K8 copies ranks 2-5, odd sizes (a tail of bytes beyond the last
-    16-byte vector) and a channels_last tensor bit for bit, into a fresh
-    tensor with the input's strides, one launch each; the gradient passes
-    through `_LayoutFence`; a tensor with gaps raises."""
+    16-byte vector), channels_last tensors (one spanning many blocks) and
+    byte spans of 1, 15 and 16 k + 3 (a vector count that is not a multiple
+    of a thread's or a block's share) bit for bit, into a fresh tensor with
+    the input's strides, one launch each; the gradient passes through
+    `_LayoutFence`; a tensor with gaps raises."""
     from htd_tpu_torch.ops.fence import layout_fence, layout_fence_plain
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
-    shapes = [(33, 7), (5, 11, 13), (2, 256, 25, 21), (2, 3, 7, 9, 5)]
+    shapes = [(33, 7), (5, 11, 13), (2, 256, 25, 21), (2, 3, 7, 9, 5), (3, 64, 37, 41)]
     xs = [torch.randn(s, device=cuda).to(dtype) for s in shapes]
     xs[2] = xs[2].contiguous(memory_format=torch.channels_last)
+    xs[4] = xs[4].contiguous(memory_format=torch.channels_last)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    xs += [torch.randint(0, 256, (span,), device=cuda, dtype=torch.uint8, generator=gen)
+           for span in (1, 15, 16 * 12345 + 3)]
     reset_launch_counts()
     for x in xs:
         k = layout_fence(x)

@@ -13,8 +13,10 @@ import jax
 import jax.numpy as jnp
 
 from htd_tpu.ops.dcn import _dcn_dow_pallas, _dcn_dx_folded, _dcn_dx_pallas, _dcn_xla_impl
-from htd_tpu_torch.ops.dcn import (DeformConv2d, deform_conv2d, deform_conv2d_backward_plain,
-                                   deform_conv2d_plain)
+from htd_tpu_torch.ops.dcn import (DeformConv2d, _bilinear_gather, _sample_positions,
+                                   deform_conv2d, deform_conv2d_backward_input_plain,
+                                   deform_conv2d_backward_offset_weight_plain,
+                                   deform_conv2d_backward_plain, deform_conv2d_plain)
 from tests.test_torch_dcn import COUT, _dense, _inputs
 from tests.torch_port import t
 
@@ -119,6 +121,61 @@ def test_matches_autograd_of_plain(stride, groups, deform_groups):
     for name, r, a, p in zip(("d_x", "d_off", "d_w"), ref, got, plain):
         _close(p, r.numpy(), 1e-6, name)
         _close(a.numpy(), r.numpy(), 1e-6, name + " through _DeformConv2d")
+
+
+@pytest.mark.parametrize("deform_groups", [1, 2])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_dw_contracts_rounded_samples(stride, deform_groups):
+    """bfloat16: the plain d_w (K6's tensor-core operand) equals an
+    independent float64 einsum of the `_bilinear_gather` samples, each
+    rounded once to bfloat16, with g: within 1e-5 of max |d_w| (float32
+    sums, then one bfloat16 rounding of d_w, which this compares before).
+    The same einsum of the unrounded samples is another function: it
+    differs by more than 1e-4."""
+    x, off, wgt = (t(a).bfloat16() for a in _inputs(90 + stride, stride, 1, 2.5, deform_groups))
+    g = t(_cotangent(91 + stride, off.float().numpy())).bfloat16()
+    n, h, w, cin = x.shape
+    ho, wo = off.shape[1], off.shape[2]
+    ys, xs = _sample_positions(n, ho, wo, 3, 3, stride, 1, off, deform_groups)
+    cdg = cin // deform_groups
+    flat = x.reshape(n, h * w, cin)
+    samp = torch.cat([_bilinear_gather(flat[..., d * cdg:(d + 1) * cdg], h, w, ys[..., d, :],
+                                       xs[..., d, :]) for d in range(deform_groups)], -1)
+    g64 = g.double().numpy()
+
+    def einsum(s):
+        return np.einsum("nyxkc,nyxo->kco", s.double().numpy(), g64).reshape(wgt.shape)
+
+    ref = einsum(samp.bfloat16())
+    _, d_col = deform_conv2d_backward_input_plain(x.shape, off, wgt, g, stride, 1, deform_groups)
+    _, d_w = deform_conv2d_backward_offset_weight_plain(x, off, g, d_col, wgt.shape, stride, 1,
+                                                        deform_groups)
+    assert d_w.dtype == torch.float32
+    _close(d_w.numpy(), ref, 1e-5, "d_w")
+    unrounded = einsum(samp)
+    assert np.abs(unrounded - ref).max() > 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("deform_groups", [1, 2])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_matches_gather_vjp_bf16(stride, deform_groups):
+    """bfloat16 inputs: the plain d_off and d_w (each sample rounded once to
+    bfloat16 before the d_w contraction, float32 sums) against `jax.vjp` of
+    `_dcn_xla_impl(impl="gather")` run in bfloat16, which also rounds the
+    corner weights, products and partial sums of each sample: within 1.5e-2
+    of max |ref|, the limit of the forward's bfloat16 parity test."""
+    x, off, wgt = _inputs(100 + stride, stride, 1, 2.5, deform_groups)
+    g = _cotangent(101 + stride, off)
+    xb, ob, wb, gb = (jnp.asarray(a, jnp.bfloat16) for a in (x, off, wgt, g))
+    _, vjp = jax.vjp(lambda a, b, c: _dcn_xla_impl(a, b, c, stride, 1, deform_groups, "gather",
+                                                   1, 128), xb, ob, wb)
+    _, roff, rw = (np.asarray(a.astype(jnp.float32)) for a in vjp(gb))
+    ours = deform_conv2d_backward_plain(*(t(np.asarray(a.astype(jnp.float32))).bfloat16()
+                                          for a in (xb, ob, wb, gb)),
+                                        stride=stride, deform_groups=deform_groups)
+    assert all(a.dtype == torch.bfloat16 for a in ours)
+    _close(ours[1].float().numpy(), roff, 1.5e-2, "d_off")
+    _close(ours[2].float().numpy(), rw, 1.5e-2, "d_w")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
