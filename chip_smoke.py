@@ -14,9 +14,12 @@ script exits non-zero without its final line:
      with TF32 off) against the CPU (plain versions) on a small input, and
      one full-size float32 request;
   5. kernels: each kernel held to its plain version on the main path's own
-     levels and proposals of the first request, in bfloat16 and float32;
+     levels and proposals of the first request, in bfloat16 and float32
+     (K2's stage calls at S=4, one also at S=2, the BA call at S=1);
   6. timings: warm per-image latency, per-kernel times beside their bounds
-     (K1 and K2 also by device time), a device-time profile of one request;
+     (K1 and K2 also by device time; K2 per call and per image, and probed
+     with every sample outside the image), a device-time profile of one
+     request;
   7. main path: HTD R-101-DCN (full depth and width, bfloat16, seeded
      non-zero offset convs) on the same requests, with K3's launches per
      request (30, every one on the tensor-core path) and the offsets'
@@ -45,8 +48,10 @@ script exits non-zero without its final line:
      small batch with injected samples (loss terms, the gradient of every
      parameter, the parameters after the SGD step);
  15. training timings: median and p90 per step, images/s, K4 per call and
-     per step (by events and by device time) beside its bound and its
-     plain version, a device-time profile of one step;
+     per step (by events and by device time: the kernel, its buffer's
+     zeroing and the cast after it apart, and probed with every sample
+     outside the image; its 16-byte atomics folded and unfolded) beside its
+     bound and its plain version, a device-time profile of one step;
  16. main path: HTD R-101-DCN training (full depth and width, bfloat16,
      bn3 scales opened from zero and seeded offset convs) on phase 12's
      batch: finite losses, stem and layer1 bit-unchanged, every DCN weight
@@ -131,6 +136,9 @@ DCN_WATCHED = ("backbone.layer2.0.conv2.weight", "backbone.layer2.1.conv2.conv_o
 X101_CONVS = (("layer2.0", 200, 336, 512, 2), ("layer3.1", 50, 84, 1024, 1),
               ("layer4.1", 25, 42, 2048, 1))
 TIMED_STEPS = 10           # phase 15's warm steps
+# phases 6 and 15's probes move every roi this far (px) past the image, so
+# that every sample of K2 and K4 lies outside it
+OUTSIDE_PX = 1e5
 TTA_SCALES = ((1333, 800), (1600, 1000))   # phase 22, each with and without flip
 TTA_TIMED = 5              # phase 22's warm TTA calls
 INTERLEAVED = 60           # phase 21's calls of K8 and clone(), each
@@ -823,11 +831,14 @@ def record_roi_align_calls(state, batch, gen):
 
 
 def k4_work(geom, rois, lvls, g, strides, s):
-    """(bytes, operations, 16-byte atomics) of one K4 call on this data: g
-    and the rois read once, the float32 buffer zeroed, and each distinct
-    pixel that a non-zero-weight corner of a bin with a non-zero cotangent
-    touches read and written once in float32; one multiply and one add per
-    channel of each such corner, one vector atomic per 4 channels."""
+    """(bytes, operations, unfolded atomics, folded atomics, distinct
+    pixels) of one K4 call on this data: g and the rois read once, the
+    float32 buffer zeroed, and each distinct pixel that a non-zero-weight
+    corner of a bin with a non-zero cotangent touches read and written once
+    in float32; one multiply and one add per channel of each such corner.
+    Unfolded, a kernel makes one 16-byte atomic per such corner and 4
+    channels; K4 folds them into one per distinct pixel of each roi (of
+    each (roi, level) in the all-level mode) and 4 channels."""
     from htd_tpu_torch.ops.roi_align import _level_tables, _sample_geometry
 
     b, r = rois.shape[:2]
@@ -836,8 +847,10 @@ def k4_work(geom, rois, lvls, g, strides, s):
     flat = rois.reshape(n, 4).float()
     scale_t, hs, ws, offs = _level_tables(geom, strides, dev)
     img = torch.arange(b, device=dev).repeat_interleave(r)
-    pixels, corners = [], 0
-    for q in (range(len(strides)) if lvls is None else [None]):
+    roi_id = torch.arange(n, device=dev)[:, None, None, None, None]
+    pixels, per_roi, corners = [], [], 0
+    levels = range(len(strides)) if lvls is None else [None]
+    for q in levels:
         lv = torch.full((n,), q, device=dev) if q is not None else lvls.reshape(n).long()
         gq = (g[q] if q is not None else g).reshape(n, 7, 7, c)
         live_bin = (gq != 0).any(-1)[:, :, :, None, None]
@@ -850,11 +863,14 @@ def k4_work(geom, rois, lvls, g, strides, s):
                 keep = live & (wy[:, :, None, :, None] * wx[:, None, :, None, :] > 0)
                 pix = (base + yi[:, :, None, :, None]) * geom.w_pad + xi[:, None, :, None, :]
                 pixels.append(pix[keep])
+                key = ((0 if q is None else q) * n + roi_id) * (geom.rows_pad * geom.w_pad) + pix
+                per_roi.append(key.expand_as(keep)[keep])
                 corners += int(keep.sum())
     distinct = int(torch.unique(torch.cat(pixels)).numel())
+    folded = int(torch.unique(torch.cat(per_roi)).numel())
     nbytes = (g.numel() * g.element_size() + geom.rows_pad * geom.w_pad * c * 4
               + distinct * c * 4 * 2 + n * 16 + (0 if lvls is None else n * 4))
-    return nbytes, 2 * corners * c, corners * c // 4, distinct
+    return nbytes, 2 * corners * c, corners * c // 4, folded * c // 4, distinct
 
 
 def injected_overrides(cfg, n_anchors: int, img_shape, seed: int = 0):
@@ -1205,28 +1221,52 @@ def train_phases(card):
     phase("15 training timings")
     time_steps(state, batch, gen, "R-50", card)
     k4 = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "device_ms": 0.0,
-          "kernel_ms": 0.0}
+          "kernel_ms": 0.0, "zero_ms": 0.0, "cast_ms": 0.0, "zero_ev_ms": 0.0, "cast_ev_ms": 0.0,
+          "outside_ms": 0.0}
     for name, (geom, rois, lvls, g, args) in calls:
-        ms = cuda_ms(lambda: launch_roi_align_bwd(geom, rois, lvls, g, *args))
+        def call(rois=rois, lvls=lvls, g=g, args=args):
+            return launch_roi_align_bwd(geom, rois, lvls, g, *args)
+
+        ms = cuda_ms(call)
         plain = cuda_ms(lambda: roi_align_backward_plain(geom, rois, lvls, g, *args),
                         iters=3, warmup=1)
-        dev = device_times(lambda: launch_roi_align_bwd(geom, rois, lvls, g, *args),
-                           ("roi_align_bwd",), iters=10)
-        nbytes, ops, atomics, distinct = k4_work(geom, rois, lvls, g, args[0], args[-1])
+        dev = device_times(call, ("roi_align_bwd",), iters=10)
+        d = call()
+        # the buffer's zeroing and `_RoIAlign.backward`'s cast, also by events:
+        # each takes far longer than its dispatch
+        zero_ev = cuda_ms(lambda: torch.zeros_like(d))
+        cast = device_ms(lambda: d.to(g.dtype), iters=10)
+        cast_ev = cuda_ms(lambda: d.to(g.dtype))
+        del d
+        # probe: every sample outside the image (g read, tables built, no atomics)
+        outside = device_times(lambda: call(rois + OUTSIDE_PX), ("roi_align_bwd",), iters=10)
+        nbytes, ops, atomics, folded, distinct = k4_work(geom, rois, lvls, g, args[0], args[-1])
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+        kern = dev["roi_align_bwd"]
         for key, v in (("ms", ms), ("plain_ms", plain), ("bytes_ms", b_ms), ("ops_ms", o_ms),
-                       ("device_ms", dev["all"]), ("kernel_ms", dev["roi_align_bwd"])):
+                       ("device_ms", dev["all"]), ("kernel_ms", kern),
+                       ("zero_ms", dev["all"] - kern), ("cast_ms", cast),
+                       ("zero_ev_ms", zero_ev), ("cast_ev_ms", cast_ev),
+                       ("outside_ms", outside["roi_align_bwd"])):
             k4[key] += v
         print(f"K4 roi_align_bwd {name} S={args[-1]}: {ms * 1e3:.1f} us by events, device "
-              f"{dev['all'] * 1e3:.1f} us (of which the kernel {dev['roi_align_bwd'] * 1e3:.1f} us, "
-              f"the rest float32 buffer zeroing); plain {plain * 1e3:.1f} us; bound "
-              f"{max(b_ms, o_ms) * 1e3:.1f} us "
-              f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP; {distinct} distinct pixels); "
-              f"{atomics / 1e6:.2f}M 16-byte atomics ({card})")
+              f"{dev['all'] * 1e3:.1f} us = kernel {kern * 1e3:.1f} us + float32 buffer zeroing "
+              f"{(dev['all'] - kern) * 1e3:.1f} us ({zero_ev * 1e3:.1f} us by events); then the "
+              f"cast to {str(g.dtype)[6:]} {cast * 1e3:.1f} us ({cast_ev * 1e3:.1f} us by events); "
+              f"every sample outside the image: kernel "
+              f"{outside['roi_align_bwd'] * 1e3:.1f} us; plain {plain * 1e3:.1f} us; bound "
+              f"{max(b_ms, o_ms) * 1e3:.1f} us ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP; "
+              f"{distinct} distinct pixels); 16-byte atomics: {folded / 1e6:.2f}M folded "
+              f"(distinct pixels per roi x C/4) against {atomics / 1e6:.2f}M unfolded (live "
+              f"corners x C/4) ({card})")
     print(f"K4 per step (3 calls): {k4['ms']:.3f} ms by events, device {k4['device_ms']:.3f} ms "
-          f"(kernels {k4['kernel_ms']:.3f} ms); plain {k4['plain_ms']:.3f} ms; bound "
-          f"{max(k4['bytes_ms'], k4['ops_ms']):.3f} ms; no single PyTorch call computes it "
-          f"(library: none) ({card})")
+          f"(kernels {k4['kernel_ms']:.3f} ms, zeroing {k4['zero_ms']:.3f} ms; the casts after it "
+          f"{k4['cast_ms']:.3f} ms; by events zeroing {k4['zero_ev_ms']:.3f} ms, casts "
+          f"{k4['cast_ev_ms']:.3f} ms; kernels with every sample outside the image "
+          f"{k4['outside_ms']:.3f} ms); plain {k4['plain_ms']:.3f} ms; bound "
+          f"{max(k4['bytes_ms'], k4['ops_ms']):.3f} ms "
+          f"({100 * max(k4['bytes_ms'], k4['ops_ms']) / k4['device_ms']:.1f}% of it by device "
+          f"time); no single PyTorch call computes it (library: none) ({card})")
     profile_step(state, batch, gen)
     return {"name": "roi_align_bwd", "route": "cuda",
             "source": "htd_tpu_torch/csrc/roi_align_bwd.cu",
@@ -2075,7 +2115,7 @@ def main():
             fail(f"K1 differs from its plain version in {dtype}")
         tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
         errs = []
-        for rois, lvl, s in ((props, lv0, 4), (rois1, lv1, 4)):
+        for rois, lvl, s in ((props, lv0, 4), (rois1, lv1, 4), (rois1, lv1, 2)):
             k = roi_align_pyramid(kp, rois, lvl, strides, 7, 0, s).float()
             p = roi_align_plain(kp, rois, lvl, strides, 7, 0, s).float()
             errs.append(((k - p).abs().max().item(), p.abs().max().item()))
@@ -2086,8 +2126,8 @@ def main():
         k2_err[dtype] = max(e for e, _ in errs)
         rel = max(e / max(1.0, m) for e, m in errs)
         print(f"{str(dtype)[6:]}: K1 bit-equal; K2 max abs err {k2_err[dtype]:.3g}, max "
-              f"err relative to max |plain| {rel:.3g} (limit {tol}) over stage-0, stage-1 "
-              f"and 4 all-level calls")
+              f"err relative to max |plain| {rel:.3g} (limit {tol}) over stage-0 (S=4), "
+              f"stage-1 (S=4 and S=2) and 4 all-level (S=1) calls")
         if rel > tol:
             fail(f"K2 disagrees with its plain version in {dtype}")
         torch.cuda.synchronize()
@@ -2112,32 +2152,42 @@ def main():
              ("stage-1 level-mapped S=4", rois1, lv1, 4, False),
              ("BA all-level S=1", rois1, None, 1, True)]
     k2 = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "device_ms": 0.0,
-          "kernel_ms": 0.0}
+          "kernel_ms": 0.0, "outside_ms": 0.0}
     for name, rois, lvl, s, all_lv in calls:
+        def call(rois=rois, lvl=lvl, s=s, all_lv=all_lv):
+            if all_lv:
+                return roi_align_levels(pyr, rois, strides, 7, 0, s)
+            return roi_align_pyramid(pyr, rois, lvl, strides, 7, 0, s)
+
+        ms = cuda_ms(call)
         if all_lv:
-            ms = cuda_ms(lambda: roi_align_levels(pyr, rois, strides, 7, 0, s))
             plain = cuda_ms(lambda: [roi_align_plain(pyr, rois, torch.full_like(lv1, q),
                                                      strides, 7, 0, s) for q in range(4)],
                             iters=3, warmup=1)
         else:
-            ms = cuda_ms(lambda: roi_align_pyramid(pyr, rois, lvl, strides, 7, 0, s))
             plain = cuda_ms(lambda: roi_align_plain(pyr, rois, lvl, strides, 7, 0, s),
                             iters=3, warmup=1)
-        call = (lambda: roi_align_levels(pyr, rois, strides, 7, 0, s)) if all_lv else \
-            (lambda: roi_align_pyramid(pyr, rois, lvl, strides, 7, 0, s))
         dev = device_times(call, ("roi_align_fwd",))
+        # probe: the same rois moved past the image, so that every sample is
+        # outside it: the geometry and the output writes alone
+        outside = device_times(lambda: call(rois + OUTSIDE_PX), ("roi_align_fwd",))
         nbytes, ops = k2_bound(pyr, rois, lvl, strides, s, all_lv)
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
         for key, v in (("ms", ms), ("plain_ms", plain), ("bytes_ms", b_ms), ("ops_ms", o_ms),
-                       ("device_ms", dev["all"]), ("kernel_ms", dev["roi_align_fwd"])):
+                       ("device_ms", dev["all"]), ("kernel_ms", dev["roi_align_fwd"]),
+                       ("outside_ms", outside["roi_align_fwd"])):
             k2[key] += v
         print(f"K2 roi_align {name}: {ms * 1e3:.1f} us by events, device {dev['all'] * 1e3:.1f} us "
-              f"(the kernel {dev['roi_align_fwd'] * 1e3:.1f} us); plain {plain * 1e3:.1f} us; bound "
-              f"{max(b_ms, o_ms) * 1e3:.1f} us ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP) "
-              f"({card})")
+              f"(the kernel {dev['roi_align_fwd'] * 1e3:.1f} us; "
+              f"{100 * max(b_ms, o_ms) / dev['roi_align_fwd']:.1f}% of the bound); every "
+              f"sample outside the image: {outside['roi_align_fwd'] * 1e3:.1f} us; plain "
+              f"{plain * 1e3:.1f} us; bound {max(b_ms, o_ms) * 1e3:.1f} us ({nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e9:.3f} GFLOP) ({card})")
 
     print(f"K2 per image (3 calls): {k2['ms'] * 1e3:.1f} us by events, device "
-          f"{k2['device_ms'] * 1e3:.1f} us (kernels {k2['kernel_ms'] * 1e3:.1f} us); bound "
+          f"{k2['device_ms'] * 1e3:.1f} us (kernels {k2['kernel_ms'] * 1e3:.1f} us, "
+          f"{100 * max(k2['bytes_ms'], k2['ops_ms']) / k2['kernel_ms']:.1f}% of the bound; every "
+          f"sample outside the image {k2['outside_ms'] * 1e3:.1f} us); bound "
           f"{max(k2['bytes_ms'], k2['ops_ms']) * 1e3:.1f} us ({card})")
     profile_request(model, imgs[0])
     pairs = capture_laterals(model, imgs[0])    # for phase 20

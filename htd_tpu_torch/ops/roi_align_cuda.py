@@ -64,7 +64,7 @@ def _ptr(a: np.ndarray) -> int:
 
 
 def _lead(geom: PyramidGeometry, rois: torch.Tensor, lvls: Optional[torch.Tensor],
-          strides: Sequence[int], sampling_ratio: int, max_samples: int):
+          strides: Sequence[int], out_size: int, sampling_ratio: int, max_samples: int):
     """Checks what K2 and K4 share; the leading shape of K2's output and
     K4's cotangent: (B, R) with levels, (L, B, R) without."""
     num_levels = len(geom.heights)
@@ -72,6 +72,10 @@ def _lead(geom: PyramidGeometry, rois: torch.Tensor, lvls: Optional[torch.Tensor
         raise ValueError("one stride per level, at most 8 levels")
     if sampling_ratio <= 0 and max_samples < 1:
         raise ValueError("max_samples must be >= 1")
+    samples = sampling_ratio if sampling_ratio > 0 else max_samples
+    if not 1 <= out_size <= 8 or out_size * samples > 64:
+        raise ValueError(f"K2 and K4 take out_size <= 8 and out_size * samples <= 64, got "
+                         f"out_size {out_size} with {samples} samples per bin axis")
     b, r = rois.shape[0], rois.shape[1]
     return (b, r) if lvls is not None else (num_levels, b, r)
 
@@ -141,7 +145,7 @@ def launch_roi_align(pyr: Pyramid, rois: torch.Tensor, lvls: Optional[torch.Tens
         raise ValueError("pyramid buffer must be contiguous and 16-byte aligned")
     if geom.channels * buf.element_size() % 16:
         raise ValueError("channels * element size must be a multiple of 16 bytes")
-    lead = _lead(geom, rois, lvls, strides, sampling_ratio, max_samples)
+    lead = _lead(geom, rois, lvls, strides, out_size, sampling_ratio, max_samples)
     out = torch.empty(lead + (out_size, out_size, geom.channels), dtype=buf.dtype,
                       device=buf.device)
     if rois.shape[0] * rois.shape[1] == 0:
@@ -172,7 +176,7 @@ def launch_roi_align_bwd(geom: PyramidGeometry, rois: torch.Tensor,
         raise ValueError("the cotangent must be contiguous and 16-byte aligned")
     if geom.channels * g.element_size() % 16:
         raise ValueError("channels * element size must be a multiple of 16 bytes")
-    lead = _lead(geom, rois, lvls, strides, sampling_ratio, max_samples)
+    lead = _lead(geom, rois, lvls, strides, out_size, sampling_ratio, max_samples)
     if tuple(g.shape) != lead + (out_size, out_size, geom.channels):
         raise ValueError(f"cotangent must be {lead + (out_size, out_size, geom.channels)}, "
                          f"got {tuple(g.shape)}")

@@ -14,6 +14,7 @@ import torch
 from htd_tpu_torch.ops.boxes import map_roi_levels
 from htd_tpu_torch.ops.pyramid import pack_pyramid, pack_pyramid_plain
 from htd_tpu_torch.ops.roi_align import roi_align_levels, roi_align_plain, roi_align_pyramid
+from tests.roi_cases import crowded_rois, special_rois
 
 STRIDES = (4, 8, 16, 32)
 
@@ -39,35 +40,59 @@ def _inputs(dev, dtype, b=2, h=64, w=96, c=64, r=24, seed=0):
     return feats, torch.from_numpy(rois).to(dev)
 
 
+def _roi_case(dev, dtype, case):
+    """K2 / K4 inputs: "small" (`_inputs`, 64 channels), "special"
+    (`special_rois`: sub-pixel bins, samples in [-1, 0) and (size - 1,
+    size], a roi wider than every level, zero width and height; 256
+    channels) and "crowded" (a training step's 512 rois per image, batch 2,
+    on the pyramid of the 800x1344 bucket, 256 channels)."""
+    if case == "small":
+        return _inputs(dev, dtype)
+    h, w, r = (64, 96, 24) if case == "special" else (200, 336, 512)
+    feats, _ = _inputs(dev, dtype, h=h, w=w, c=256, seed=1)
+    rng = np.random.RandomState(2)
+    make = special_rois if case == "special" else crowded_rois
+    return feats, torch.from_numpy(make(rng, 2, r, 4.0 * h, 4.0 * w)).to(dev)
+
+
 def _rel_err(k, p):
     return (k.float() - p.float()).abs().max().item() / max(1.0, p.float().abs().max().item())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["small", "special", "crowded"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernels_match_plain(cuda, dtype):
-    """K1 bit-equal to its plain version; K2 per-roi levels (S=4) and the
-    all-level pass (S=1) within 1e-5 (float32) / 1e-2 (bfloat16) of the
-    plain version, relative to its largest magnitude. Both accumulate in
-    float32; they differ in summation order and, in bfloat16, in one final
-    rounding."""
+def test_kernels_match_plain(cuda, dtype, case):
+    """K1 bit-equal to its plain version; K2 per-roi levels (S=4, 2, 1) and
+    the all-level pass (S=1) within 1e-5 (float32) / 1e-2 (bfloat16) of the
+    plain version, relative to its largest magnitude, on each of
+    `_roi_case`'s roi sets, and on the special rois inverted (x2 < x1, y2 <
+    y1) under a fixed grid of 2. Both accumulate in float32; they differ in
+    summation order and, in bfloat16, in one final rounding."""
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
-    feats, rois = _inputs(cuda, dtype)
+    feats, rois = _roi_case(cuda, dtype, case)
     reset_launch_counts()
     pyr = pack_pyramid(feats)
     assert torch.equal(pyr.buf, pack_pyramid_plain(feats, pyr.geom))
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     lv = map_roi_levels(rois, 4)
-    for s in (4, 1):
+    for s in (4, 2, 1):
         k = roi_align_pyramid(pyr, rois, lv, STRIDES, 7, 0, s)
         assert _rel_err(k, roi_align_plain(pyr, rois, lv, STRIDES, 7, 0, s)) <= tol
     k = roi_align_levels(pyr, rois, STRIDES, 7, 0, 1)
     for lvl in range(4):
         p = roi_align_plain(pyr, rois, torch.full_like(lv, lvl), STRIDES, 7, 0, 1)
         assert _rel_err(k[lvl], p) <= tol
+    if case == "special":
+        assert k[:, :, 6:8].abs().max().item() == 0.0    # zero width and height
+        # corners swapped under a fixed grid: sample coordinates decrease
+        inv = rois[..., [2, 3, 0, 1]].contiguous()
+        k = roi_align_pyramid(pyr, inv, lv, STRIDES, 7, 2, 4)
+        assert _rel_err(k, roi_align_plain(pyr, inv, lv, STRIDES, 7, 2, 4)) <= tol
     torch.cuda.synchronize()
-    assert launch_counts == {"pyramid_pack": 1, "roi_align": 3, "deform_conv": 0,
+    assert launch_counts == {"pyramid_pack": 1, "roi_align": 4 + (case == "special"),
+                             "deform_conv": 0,
                              "roi_align_bwd": 0, "deform_conv_bwd_input": 0,
                              "deform_conv_bwd_offset_weight": 0, "upsample_add": 0,
                              "layout_fence": 0}
@@ -83,6 +108,12 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     pyr = pack_pyramid(feats)
     with pytest.raises(ValueError):
         roi_align_pyramid(pyr, rois.cpu(), map_roi_levels(rois, 4).cpu(), STRIDES)
+    # K2 and K4 keep each roi's sample tables in shared memory: out_size <= 8
+    # and out_size * samples <= 64
+    with pytest.raises(ValueError, match="out_size"):
+        roi_align_pyramid(pyr, rois, map_roi_levels(rois, 4), STRIDES, 9)
+    with pytest.raises(ValueError, match="out_size"):
+        roi_align_levels(pyr, rois, STRIDES, 7, 0, 10)
 
 
 def _dcn_inputs(dev, dtype, stride, groups, scale=2.5, n=2, h=23, w=37, seed=0,
@@ -163,24 +194,32 @@ def test_deform_conv_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["small", "special", "crowded"])
+@pytest.mark.parametrize("s", [4, 2, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("all_levels", [False, True])
-def test_roi_align_bwd_matches_plain(cuda, all_levels, dtype):
+def test_roi_align_bwd_matches_plain(cuda, all_levels, dtype, s, case):
     """K4 against its plain version: the float32 pyramid gradient within
     1e-5 of the plain version's largest magnitude (both add the same
     float32 products, K4 with atomics in another order); through autograd
-    the levels get it in the features' dtype, one launch per backward."""
+    the levels get it in the features' dtype, one launch per backward. On
+    each of `_roi_case`'s roi sets, with a cotangent that has all-zero
+    bins (one roi's, two bin rows of another, one bin of every roi)."""
     from htd_tpu_torch.ops.roi_align import roi_align_backward_plain
     from htd_tpu_torch.ops.roi_align_cuda import (launch_counts, launch_roi_align_bwd,
                                                   reset_launch_counts)
 
-    feats, rois = _inputs(cuda, dtype)
-    rois[:, 5:9] = rois[:, 4:5]                  # crowded: several copies of one roi
+    feats, rois = _roi_case(cuda, dtype, case)
+    if case == "small":
+        rois[:, 5:9] = rois[:, 4:5]              # crowded: several copies of one roi
     geom = pack_pyramid(feats).geom
     lv = None if all_levels else map_roi_levels(rois, 4)
-    s = 1 if all_levels else 4
     lead = (4,) if all_levels else ()
-    g = torch.randn(lead + tuple(rois.shape[:2]) + (7, 7, 64), device=cuda).to(dtype)
+    g = torch.randn(lead + tuple(rois.shape[:2]) + (7, 7, geom.channels), device=cuda)
+    g[..., 8, :, :, :] = 0.0
+    g[..., 9, 2:4, :, :] = 0.0
+    g[..., 5, 1, :] = 0.0
+    g = g.to(dtype)
     reset_launch_counts()
     k = launch_roi_align_bwd(geom, rois, lv, g, STRIDES, 7, 0, s)
     k2 = launch_roi_align_bwd(geom, rois, lv, g, STRIDES, 7, 0, s)

@@ -7,7 +7,9 @@ tests hold it to the JAX package's corner-folded scatters
 (`roi_align_pyramid_batched_grad_feats`, `levels_pyramid_grad_feats`),
 to `jax.vjp` of its gather forwards, and to its Pallas backward kernel
 run in interpret mode. The CUDA kernel itself is held to the plain version
-by tests/test_torch_cuda.py and chip_smoke.py on the card.
+by tests/test_torch_cuda.py and chip_smoke.py on the card. The numpy
+model of K4's fold (`fold_backward`, tests/test_torch_roi_align.py) is
+held to the plain version here.
 """
 
 import numpy as np
@@ -27,6 +29,8 @@ from htd_tpu_torch.ops import roi_align_cuda
 from htd_tpu_torch.ops.pyramid import pack_pyramid, pyramid_level_grads
 from htd_tpu_torch.ops.roi_align import (roi_align_backward_plain, roi_align_levels,
                                          roi_align_plain, roi_align_pyramid)
+from tests.roi_cases import special_rois
+from tests.test_torch_roi_align import fold_backward
 from tests.torch_port import t
 
 torch.set_num_threads(1)
@@ -81,7 +85,7 @@ def _assert_close(ours, ref, tol=1e-5):
 
 
 @pytest.mark.parametrize("crowded", [False, True])
-@pytest.mark.parametrize("s", [4, 1])
+@pytest.mark.parametrize("s", [4, 2, 1])
 def test_level_mapped_matches_jax(s, crowded):
     """K4's plain version, level-mapped, against the JAX corner-folded
     scatter and against jax.vjp of the gather forward: within 1e-5 of the
@@ -94,7 +98,7 @@ def test_level_mapped_matches_jax(s, crowded):
     _assert_close(ours, vjp(jnp.asarray(g))[0])
 
 
-@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("s", [1, 2, 4])
 def test_all_levels_matches_jax(s):
     """K4's plain version in the all-level mode (the BA pass) against the
     JAX `levels_pyramid_grad_feats` and jax.vjp of `_levels_pyramid_impl`."""
@@ -175,3 +179,69 @@ def test_cuda_autograd_function_wiring(monkeypatch):
     roi_align_plain(pack_pyramid(ref_levels), t(rois), t(lvls), STRIDES, OUT, 0, 4).backward(t(g))
     _assert_close([f.grad.numpy() for f in levels], [f.grad.numpy() for f in ref_levels],
                   tol=1e-6)
+
+
+def _special_case(seed, all_levels=False, r=14):
+    """`special_rois` (sub-pixel bins on P2, samples in [-1, 0) and
+    (size - 1, size], a roi wider than every level, zero width and height)
+    with a cotangent that has all-zero bins: one roi's whole cotangent, two
+    bin rows of another, one bin of every roi."""
+    rng = np.random.RandomState(seed)
+    feats = [rng.normal(0, 1, (B, H0 >> q, W0 >> q, C)).astype(np.float32) for q in range(4)]
+    rois = special_rois(rng, B, r, 4.0 * H0, 4.0 * W0)
+    lead = (4, B, r) if all_levels else (B, r)
+    g = rng.normal(0, 1, lead + (OUT, OUT, C)).astype(np.float32)
+    g[..., 8, :, :, :] = 0.0
+    g[..., 9, 2:4, :, :] = 0.0
+    g[..., 5, 1, :] = 0.0
+    lvls = np.array(jax.vmap(lambda x: jmap(jnp.asarray(x), 4))(rois))
+    return feats, rois, lvls, g
+
+
+@pytest.mark.parametrize("all_levels", [False, True])
+@pytest.mark.parametrize("s", [4, 2, 1])
+def test_special_rois_match_jax(s, all_levels):
+    """K4's plain version on `_special_case`, level-mapped against the JAX
+    corner-folded scatter and every roi on every level against
+    `levels_pyramid_grad_feats`: within 1e-5 of the largest gradient."""
+    feats, rois, lvls, g = _special_case(20 + s, all_levels)
+    ours = _port_grads(feats, rois, None if all_levels else lvls, g, s)
+    fj, rj = [jnp.asarray(f) for f in feats], jnp.asarray(rois)
+    if all_levels:
+        geom = pack_pyramid([t(f) for f in feats]).geom
+        ref = j_levels_grad(fj, rj, STRIDES, [jnp.asarray(x) for x in g], geom.w_pad,
+                            list(geom.row_offsets), geom.img_rows, OUT, 0, s)
+    else:
+        ref = j_grad(fj, rj, STRIDES, jnp.asarray(lvls), jnp.asarray(g), OUT, 0, s)
+    _assert_close(ours, ref)
+
+
+@pytest.mark.parametrize("case", ["random", "crowded", "special", "inverted"])
+@pytest.mark.parametrize("s", [4, 2, 1])
+def test_fold_model_matches_backward_plain(s, case):
+    """The numpy model of K4's fold (U = Wx . g / count per bin row, then one
+    sum per distinct pixel of each roi) against `roi_align_backward_plain`,
+    level-mapped and every roi on every level, within float32 rounding: 1e-5
+    of the largest gradient. "inverted": the special rois with x2 < x1 and
+    y2 < y1 under a fixed grid (sampling_ratio = s)."""
+    sr = s if case == "inverted" else 0
+    for all_levels in (False, True):
+        if case in ("special", "inverted"):
+            feats, rois, lvls, g = _special_case(30 + s, all_levels)
+            if case == "inverted":
+                rois = np.ascontiguousarray(rois[..., [2, 3, 0, 1]])
+        else:
+            feats, rois, lvls, g = _case(40 + s, r=12, crowded=case == "crowded",
+                                         all_levels=all_levels)
+        geom = pack_pyramid([t(f) for f in feats]).geom
+        d = roi_align_backward_plain(geom, t(rois), None if all_levels else t(lvls), t(g),
+                                     STRIDES, OUT, sr, s)
+        ours = [x.numpy() for x in pyramid_level_grads(d, geom)]
+        shapes = [f.shape[1:3] for f in feats]
+        passes = ([(np.full(lvls.shape, q), g[q]) for q in range(4)] if all_levels
+                  else [(lvls, g)])
+        model = [np.zeros_like(f) for f in feats]
+        for lv, gq in passes:
+            for acc, dq in zip(model, fold_backward(shapes, rois, lv, gq, STRIDES, OUT, sr, s)):
+                acc += dq
+        _assert_close(ours, model)
