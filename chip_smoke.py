@@ -94,6 +94,19 @@ script exits non-zero without its final line:
      bfloat16 at batch 8 on a synthetic mini-COCO of 16 seeded images; the
      evaluator's self-check (the ground truth as detections scores mAP 1);
      images/s.
+ 24. main path: the command-line tools of tools_torch/ in process on phase
+     23's mini-COCO written as PNG files (read back bit-equal through
+     `CocoDataset.load_image`, which needs no OpenCV for them):
+     train.py (R-50 bf16, batch 2 at the preset's scale, two epochs on 8
+     images: config.json, train.log.json, epoch_1.pth, epoch_2.pth, finite
+     losses; K1 1, K2 3, K4 3, K7 3 launches per step), the same run resumed
+     from epoch_1.pth with --val-ann (its first logged losses against the
+     uninterrupted run's at that step), test.py on epoch_2.pth with --dump
+     and --coco-dump (K1, K2, K7 per batch as phase 23) and eval_metric.py
+     on the dump (the same metrics), --eval proposal, --aug on 2 images,
+     test.py on R-101-DCN (K3 30 launches, tensor cores), publish_model.py
+     (the published file's detections bit-identical to the checkpoint's);
+     each step's wall time.
 Every forward launches K7 3 times (one per FPN top-down add), whatever its
 batch. It needs CUDA: with no GPU, or run outside the repository, it fails.
 """
@@ -103,9 +116,13 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import shutil
 import statistics
+import struct
 import subprocess
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -143,6 +160,10 @@ TTA_SCALES = ((1333, 800), (1600, 1000))   # phase 22, each with and without fli
 TTA_TIMED = 5              # phase 22's warm TTA calls
 INTERLEAVED = 60           # phase 21's calls of K8 and clone(), each
 MINI_COCO_IMAGES = 16      # phase 23's seeded images, half landscape
+TOOLS_TRAIN_IMAGES = 8     # phase 24 trains on this many of them, half landscape
+# phase 24: the resumed run's first logged losses (4 places) against the
+# uninterrupted run's at the same step
+RESUME_LIMIT = 1e-3
 TRAIN_BUCKET = (800, 1344)
 TRAIN_IMG_SHAPES = [(800, 1333), (750, 1344)]
 # seeded gts of the training batch: (x1, y1, w, h) in px, several scales
@@ -1957,6 +1978,14 @@ class SeededCoco:
         self.dataset = Dataset(path, test_mode=True)
 
 
+def finite_metrics(label: str, metrics: dict) -> None:
+    """COCO metrics are finite, but for the area ranges without gts."""
+    if not metrics or not all(math.isfinite(v) or (math.isnan(v) and k in
+                                                   ("mAP_s", "mAP_m", "mAP_l"))
+                              for k, v in metrics.items()):
+        fail(f"{label}: non-finite metrics {metrics}")
+
+
 def eval_phase(card):
     """Phase 23."""
     import tempfile
@@ -1996,9 +2025,7 @@ def eval_phase(card):
                   f"{k} {v:.4f}" for k, v in metrics.items()) + f" ({card})")
         if counts["upsample_add"] != 3 * n_batches or counts["pyramid_pack"] != n_batches:
             fail(f"expected K7 3 and K1 1 launches per batch, got {counts}")
-        if not all(math.isfinite(v) or (math.isnan(v) and k in ("mAP_s", "mAP_m", "mAP_l"))
-                   for k, v in metrics.items()):
-            fail(f"non-finite metrics {metrics}")
+        finite_metrics(f"evaluate_dataset ({run})", metrics)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ar = evaluate_proposals(model, ds, batch_size=8)
@@ -2008,6 +2035,214 @@ def eval_phase(card):
         f"{k} {v:.4f}" for k, v in ar.items()))
     if not all(0.0 <= v <= 1.0 for v in ar.values()):
         fail(f"proposal recall outside [0, 1]: {ar}")
+
+
+def write_png(path: str, img_bgr: np.ndarray) -> None:
+    """(H, W, 3) uint8 BGR as an 8-bit RGB PNG file, with the standard
+    library's zlib: row r filtered with type r % 5 (None, Sub, Up, Average,
+    Paeth), so that reading it back goes through every filter."""
+    x = np.ascontiguousarray(img_bgr[..., ::-1]).astype(np.int16)
+    h, w = x.shape[:2]
+    left, up, upleft = (np.zeros_like(x) for _ in range(3))
+    left[:, 1:], up[1:], upleft[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(up - upleft), np.abs(left - upleft), np.abs(left + up - 2 * upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    types = np.arange(h) % 5
+    pred = np.choose(types[:, None, None], (np.zeros_like(x), left, up, (left + up) >> 1, paeth))
+    rows = np.concatenate([types[:, None], ((x - pred) & 255).reshape(h, -1)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.astype(np.uint8).tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def png_coco(root: str):
+    """Phase 23's seeded mini-COCO written to `root` as PNG files:
+    val.json names all MINI_COCO_IMAGES images, train.json the first
+    TOOLS_TRAIN_IMAGES / 2 of each orientation. Returns (train.json,
+    val.json, the pixels by image id)."""
+    src = SeededCoco(root).dataset
+    with open(f"{root}/ann.json") as f:
+        ann = json.load(f)
+    pixels = {}
+    for im in ann["images"]:
+        rec = next(r for r in src.records if r.img_id == im["id"])
+        pixels[im["id"]] = src.load_image(rec)
+        im["file_name"] = f"{im['id']}.png"
+        write_png(f"{root}/{im['file_name']}", pixels[im["id"]])
+    land = [im["id"] for im in ann["images"] if im["width"] >= im["height"]]
+    port = [im["id"] for im in ann["images"] if im["width"] < im["height"]]
+    train_ids = set(land[:TOOLS_TRAIN_IMAGES // 2] + port[:TOOLS_TRAIN_IMAGES // 2])
+    paths = []
+    for name, ids in (("train", train_ids), ("val", {im["id"] for im in ann["images"]})):
+        part = dict(ann, images=[im for im in ann["images"] if im["id"] in ids],
+                    annotations=[a for a in ann["annotations"] if a["image_id"] in ids])
+        paths.append(f"{root}/{name}.json")
+        with open(paths[-1], "w") as f:
+            json.dump(part, f)
+    return paths[0], paths[1], pixels
+
+
+def tool_run(label: str, fn, card: str):
+    """Run one tool in process with the launch counts set to 0 just
+    before; returns (its result, the counts). Prints the wall time."""
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: v for k, v in {**launch_counts, **path_counts}.items() if v}
+    print(f"[{label}] {dt:.2f} s; launches {counts} ({card})")
+    return out, counts
+
+
+def expect_launches(label: str, counts: dict, want: dict) -> None:
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        fail(f"{label}: expected launches {want}, got {got}")
+
+
+def tools_phase(card):
+    """Phase 24: the command-line tools of tools_torch/ on files on disk."""
+    import re
+    import tempfile
+
+    from htd_tpu_torch import config as C
+    from htd_tpu_torch import inference_detector, init_detector
+    from htd_tpu_torch.data.coco import CocoDataset
+    from tools_torch import eval_metric, publish_model
+    from tools_torch import test as test_tool
+    from tools_torch import train as train_tool
+
+    phase("24 main path: the tools (train, resume, test, eval_metric, publish) on PNG files")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        train_ann, val_ann, pixels = png_coco(root)
+        val = CocoDataset(val_ann, root, test_mode=True)
+        for rec in val.records:
+            if not np.array_equal(val.load_image(rec), pixels[rec.img_id]):
+                fail(f"CocoDataset.load_image of {rec.file_name} differs from the pixels written")
+        n_land = sum(r.landscape for r in val.records)
+        print(f"[png] {len(val)} seeded images written as PNG (rows filtered None, Sub, Up, "
+              f"Average, Paeth in turn) and read back bit-equal through CocoDataset.load_image "
+              f"in {time.perf_counter() - t0:.2f} s; train.json {TOOLS_TRAIN_IMAGES} of them, "
+              f"val.json all ({card})")
+
+        steps = TOOLS_TRAIN_IMAGES // 2     # batches of 2, each orientation apart
+        common = ["--config", "htd_r50_1x", "--bf16", "--batch-size", "2", "--train-ann",
+                  train_ann, "--train-img", root, "--log-interval", "1", "--seed", "0",
+                  "--set", "train.total_epochs=2"]
+        full, counts = tool_run("train.py, 2 epochs", lambda: train_tool.main(
+            common + ["--work-dir", f"{root}/full"]), card)
+        expect_launches("train.py", counts, {"pyramid_pack": 2 * steps, "roi_align": 6 * steps,
+                                             "roi_align_bwd": 6 * steps,
+                                             "upsample_add": 6 * steps})
+        for name in ("config.json", "train.log.json", "epoch_1.pth", "epoch_2.pth"):
+            if not os.path.exists(f"{root}/full/{name}"):
+                fail(f"train.py wrote no {name}")
+        losses = [r["loss"] for r in full]
+        if len(full) != 2 * steps or not all(math.isfinite(v) for r in full for v in r.values()):
+            fail(f"train.py logged {full}")
+        print(f"train.py: R-50 bf16, batch 2 at {C.htd_r50_1x().train.img_scale}, {steps} steps "
+              f"per epoch; losses {losses}")
+        meta = torch.load(f"{root}/full/epoch_1.pth", map_location="cpu",
+                          weights_only=True)["meta"]
+        if (meta["step"], meta["steps_per_epoch"], meta["epoch"]) != (steps, steps, 1):
+            fail(f"epoch_1.pth meta {meta}")
+
+        resumed, counts = tool_run("train.py --resume-from epoch_1.pth --val-ann", lambda:
+                                   train_tool.main(common + [
+                                       "--work-dir", f"{root}/resumed", "--resume-from",
+                                       f"{root}/full/epoch_1.pth", "--val-ann", val_ann,
+                                       "--val-img", root]), card)
+        expect_launches("resumed train.py", counts, {"roi_align_bwd": 3 * steps})
+        first, ref = resumed[0], full[steps]
+        if (first["epoch"], first["iter"], ref["epoch"], ref["iter"]) != (2, 1, 2, 1):
+            fail(f"the resumed run starts at {first}, not at epoch 2 iteration 1")
+        dev = max(abs(first[k] - ref[k]) for k in ref if k not in ("epoch", "iter", "time"))
+        print(f"resumed at step {meta['step']} (= steps per epoch): its first logged losses vs "
+              f"the uninterrupted run's at the same step, as logged (4 places): max abs "
+              f"deviation {dev:.4g} (limit {RESUME_LIMIT}: that step's forward has no atomics "
+              f"and draws the same samples; the atomics of K4 and K5 make later steps differ)")
+        if dev > RESUME_LIMIT:
+            fail("the resumed run's first losses differ from the uninterrupted run's")
+        finite_metrics("validation", resumed[-1])
+        print(f"validation after the resumed epoch: {resumed[-1]}")
+        a = torch.load(f"{root}/full/epoch_2.pth", map_location="cpu", weights_only=True)
+        b = torch.load(f"{root}/resumed/epoch_2.pth", map_location="cpu", weights_only=True)
+        drift = max((x.float() - b["state_dict"][k].float()).abs().max().item()
+                    for k, x in a["state_dict"].items())
+        print(f"epoch_2.pth, uninterrupted vs resumed: max abs parameter difference {drift:.3g} "
+              f"(not held: atomics)")
+        del a, b
+        os.remove(f"{root}/full/epoch_1.pth")
+        shutil.rmtree(f"{root}/resumed")
+
+        ckpt = f"{root}/full/epoch_2.pth"
+        test_args = ["--config", "htd_r50_1x", "--bf16", "--checkpoint", ckpt, "--ann", val_ann,
+                     "--img-root", root, "--set", "rcnn_test.score_thr=0.0"]
+        n_batches = -(-n_land // 8) + -(-(len(val) - n_land) // 8)
+        metrics, counts = tool_run("test.py --dump --coco-dump", lambda: test_tool.main(
+            test_args + ["--dump", f"{root}/dets.json", "--coco-dump", f"{root}/coco.json"]), card)
+        finite_metrics("test.py", metrics)
+        expect_launches("test.py", counts, {"pyramid_pack": n_batches, "roi_align": 3 * n_batches,
+                                            "upsample_add": 3 * n_batches})
+        offline, _ = tool_run("eval_metric.py", lambda: eval_metric.main(
+            [f"{root}/dets.json", "--ann", val_ann]), card)
+        with open(f"{root}/coco.json") as f:
+            n_coco = len(json.load(f))
+        print(f"test.py on epoch_2.pth (exact grid, score_thr 0): {metrics}; eval_metric.py on "
+              f"its dump: {offline}; {n_coco} detections of the dataset's categories in the COCO "
+              f"dump")
+        if json.dumps(offline) != json.dumps(metrics):
+            fail("eval_metric.py does not reproduce test.py's metrics")
+        recall, counts = tool_run("test.py --eval proposal", lambda: test_tool.main(
+            test_args + ["--eval", "proposal"]), card)
+        expect_launches("test.py --eval proposal", counts, {"pyramid_pack": 0, "roi_align": 0,
+                                                            "upsample_add": 3 * n_batches})
+        if not all(0.0 <= v <= 1.0 for v in recall.values()):
+            fail(f"proposal recall outside [0, 1]: {recall}")
+        aug, counts = tool_run("test.py --aug --max-images 2", lambda: test_tool.main(
+            test_args + ["--aug", "--max-images", "2"]), card)
+        finite_metrics("test.py --aug", aug)
+        expect_launches("test.py --aug", counts, {"pyramid_pack": 4, "roi_align": 12,
+                                                  "upsample_add": 24})
+        print(f"proposal recall {recall}; TTA (test scale x flip) on 2 images {aug}")
+
+        dcn, counts = tool_run("test.py --config htd_r101_dcn_2x", lambda: test_tool.main(
+            ["--config", "htd_r101_dcn_2x", "--bf16", "--max-images", "2", "--batch-size", "2",
+             "--ann", val_ann, "--img-root", root]), card)
+        finite_metrics("R-101-DCN test.py", dcn)
+        expect_launches("R-101-DCN test.py", counts, {"deform_conv": 30, "deform_conv_tc": 30})
+        print(f"R-101-DCN bf16, random weights, 2 images: {dcn}")
+
+        published, _ = tool_run("publish_model.py", lambda: publish_model.main(
+            [ckpt, f"{root}/htd_r50.pth"]), card)
+        if not re.fullmatch(re.escape(root) + r"/htd_r50-[0-9a-f]{8}\.pth", published):
+            fail(f"publish_model.py wrote {published}")
+        keys = set(torch.load(published, map_location="cpu", weights_only=True))
+        cfg = C.apply_overrides(C.htd_r50_1x(compute_dtype="bfloat16"),
+                                ["rcnn_test.score_thr=0.0"])
+        img = pixels[val.records[0].img_id]
+        with torch.inference_mode():
+            got = inference_detector(init_detector(cfg, published), img)
+            ref = inference_detector(init_detector(cfg, ckpt), img)
+        same = all(np.array_equal(x, y) for x, y in zip(got, ref))
+        print(f"publish_model.py -> {os.path.basename(published)} with {sorted(keys)}; "
+              f"init_detector + inference_detector on one image: {len(got[1])} detections, "
+              f"bit-identical to the unpublished file's: {same}")
+        if keys != {"meta", "state_dict"} or not same or len(got[1]) == 0:
+            fail("the published model differs from the unpublished one")
+    print(f"phase 24: {time.perf_counter() - t_phase:.2f} s in all ({card})")
 
 
 def tta_eval_phases(card, pairs, k7_launches, imgs):
@@ -2223,6 +2458,7 @@ def run() -> None:
     kernels.extend(dcn_train_phases(card, images()))
     kernels.extend(tta_eval_phases(card, [(lo.clone(), la.clone()) for lo, la in pairs],
                                    k7_launches, images()))
+    tools_phase(card)
     print(f"kernel times are per image (K2: the sum of its 3 calls per request; K3: of its "
           f"30 launches per R-101-DCN request; K7: of its 3 launches per R-50 request; K8: one "
           f"launch on the largest fenced tensor) and per train step (K4: its 3 calls, R-50; K5, "

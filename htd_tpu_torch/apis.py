@@ -22,6 +22,7 @@ from htd_tpu_torch.config import HTDConfig
 from htd_tpu_torch.data.pipeline import bucket_shape, preprocess
 from htd_tpu_torch.models import tta
 from htd_tpu_torch.models.detector import HTDDetector
+from htd_tpu_torch.train.checkpoint import load_torch_checkpoint
 from htd_tpu_torch.weights import init_random
 
 
@@ -38,22 +39,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _load_checkpoint(model: HTDDetector, path: str) -> None:
-    """Load an mmdet `.pth` (its `state_dict`, or the dict itself)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    sd = ckpt.get("state_dict", ckpt)
-    sd = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
-    model.load_state_dict(sd, strict=True)
-
-
 def init_detector(cfg: HTDConfig, checkpoint: Optional[str] = None, device=None,
                   seed: int = 0) -> HTDDetector:
-    """Build the detector on `device` in `cfg.compute_dtype`, from an mmdet
-    `.pth` when given, else with random weights drawn from `seed`."""
+    """Build the detector on `device` in `cfg.compute_dtype`, from a `.pth`
+    when given (an mmdet checkpoint or one that `train.checkpoint.
+    save_checkpoint` wrote; every tensor of the model, strictly), else with
+    random weights drawn from `seed`."""
     dev = resolve_device(device)
     model = HTDDetector(cfg)
     if checkpoint:
-        _load_checkpoint(model, checkpoint)
+        model.load_state_dict(load_torch_checkpoint(checkpoint))
     else:
         init_random(model, seed)
     model = model.to(device=dev, dtype=model.compute_dtype)

@@ -8,6 +8,8 @@ the two copies cannot drift. The presets transcribe the HTD configs:
   * htd_r101_2x          <- configs/htd/htd_resnet101_2x.py
   * htd_r101_dcn_2x      <- configs/htd/htd_resnet101_dcn_2x_mstrain.py
   * htd_x101_dcn_2x      <- configs/htd/htd_resnetx101_dcn_2x_mstrain.py
+`apply_overrides` and `dump_config`, the tools' `--set` options and their
+`config.json`, are copies of the JAX package's too.
 """
 
 from __future__ import annotations
@@ -286,3 +288,66 @@ def htd_x101_dcn_2x(**overrides) -> HTDConfig:
         test_scale=(1600, 800),
     )
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+# ---------------------------------------------------------------------------
+# CLI override + dump (the reference's --cfg-options DictAction + config
+# dump into work_dir, tools/train.py:55-60,124)
+# ---------------------------------------------------------------------------
+
+
+def _coerce(old, s: str):
+    """Parse `s` to the type of the existing field value `old`."""
+    if isinstance(old, bool):
+        return s.lower() in ("1", "true", "yes")
+    if isinstance(old, tuple) or (old is None and "," in s):
+        items = [x for x in s.split(",") if x != ""]
+        elem = old[0] if isinstance(old, tuple) and len(old) else 0.0
+        if isinstance(elem, tuple):  # nested tuple e.g. mstrain_range
+            raise ValueError("nested tuple overrides unsupported; "
+                             "use a preset or python API")
+        cast = int if isinstance(elem, int) and not isinstance(elem, bool) else float
+        return tuple(cast(x) for x in items)
+    if old is None:
+        for cast in (int, float):
+            try:
+                return cast(s)
+            except ValueError:
+                pass
+        return None if s.lower() == "none" else s
+    if isinstance(old, int) and not isinstance(old, bool):
+        return int(s)
+    if isinstance(old, float):
+        return float(s) if s.lower() != "none" else None
+    return s
+
+
+def apply_overrides(cfg: HTDConfig, options: "list[str]") -> HTDConfig:
+    """Apply 'dotted.path=value' overrides to a (frozen, nested) config.
+
+    Example: apply_overrides(cfg, ["train.lr=0.01", "compute_dtype=bfloat16",
+    "train.lr_steps=16,22", "rcnn_test.use_soft_nms=true"]).
+    """
+    for opt in options:
+        path, _, raw = opt.partition("=")
+        keys = path.strip().split(".")
+        # walk down collecting the dataclass chain
+        chain = [cfg]
+        for k in keys[:-1]:
+            chain.append(getattr(chain[-1], k))
+        leaf_parent = chain[-1]
+        old = getattr(leaf_parent, keys[-1])
+        new = _coerce(old, raw.strip())
+        node = dataclasses.replace(leaf_parent, **{keys[-1]: new})
+        for parent, k in zip(reversed(chain[:-1]), reversed(keys[:-1])):
+            node = dataclasses.replace(parent, **{k: node})
+        cfg = node
+    return cfg
+
+
+def dump_config(cfg: HTDConfig) -> str:
+    """Resolved config as pretty json (archived in work_dir like the
+    reference's cfg.dump)."""
+    import json
+
+    return json.dumps(dataclasses.asdict(cfg), indent=2, default=str)

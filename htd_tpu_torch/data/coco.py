@@ -12,11 +12,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from htd_tpu_torch.data import png
 from htd_tpu_torch.data.pipeline import bucket_shape, pad_gt, preprocess
 from htd_tpu_torch.train.train_step import TrainBatch
 
@@ -92,15 +94,22 @@ class CocoDataset:
         return out
 
     def load_image(self, rec: ImageRecord) -> np.ndarray:
-        """The record's image, (H, W, 3) uint8 BGR, read with OpenCV."""
-        import os
-
-        import cv2
-
+        """The record's image, (H, W, 3) uint8 BGR. A PNG file (known by its
+        signature) is decoded by `data.png.read_png`; any other format by
+        OpenCV, which raises `ImportError` where it is not installed."""
         path = os.path.join(self.img_root, rec.file_name)
+        with open(path, "rb") as f:
+            signature = f.read(len(png.SIGNATURE))
+        if signature == png.SIGNATURE:
+            return png.read_png(path)
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError(f"{path} is not a PNG file; reading it needs OpenCV (cv2), "
+                              f"which is not installed") from e
         img = cv2.imread(path, cv2.IMREAD_COLOR)
         if img is None:
-            raise FileNotFoundError(path)
+            raise ValueError(f"OpenCV cannot read {path}")
         return img
 
 

@@ -16,14 +16,17 @@ path (DDP) is not ported yet.
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from htd_tpu_torch.apis import _load_checkpoint, resolve_device
+from htd_tpu_torch.apis import resolve_device
 from htd_tpu_torch.config import HTDConfig
 from htd_tpu_torch.models.detector import HTDDetector
+from htd_tpu_torch.train.checkpoint import load_torch_checkpoint, merge_pretrained
 from htd_tpu_torch.train.optim import clip_gradients, lr_schedule, make_optimizer
 from htd_tpu_torch.weights import init_random
 
@@ -45,21 +48,39 @@ class TrainState:
 
 
 def create_train_state(cfg: HTDConfig, device=None, seed: int = 0,
-                       steps_per_epoch: int = 7330,
-                       checkpoint: Optional[str] = None) -> TrainState:
+                       steps_per_epoch: int = 7330, checkpoint: Optional[str] = None,
+                       pretrained: Optional[str] = None) -> TrainState:
     """The detector in float32 on `device` (CUDA unless the caller asks for
     the CPU), from an mmdet `.pth` when given, else with random weights
-    from `seed`; the stem and layer1 frozen; SGD over the rest."""
+    from `seed`, then overlaid with the matching tensors of the `pretrained`
+    `.pth` (a backbone, say; `merge_pretrained`, the names it leaves
+    missing or finds unexpected logged on stderr); the stem and layer1
+    frozen; SGD over the rest."""
     dev = resolve_device(device)
     model = HTDDetector(cfg)
     if checkpoint:
-        _load_checkpoint(model, checkpoint)
+        model.load_state_dict(load_torch_checkpoint(checkpoint))
     else:
         init_random(model, seed)
+    if pretrained:
+        sd = load_torch_checkpoint(pretrained)
+        missing, unexpected = merge_pretrained(model, sd)
+        print(f"[pretrained] {pretrained}: {len(sd) - len(unexpected)} tensors loaded; "
+              f"missing {len(missing)}: {', '.join(missing)}; unexpected {len(unexpected)}: "
+              f"{', '.join(unexpected)}", file=sys.stderr)
     model = model.to(device=dev).to(memory_format=torch.channels_last)
     # frozen BatchNorm and GroupNorm behave the same in both modes
     model.eval()
     return TrainState(model, make_optimizer(cfg.train, model), 0, steps_per_epoch)
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The sampling generator of step `step` of a run seeded `seed`, on
+    `device`: a function of the two numbers alone, as the JAX package folds
+    the step into its key, so that a resumed run draws the uninterrupted
+    run's samples without saving a generator's state."""
+    entropy = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(entropy))
 
 
 def train_step(state: TrainState, batch: TrainBatch,

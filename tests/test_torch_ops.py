@@ -210,14 +210,21 @@ def test_preprocess_matches(rng, hw):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, the training modules included, loads
-    no jax, flax, optax or htd_tpu."""
+    """Importing every module of the port (the training, checkpoint and PNG
+    modules included) and every tool in tools_torch/ loads no jax, flax,
+    optax or htd_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "import htd_tpu_torch\n"
-        "for m in pkgutil.walk_packages(htd_tpu_torch.__path__, 'htd_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "assert 'htd_tpu_torch.train.train_step' in sys.modules\n"
+        "import htd_tpu_torch, tools_torch\n"
+        "for pkg in (htd_tpu_torch, tools_torch):\n"
+        "    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "        importlib.import_module(m.name)\n"
+        "for m in ('htd_tpu_torch.train.train_step', 'htd_tpu_torch.train.checkpoint',\n"
+        "          'htd_tpu_torch.data.png', 'tools_torch.train', 'tools_torch.test',\n"
+        "          'tools_torch.eval_metric', 'tools_torch.coco_error_analysis',\n"
+        "          'tools_torch.publish_model', 'tools_torch.print_config',\n"
+        "          'tools_torch.analyze_logs', 'tools_torch.train_smoke'):\n"
+        "    assert m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', 'htd_tpu')\n"
         "       or m.startswith(('jax.', 'flax.', 'optax.', 'htd_tpu.'))]\n"
         "print(','.join(bad))\n"
