@@ -107,6 +107,26 @@ script exits non-zero without its final line:
      test.py on R-101-DCN (K3 30 launches, tensor cores), publish_model.py
      (the published file's detections bit-identical to the checkpoint's);
      each step's wall time.
+ 25. data parallel (`htd_tpu_torch.parallel`): (a) R-50 bf16 training on
+     phase 12's batch over NCCL at world size 1 in this process (K1 1,
+     K2 3, K4 3, K7 3 launches per step; one all-reduce and NCCL's kernel
+     in a profiled step; warm steps with and without the group; a float32
+     step with injected samples within phase 14's limits of the step
+     without a group), and two NCCL ranks on one card refused by NCCL;
+     (b) two gloo ranks spawned on the card, batch 2 each: 4 steps with
+     the launches checked, the parameters bit-identical across the ranks
+     after each, step medians, the packed vector's size and its
+     all-reduce's time by events (gloo's host path); a float32 step per
+     rank with its own injected samples within phase 14's limits of the
+     mean of the two halves' gradients and the SGD step computed here;
+     (c) `evaluate_dataset` over two gloo ranks on phase 23's mini-COCO
+     at batch 8 per rank: metrics and gathered detections bit-identical
+     to one process's at batch 8 (cuDNN's heuristics in both), against
+     phase 23's autotuned metrics too; (d) `torchrun --standalone
+     --nproc_per_node 2 tools_torch/train.py --distributed --dist-backend
+     gloo` (one epoch; one checkpoint and one log, by rank 0, no line
+     twice) and tools_torch/test.py --chips 2 against --chips 1 at the
+     same per-rank batch (metrics within one unit of the 4th place).
 Every forward launches K7 3 times (one per FPN top-down add), whatever its
 batch. It needs CUDA: with no GPU, or run outside the repository, it fails.
 """
@@ -164,7 +184,13 @@ TOOLS_TRAIN_IMAGES = 8     # phase 24 trains on this many of them, half landscap
 # phase 24: the resumed run's first logged losses (4 places) against the
 # uninterrupted run's at the same step
 RESUME_LIMIT = 1e-3
+GLOO_STEPS = 4             # phase 25 (b): train steps per rank, the first cold
+# phase 25: the tools print metrics to 4 places; two runs agree within one unit
+METRIC_LIMIT = 1e-4
+RANK_JOIN_S = 600          # phase 25: the longest a group of spawned ranks may take
 TRAIN_BUCKET = (800, 1344)
+DEVICE_TIME_TRACES = 3      # traces `device_times` takes before it fails on a launch count
+SMALL_STEP_HW = (192, 288)  # phases 14, 18 and 25: the float32 reference step's batch
 TRAIN_IMG_SHAPES = [(800, 1333), (750, 1344)]
 # seeded gts of the training batch: (x1, y1, w, h) in px, several scales
 TRAIN_GTS = [[(100, 80, 420, 380), (600, 150, 160, 220), (900, 500, 60, 45),
@@ -202,37 +228,60 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_times(fn, keys=(), iters: int = 20, cold: bool = False) -> dict:
-    """Device time of fn() in ms: the summed device time of the kernels
-    and copies that `iters` runs launch, from a `torch.profiler` trace,
-    over `iters` ("all"), and of the kernels whose names contain each of
-    `keys`. Unlike `cuda_ms` it leaves out the host's dispatch, which sets
-    the pace of a short call launched from Python. With `cold`, a 256 MB
-    `bitwise_not_` before each run evicts the 50 MB L2 cache, so that a
-    byte-bound call reads its inputs from device memory; its own kernels
-    are left out of the sums."""
+def device_times(fn, keys=None, iters: int = 20, cold: bool = False) -> dict:
+    """Device time of one fn() in ms from a `torch.profiler` trace of
+    `iters` runs: of all the kernels and copies it launches ("all"), and of
+    those whose names contain each key of `keys` ({key: launches per fn()
+    call}). Unlike `cuda_ms` it leaves out the host's dispatch, which sets
+    the pace of a short call launched from Python.
+
+    The profiler loses some launches' records (on the H100 late in this
+    script: one K4 call of 10 in every trace, whatever the spins around
+    the loop; once a whole trace of 115 K3 launches), so each kernel's
+    time is its mean over the launches the trace holds, times its
+    launches per call (its count over `iters`, rounded). A trace whose
+    counts, so rounded, give a key other launches per call than `keys`
+    says is taken again, and after DEVICE_TIME_TRACES such traces the call
+    fails; records lost are reported. With `cold`, a 256 MB `bitwise_not_`
+    before each run evicts the 50 MB L2 cache, so that a byte-bound call
+    reads its inputs from device memory; its own kernels are left out."""
     from torch.profiler import ProfilerActivity, profile
 
+    keys = keys or {}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if cold:
-                flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith("htd.") and "bitwise_not" not in e.key]
-    out = {"all": sum(e.device_time_total for e in events) / iters / 1e3}
+    for _ in range(DEVICE_TIME_TRACES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if cold:
+                    flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("htd.") and "bitwise_not" not in e.key]
+        per_call = {e.key: round(e.count / iters) for e in events}
+        got = {k: sum(n for name, n in per_call.items() if k in name) for k in keys}
+        if got == keys:
+            break
+        print(f"  device_times: the trace gives {got} launches per call, not {keys}; traced again")
+    else:
+        fail(f"device_times: {DEVICE_TIME_TRACES} traces gave {got} launches per call, not {keys}")
+    caught = {k: sum(e.count for e in events if k in e.key) for k in keys}
+    if any(caught[k] != iters * n for k, n in keys.items()):
+        print(f"  device_times: the trace holds {caught} of {iters} x {keys} launches; means over "
+              f"the launches it holds")
+    ms = {e.key: e.device_time_total / e.count * per_call[e.key] / 1e3 for e in events}
+    out = {"all": sum(ms.values())}
     for key in keys:
-        out[key] = sum(e.device_time_total for e in events if key in e.key) / iters / 1e3
+        out[key] = sum(v for name, v in ms.items() if key in name)
     return out
 
 
 def device_ms(fn, iters: int = 20, cold: bool = False) -> float:
     """`device_times(fn)["all"]`: the device time of one fn() in ms."""
-    return device_times(fn, (), iters, cold)["all"]
+    return device_times(fn, None, iters, cold)["all"]
 
 
 def interleaved_ms(fns: dict, iters: int = INTERLEAVED):
@@ -763,7 +812,8 @@ def dcn_phases(imgs, card):
     k3["device_ms"] = 0.0
     for st, d in per_stage.items():
         d["device_ms"] = device_times(lambda: [deform_conv2d(*a) for a in d["args"]],
-                                      ("deform_conv_fwd",), iters=5)["deform_conv_fwd"]
+                                      {"deform_conv_fwd": len(d["args"])},
+                                      iters=5)["deform_conv_fwd"]
         k3["device_ms"] += d["device_ms"]
     # what bounds K3: the same launches with every sample outside the image
     # (all corner weights 0, so no corner is loaded) leave the weight tiles,
@@ -771,7 +821,8 @@ def dcn_phases(imgs, card):
     for st, d in per_stage.items():
         far = [(a[0], torch.full_like(a[1], 1e4)) + a[2:] for a in d["args"]]
         d["no_sampling_ms"] = device_times(lambda: [deform_conv2d(*a) for a in far],
-                                           ("deform_conv_fwd",), iters=5)["deform_conv_fwd"]
+                                           {"deform_conv_fwd": len(far)},
+                                           iters=5)["deform_conv_fwd"]
         del far
     print("K3 per stage: " + "; ".join(
         f"{st} {d['n']} launches, device {d['device_ms']:.3f} ms ({d['device_ms'] / d['n'] * 1e3:.1f} "
@@ -932,25 +983,15 @@ def injected_overrides(cfg, n_anchors: int, img_shape, seed: int = 0):
     return {k: torch.from_numpy(v) for k, v in ov.items()}
 
 
-def train_card_vs_cpu(preset, prepare=None, backbone_limit: float = 1e-3,
-                      dcn_limit: float = 1e-3, faults=()) -> None:
-    """One float32 train step (TF32 off) of `preset()` at full depth and
-    width on the card and on the CPU, the same seeded weights (then
-    `prepare(model)` on both), a 2 x 192x288 batch and the same injected
-    samples; sampler blocks cut to 128 rois so that the CPU step stays
-    short. Deformable convs run K3 / K5 / K6 on the card and the plain
-    versions on the CPU. Gradients and updates are held to 1e-3 of each
-    leaf's scale; the deformable convs' leaves to `dcn_limit` and the
-    backbone's other leaves to `backbone_limit`, each group reported on
-    its own. `faults`: (name, context manager) pairs, each a fault planted
-    in the CPU step; the card's gradients are held against the CPU's under
-    each fault too, and the check fails unless every fault takes some
-    leaves over their limit (a control that the limits still catch such a
-    fault at this size)."""
+def small_step_inputs(preset, seed: int = 3, ov_seed: int = 0):
+    """Phase 14's float32 step at full depth and width: `preset()` with the
+    sampler blocks cut to 128 rois (so that a CPU step stays short), a 2 x
+    192x288 batch drawn from `seed` and injected samples from `ov_seed`.
+    Returns (cfg, batch, overrides)."""
     import dataclasses
 
     from htd_tpu_torch.config import ProposalConfig, SamplerConfig
-    from htd_tpu_torch.train.train_step import TrainBatch, create_train_state, train_step
+    from htd_tpu_torch.train.train_step import TrainBatch
 
     base = preset()
     tc = dataclasses.replace(
@@ -958,8 +999,8 @@ def train_card_vs_cpu(preset, prepare=None, backbone_limit: float = 1e-3,
         rcnn=tuple(dataclasses.replace(st, sampler=SamplerConfig(128, 0.25, True))
                    for st in base.train.rcnn))
     cfg = base.replace(train=tc)
-    rng = np.random.RandomState(3)
-    h, w = 192, 288
+    rng = np.random.RandomState(seed)
+    h, w = SMALL_STEP_HW
     boxes = np.zeros((2, tc.max_gt, 4), np.float32)
     boxes[:, :3] = [[10, 12, 70, 90], [120, 40, 250, 170], [200, 140, 236, 180]]
     valid = np.zeros((2, tc.max_gt), bool)
@@ -969,7 +1010,74 @@ def train_card_vs_cpu(preset, prepare=None, backbone_limit: float = 1e-3,
                        torch.from_numpy(rng.randint(0, 80, (2, tc.max_gt)).astype(np.int32)),
                        torch.from_numpy(valid))
     cells = sum(-(-h // st) * -(-w // st) for st in (4, 8, 16, 32)) + -(-h // 64) * -(-w // 64)
-    ov = injected_overrides(cfg, 3 * cells, (h, w))
+    return cfg, batch, injected_overrides(cfg, 3 * cells, (h, w), seed=ov_seed)
+
+
+def leaf_errors(a, b, refs, slack):
+    """Per leaf, the error beyond `slack` relative to the leaf's largest
+    reference value (floored at 1e-4 of the largest over all leaves)."""
+    scale = max(float(v.abs().max()) for v in refs.values())
+    return {n: float(((a[n] - b[n]).abs() - slack(b[n])).clamp(min=0).max())
+            / max(float(refs[n].abs().max()), 1e-4 * scale) for n in refs}
+
+
+def error_summary(errs, group):
+    """A line with, per group (`group(name)` gives a leaf's group and its
+    limit), its largest error, the worst leaf and the limit; the leaves
+    over their group's limit."""
+    worst = {}
+    for n, e in errs.items():
+        key = group(n)
+        if e >= worst.get(key, (-1.0, ""))[0]:
+            worst[key] = (e, n)
+    line = "; ".join(f"{name} ({sum(group(n)[0] == name for n in errs)} leaves) {e:.3g} "
+                     f"at {leaf} (limit {limit:g})"
+                     for (name, limit), (e, leaf) in sorted(worst.items()))
+    return line, [n for n in errs if errs[n] > group(n)[1]]
+
+
+def hold_step(got, ref, before, group):
+    """Phase 14's comparison of a float32 train step `got` = (loss terms,
+    gradients, parameters after) with `ref`, from the parameters `before`:
+    the loss terms' largest relative error (limit 1e-4), and per group of
+    leaves the gradients (relative to the leaf's largest gradient) and the
+    parameters after the SGD step (beyond two float32 ulps of the
+    parameter, relative to the leaf's largest update; a parameter moves by
+    about 1e-6 of itself in one step). Returns (loss error, gradient line,
+    update line, leaves over their limit)."""
+    (mg, gg, pg), (mc, gc, pc) = got, ref
+    loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc)
+    if set(gg) != set(gc) or not gg:
+        fail("the two steps trained different parameters")
+    g_line, g_over = error_summary(leaf_errors(gg, gc, gc, torch.zeros_like), group)
+    ulps = lambda v: 2 * (torch.nextafter(v.abs(), torch.tensor(math.inf)) - v.abs())  # noqa: E731
+    steps = {n: pc[n] - before[n] for n in gc}
+    d_line, d_over = error_summary(leaf_errors(pg, pc, steps, ulps), group)
+    return loss_err, g_line, d_line, g_over + d_over
+
+
+def r50_group(n):
+    return ("backbone", 1e-3) if n.startswith("backbone.") else ("rest", 1e-3)
+
+
+def train_card_vs_cpu(preset, prepare=None, backbone_limit: float = 1e-3,
+                      dcn_limit: float = 1e-3, faults=()) -> None:
+    """One float32 train step (TF32 off) of `preset()` at full depth and
+    width on the card and on the CPU, the same seeded weights (then
+    `prepare(model)` on both), `small_step_inputs`' batch and injected
+    samples. Deformable convs run K3 / K5 / K6 on the card and the plain
+    versions on the CPU. Gradients and updates are held to 1e-3 of each
+    leaf's scale (`hold_step`); the deformable convs' leaves to `dcn_limit`
+    and the backbone's other leaves to `backbone_limit`, each group
+    reported on its own. `faults`: (name, context manager) pairs, each a
+    fault planted in the CPU step; the card's gradients are held against
+    the CPU's under each fault too, and the check fails unless every fault
+    takes some leaves over their limit (a control that the limits still
+    catch such a fault at this size)."""
+    from htd_tpu_torch.train.train_step import create_train_state, train_step
+
+    cfg, batch, ov = small_step_inputs(preset)
+    h, w = SMALL_STEP_HW
     dcn_leaves = set()
 
     def step(dev):
@@ -990,7 +1098,6 @@ def train_card_vs_cpu(preset, prepare=None, backbone_limit: float = 1e-3,
 
     mg, gg, _, pg = step("cuda")
     mc, gc, before, pc = step("cpu")
-    loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc)
     if set(gg) != set(gc) or not gg:
         fail("the card and the CPU trained different parameters")
     zero = [n for n in dcn_leaves if n not in gc or not gc[n].abs().max() > 0]
@@ -1002,45 +1109,18 @@ def train_card_vs_cpu(preset, prepare=None, backbone_limit: float = 1e-3,
             return "DCN", dcn_limit
         return ("backbone", backbone_limit) if n.startswith("backbone.") else ("rest", 1e-3)
 
-    def leaf_errors(a, b, refs, slack):
-        """Per leaf, the error beyond `slack` relative to the leaf's largest
-        reference value (floored at 1e-4 of the largest over all leaves)."""
-        scale = max(float(v.abs().max()) for v in refs.values())
-        return {n: float(((a[n] - b[n]).abs() - slack(b[n])).clamp(min=0).max())
-                / max(float(refs[n].abs().max()), 1e-4 * scale) for n in refs}
-
-    def summary(errs):
-        """A line with, per group (DCN leaves, the backbone's other leaves,
-        the rest), its largest error, the worst leaf and the limit; the
-        leaves over their group's limit."""
-        worst = {}
-        for n, e in errs.items():
-            key = group(n)
-            if e >= worst.get(key, (-1.0, ""))[0]:
-                worst[key] = (e, n)
-        line = "; ".join(f"{name} ({sum(group(n)[0] == name for n in errs)} leaves) {e:.3g} "
-                         f"at {leaf} (limit {limit:g})"
-                         for (name, limit), (e, leaf) in sorted(worst.items()))
-        return line, [n for n in errs if errs[n] > group(n)[1]]
-
-    g_line, g_over = summary(leaf_errors(gg, gc, gc, torch.zeros_like))
-    # a parameter moves by about 1e-6 of itself in one step, so the updated
-    # values are compared beyond two float32 ulps of the parameter, relative
-    # to the update
-    ulps = lambda v: 2 * (torch.nextafter(v.abs(), torch.tensor(math.inf)) - v.abs())
-    steps = {n: pc[n] - before[n] for n in gc}
-    d_line, d_over = summary(leaf_errors(pg, pc, steps, ulps))
+    loss_err, g_line, d_line, over = hold_step((mg, gg, pg), (mc, gc, pc), before, group)
     print(f"float32 train step, card vs CPU, 2 x {h}x{w}, injected samples: loss terms max rel "
           f"err {loss_err:.3g} (limit 1e-4; total {mc['loss']:.5f}); gradients of {len(gc)} "
           f"parameters, max err relative to the leaf's max |grad| by group: {g_line}; "
           f"parameters after the SGD step, max difference beyond two float32 ulps relative to "
           f"the leaf's largest update: {d_line}")
-    if loss_err > 1e-4 or g_over or d_over:
-        fail(f"the card's float32 train step disagrees with the CPU's: {(g_over + d_over)[:4]}")
+    if loss_err > 1e-4 or over:
+        fail(f"the card's float32 train step disagrees with the CPU's: {over[:4]}")
     for name, fault in faults:
         with fault:
             _, gf, _, _ = step("cpu")
-        f_line, f_over = summary(leaf_errors(gg, gf, gf, torch.zeros_like))
+        f_line, f_over = error_summary(leaf_errors(gg, gf, gf, torch.zeros_like), group)
         counts = {k: sum(group(n)[0] == k for n in f_over) for k in ("DCN", "backbone", "rest")}
         print(f"control, {name}: the card's gradients vs that CPU step's, by group: {f_line}; "
               f"leaves over their limit: {counts}")
@@ -1107,11 +1187,12 @@ def profile_step(state, batch, gen) -> None:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
-def counted_steps(state, batch, gen, n_dcn: int) -> dict:
-    """A training path's main path: TRAIN_STEPS train steps with the launch
-    counts set to 0 just before and read just after; every step must give
-    finite losses and launch each kernel as `step_launches(n_dcn)` says.
-    Returns the counts over the steps."""
+def counted_steps(state, batch, gen, n_dcn: int, group=None) -> dict:
+    """A training path's main path: TRAIN_STEPS train steps (over the
+    process `group` when given) with the launch counts set to 0 just
+    before and read just after; every step must give finite losses and
+    launch each kernel as `step_launches(n_dcn)` says. Returns the counts
+    over the steps."""
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
     from htd_tpu_torch.train.train_step import train_step
 
@@ -1123,7 +1204,7 @@ def counted_steps(state, batch, gen, n_dcn: int) -> dict:
                   "deform_conv_bwd_offset_weight_cc": 0}
     for i in range(TRAIN_STEPS):
         start, start_paths = dict(launch_counts), dict(path_counts)
-        metrics = train_step(state, batch, gen)
+        metrics = train_step(state, batch, gen, group=group)
         torch.cuda.synchronize()
         counts = {k: launch_counts[k] - start[k] for k in launch_counts}
         paths = {k: path_counts[k] - start_paths[k] for k in path_counts}
@@ -1251,7 +1332,7 @@ def train_phases(card):
         ms = cuda_ms(call)
         plain = cuda_ms(lambda: roi_align_backward_plain(geom, rois, lvls, g, *args),
                         iters=3, warmup=1)
-        dev = device_times(call, ("roi_align_bwd",), iters=10)
+        dev = device_times(call, {"roi_align_bwd": 1}, iters=10)
         d = call()
         # the buffer's zeroing and `_RoIAlign.backward`'s cast, also by events:
         # each takes far longer than its dispatch
@@ -1260,7 +1341,8 @@ def train_phases(card):
         cast_ev = cuda_ms(lambda: d.to(g.dtype))
         del d
         # probe: every sample outside the image (g read, tables built, no atomics)
-        outside = device_times(lambda: call(rois + OUTSIDE_PX), ("roi_align_bwd",), iters=10)
+        outside = device_times(lambda: call(rois + OUTSIDE_PX), {"roi_align_bwd": 1},
+                               iters=10)
         nbytes, ops, atomics, folded, distinct = k4_work(geom, rois, lvls, g, args[0], args[-1])
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
         kern = dev["roi_align_bwd"]
@@ -1634,7 +1716,8 @@ def dcn_train_phases(card, imgs):
     keys = ("deform_conv_bwd_input", "deform_conv_bwd_offset", "deform_conv_bwd_weight")
     dev = {k: 0.0 for k in keys + ("all", "gemm", "dcol_bytes")}
     for st, (n, _, _, args, gemm, dcol_bytes) in per_stage.items():
-        t = device_times(lambda: stage_backward(args), keys, iters=3)
+        t = device_times(lambda: stage_backward(args), dict.fromkeys(keys, len(args)),
+                         iters=3)
         t["gemm"], t["dcol_bytes"] = gemm, dcol_bytes
         for k in dev:
             dev[k] += t[k]
@@ -1654,7 +1737,8 @@ def dcn_train_phases(card, imgs):
         for label, fill in (("far", 1e4), ("zero", 0.0)):
             moved = [(x, torch.full_like(off, fill), w, g, stride, groups)
                      for x, off, w, g, stride, groups in args]
-            t = device_times(lambda: stage_backward(moved), keys, iters=3)
+            t = device_times(lambda: stage_backward(moved), dict.fromkeys(keys, len(moved)),
+                             iters=3)
             for k in keys:
                 probe[label, k] += t[k]
             del moved
@@ -1987,7 +2071,7 @@ def finite_metrics(label: str, metrics: dict) -> None:
 
 
 def eval_phase(card):
-    """Phase 23."""
+    """Phase 23; returns evaluate_dataset's metrics (the warm run's)."""
     import tempfile
 
     from htd_tpu_torch import evaluate_dataset, evaluate_proposals, htd_r50_1x, init_detector
@@ -2035,6 +2119,7 @@ def eval_phase(card):
         f"{k} {v:.4f}" for k, v in ar.items()))
     if not all(0.0 <= v <= 1.0 for v in ar.values()):
         fail(f"proposal recall outside [0, 1]: {ar}")
+    return metrics
 
 
 def write_png(path: str, img_bgr: np.ndarray) -> None:
@@ -2245,8 +2330,459 @@ def tools_phase(card):
     print(f"phase 24: {time.perf_counter() - t_phase:.2f} s in all ({card})")
 
 
+def spawn_ranks(fn, nprocs: int, *args) -> None:
+    """Run fn(rank, *args) in `nprocs` spawned processes and wait for all;
+    a rank's exception fails the phase, and so does a group that takes
+    longer than RANK_JOIN_S (its processes are killed)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.perf_counter() + RANK_JOIN_S
+    while not ctx.join(timeout=5):
+        if time.perf_counter() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            fail(f"{fn.__name__}: the ranks did not end within {RANK_JOIN_S} s")
+
+
+def join_group(rank: int, world_size: int, rendezvous: str, backend: str = "gloo"):
+    """A spawned rank of phase 25: the kernels loaded (phase 2 built them),
+    the parent's TF32 settings (off since phase 4), the default process
+    group joined at the file `rendezvous`, rank r on cuda:(r mod the card
+    count)."""
+    from htd_tpu_torch.ops import _build
+    from htd_tpu_torch.parallel import init_distributed
+
+    torch.set_num_threads(2)
+    _build.load()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return init_distributed(backend, f"file://{rendezvous}", rank=rank, world_size=world_size,
+                            local_rank=rank)
+
+
+def identical_across_ranks(model) -> bool:
+    """Whether every rank holds rank 0's parameters bit for bit."""
+    import torch.distributed as dist
+
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    same = torch.tensor([int(torch.equal(ref, flat))], device=flat.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    return bool(same.item())
+
+
+def float32_step(state, batch, ov, group=None):
+    """One train step with injected samples: (loss terms, gradients,
+    parameters after) on the CPU, and the parameters before."""
+    from htd_tpu_torch.train.train_step import train_step
+
+    before = {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}
+    metrics = train_step(state, batch, overrides=ov, group=group)
+    grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()
+             if p.grad is not None}
+    after = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    return ({k: float(v) for k, v in metrics.items()}, grads, after), before
+
+
+def nccl_refusal_rank(rank: int, root: str) -> None:
+    """Phase 25 (a): two NCCL ranks on one card; records the error that
+    NCCL raises at the first collective (the refusal is the expected
+    outcome: the parent fails the phase if no rank saw one)."""
+    import torch.distributed as dist
+
+    join_group(rank, 2, f"{root}/nccl2", "nccl")
+    x = torch.ones(8, device="cuda")
+    error = None
+    try:
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - the outcome under test
+        error = f"{type(e).__name__}: {str(e).splitlines()[0]}; " + " ".join(
+            line for line in str(e).splitlines() if "Duplicate GPU" in line)
+    dist.destroy_process_group()
+    with open(f"{root}/nccl2_{rank}.json", "w") as f:
+        json.dump({"error": error}, f)
+
+
+def nccl_phase(card: str, root: str) -> None:
+    """Phase 25 (a): the data-parallel step over NCCL at world size 1 in
+    this process; NCCL refusing two ranks on one card."""
+    import torch.distributed as dist
+
+    from htd_tpu_torch.parallel import init_distributed
+
+    print("(a) NCCL at world size 1, this process, R-50 bf16, phase 12's batch")
+    init_distributed("nccl", f"file://{root}/nccl1", rank=0, world_size=1, local_rank=0)
+    try:
+        nccl_world_of_one(card, dist.group.WORLD)
+    finally:
+        # a live NCCL group holds the process at exit for minutes
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    spawn_ranks(nccl_refusal_rank, 2, root)
+    errors = []
+    for r in range(2):
+        with open(f"{root}/nccl2_{r}.json") as f:
+            errors.append(json.load(f)["error"])
+    print(f"two NCCL ranks on one card: {errors}")
+    if not all(errors):
+        fail("NCCL ran a collective of two ranks on one card")
+
+
+def nccl_world_of_one(card: str, group) -> None:
+    """Phase 25 (a) in this process's NCCL group of one: the counted bf16
+    steps, a profiled step, warm step times with and without the group,
+    and a float32 step held to the step without a group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from htd_tpu_torch import htd_r50_1x
+    from htd_tpu_torch.parallel import broadcast_parameters
+    from htd_tpu_torch.train.train_step import create_train_state, train_step
+
+    torch.backends.cudnn.benchmark = True
+    cfg = htd_r50_1x(compute_dtype="bfloat16")
+    state = create_train_state(cfg, seed=0)
+    broadcast_parameters(state.model, 0, group)
+    batch = train_batch(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    counted_steps(state, batch, gen, 0, group=group)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_step(state, batch, gen, group=group)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # the host's record of the collective; NCCL's kernel (at one rank its
+    # one-rank reduction, `onerank.cu`)
+    host = sum(e.count for e in events if e.key == "nccl:all_reduce"
+               and e.device_type == torch.autograd.DeviceType.CPU)
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("nccl:")
+               and ("nccl" in e.key.lower() or "onerank" in e.key.lower())]
+    print(f"profile of one step: nccl:all_reduce x{host} on the host; NCCL's kernels: " + "; ".join(
+        f"{e.key[:90]} x{e.count} device {e.device_time_total / 1e3:.3f} ms"
+        for e in kernels) + f" ({card})")
+    if host != 1 or sum(e.count for e in kernels) != 1:
+        fail("the profiled step holds not one NCCL all-reduce and its kernel")
+    times = {}
+    for label, grp in (("with the group", group), ("without a group", None),
+                       ("with the group", group), ("without a group", None)):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(state, batch, gen, group=grp)
+            torch.cuda.synchronize()
+            times.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+    print("warm step medians, in turns of 3: " + "; ".join(
+        f"{k} {statistics.median(v):.2f} ms" for k, v in times.items()) + f" ({card})")
+    del state
+    torch.cuda.empty_cache()
+
+    cfg32, batch32, ov = small_step_inputs(htd_r50_1x)
+    got, before = float32_step(create_train_state(cfg32, seed=0), batch32, ov, group)
+    ref, _ = float32_step(create_train_state(cfg32, seed=0), batch32, ov)
+    loss_err, g_line, d_line, over = hold_step(got, ref, before, r50_group)
+    print(f"float32 step with injected samples, NCCL group of one vs no group: loss terms max "
+          f"rel err {loss_err:.3g} (limit 1e-4); gradients: {g_line}; parameters after the "
+          f"step: {d_line}")
+    if loss_err > 1e-4 or over:
+        fail(f"the step over NCCL disagrees with the step without a group: {over[:4]}")
+
+
+def gloo_train_rank(rank: int, root: str) -> None:
+    """Phase 25 (b): one of two gloo ranks on the card. GLOO_STEPS bf16
+    R-50 steps on its own batch of 2 (launches checked per step, the
+    parameters bit-identical across the ranks after each), then a float32
+    step with its own injected samples; leaves its record in `root`."""
+    import torch.distributed as dist
+
+    from htd_tpu_torch import htd_r50_1x
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+    from htd_tpu_torch.parallel import broadcast_parameters
+    from htd_tpu_torch.train import train_step as ts
+
+    join_group(rank, 2, f"{root}/gloo_train")
+    torch.backends.cudnn.benchmark = True
+    group = dist.group.WORLD
+    cfg = htd_r50_1x(compute_dtype="bfloat16")
+    state = ts.create_train_state(cfg, seed=0)
+    broadcast_parameters(state.model, 0, group)
+    batch = train_batch(cfg, seed=rank)
+    reduce = ts.all_reduce_mean_packed
+    rec = {"step_ms": [], "identical": [], "reduce_ms": [], "packed": []}
+
+    def timed(tensors, group=None):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = reduce(tensors, group)
+        end.record()
+        end.synchronize()
+        rec["reduce_ms"].append(start.elapsed_time(end))
+        rec["packed"].append(sum(t.numel() for t in tensors))
+        return out
+
+    ts.all_reduce_mean_packed = timed
+    for i in range(GLOO_STEPS):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = ts.train_step(state, batch, ts.step_generator(0, state.step, "cuda", rank, 2),
+                                group=group)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        counts = dict(launch_counts)
+        if counts != step_launches(0):
+            fail(f"rank {rank}: unexpected launches at step {i}: {counts}")
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            fail(f"rank {rank}: non-finite losses at step {i}")
+        rec["identical"].append(identical_across_ranks(state.model))
+    rec["loss"] = float(metrics["loss"])
+    ts.all_reduce_mean_packed = reduce
+    del state
+    torch.cuda.empty_cache()
+
+    cfg32, batch32, ov = small_step_inputs(htd_r50_1x, seed=3 + rank, ov_seed=rank)
+    state = ts.create_train_state(cfg32, seed=0)
+    broadcast_parameters(state.model, 0, group)
+    got, _ = float32_step(state, batch32, ov, group)
+    rec["f32_identical"] = identical_across_ranks(state.model)
+    if rank == 0:
+        torch.save(got, f"{root}/gloo_f32.pt")
+    with open(f"{root}/gloo_train{rank}.json", "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mean_of_halves_step(preset):
+    """Phase 25 (b)'s reference in this process: the float32 step of
+    `small_step_inputs` on the two ranks' halves, each rank's gradient
+    and loss terms apart, their mean, then the clip and the SGD step.
+    Returns ((loss terms, gradients, parameters after), parameters
+    before)."""
+    from htd_tpu_torch.train.optim import clip_gradients, lr_schedule
+    from htd_tpu_torch.train.train_step import create_train_state
+
+    halves = [small_step_inputs(preset, seed=3 + r, ov_seed=r) for r in range(2)]
+    cfg = halves[0][0]
+    state = create_train_state(cfg, seed=0)
+    model, opt = state.model, state.optimizer
+    before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    grads, terms = [], []
+    for _, batch, ov in halves:
+        opt.zero_grad(set_to_none=True)
+        losses = model.forward_train(batch.images, batch.img_shapes, batch.gt_boxes,
+                                     batch.gt_labels, batch.gt_valid, overrides=ov)
+        total = sum(v for k, v in losses.items() if "loss" in k)
+        total.backward()
+        grads.append({n: p.grad.detach().clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+        terms.append({"loss": total.item(), **{k: v.item() for k, v in losses.items()}})
+    for n, p in model.named_parameters():
+        if n in grads[0]:
+            p.grad = (grads[0][n] + grads[1][n]) / 2
+    clip_gradients(cfg.train, opt)
+    for pg in opt.param_groups:
+        pg["lr"] = lr_schedule(cfg.train, state.steps_per_epoch)(0)
+    opt.step()
+    metrics = {k: (terms[0][k] + terms[1][k]) / 2 for k in terms[0]}
+    mean = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    after = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    return (metrics, mean, after), before
+
+
+def gloo_train_phase(card: str, root: str) -> None:
+    """Phase 25 (b): two gloo ranks on the one card."""
+    from htd_tpu_torch import htd_r50_1x
+
+    print(f"(b) two gloo ranks on the card (spawned, file rendezvous), R-50 bf16, batch 2 per "
+          f"rank, {GLOO_STEPS} steps")
+    spawn_ranks(gloo_train_rank, 2, root)
+    recs = []
+    for r in range(2):
+        with open(f"{root}/gloo_train{r}.json") as f:
+            recs.append(json.load(f))
+        rec = recs[-1]
+        print(f"rank {r}: step median {statistics.median(rec['step_ms'][1:]):.2f} ms over steps "
+              f"2-{GLOO_STEPS} (first {rec['step_ms'][0]:.2f} ms); packed vector "
+              f"{rec['packed'][0]} float32 values ({rec['packed'][0] * 4 / 1e6:.1f} MB); its "
+              f"all-reduce by events, gloo's host path (copies to and from the host, the sum on "
+              f"the CPU; not NCCL's time): median {statistics.median(rec['reduce_ms']):.1f} ms "
+              f"({', '.join(f'{v:.1f}' for v in rec['reduce_ms'])}); launches per step as "
+              f"phase 12's; parameters bit-identical across the ranks after each step: "
+              f"{rec['identical']}, after the float32 step: {rec['f32_identical']} ({card})")
+        if not all(rec["identical"]) or not rec["f32_identical"]:
+            fail(f"rank {r}'s parameters differ from rank 0's")
+    if recs[0]["loss"] != recs[1]["loss"]:
+        fail("the ranks report different mean losses")
+    got = torch.load(f"{root}/gloo_f32.pt", weights_only=False)
+    ref, before = mean_of_halves_step(htd_r50_1x)
+    loss_err, g_line, d_line, over = hold_step(got, ref, before, r50_group)
+    print(f"float32 step, each rank its own half and injected samples, vs this process's mean "
+          f"of the two halves' gradients then the SGD step: loss terms max rel err "
+          f"{loss_err:.3g} (limit 1e-4); gradients: {g_line}; parameters after the step: "
+          f"{d_line}")
+    if loss_err > 1e-4 or over:
+        fail(f"the two-rank step disagrees with the mean of the halves: {over[:4]}")
+    torch.cuda.empty_cache()
+
+
+def gloo_eval_rank(rank: int, root: str) -> None:
+    """Phase 25 (c): one of two gloo ranks running `evaluate_dataset` on
+    phase 23's mini-COCO at batch 8."""
+    import torch.distributed as dist
+
+    from htd_tpu_torch import evaluate_dataset, htd_r50_1x, init_detector
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+
+    join_group(rank, 2, f"{root}/gloo_eval")
+    torch.backends.cudnn.benchmark = False
+    model = init_detector(htd_r50_1x(compute_dtype="bfloat16"), seed=0)
+    scale_scores(model)
+    os.makedirs(f"{root}/coco{rank}")
+    ds = SeededCoco(f"{root}/coco{rank}").dataset
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    metrics, dets = evaluate_dataset(model, ds, batch_size=8, log_every=0,
+                                     return_detections=True, group=dist.group.WORLD)
+    torch.cuda.synchronize()
+    torch.save({"metrics": metrics, "dets": dets, "launches": dict(launch_counts)},
+               f"{root}/gloo_eval{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def gloo_eval_phase(card: str, root: str, eval_metrics: dict) -> None:
+    """Phase 25 (c): `evaluate_dataset` over two gloo ranks against one
+    process."""
+    from htd_tpu_torch import evaluate_dataset, htd_r50_1x, init_detector
+
+    print("(c) evaluate_dataset over two gloo ranks, R-50 bf16, batch 8 per rank, phase 23's "
+          "mini-COCO")
+    # cuDNN's autotuner (on since phase 3) may pick other algorithms in
+    # another process; the ranks and this reference take its heuristics
+    torch.backends.cudnn.benchmark = False
+    with torch.inference_mode():
+        model = init_detector(htd_r50_1x(compute_dtype="bfloat16"), seed=0)
+        scale_scores(model)
+        os.makedirs(f"{root}/coco")
+        ds = SeededCoco(f"{root}/coco").dataset
+        ref, ref_dets = evaluate_dataset(model, ds, batch_size=8, log_every=0,
+                                         return_detections=True)
+        del model
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.empty_cache()
+    spawn_ranks(gloo_eval_rank, 2, root)
+    for r in range(2):
+        out = torch.load(f"{root}/gloo_eval{r}.pt", weights_only=False)
+        same = (list(out["dets"]) == list(ref_dets) and all(
+            np.array_equal(x, y) for k in ref_dets for x, y in zip(ref_dets[k], out["dets"][k])))
+        n = sum(len(v[1]) for v in out["dets"].values())
+        print(f"rank {r}: launches {out['launches']}; metrics {out['metrics']}; {n} gathered "
+              f"detections of {len(out['dets'])} images, bit-identical to one process's (same "
+              f"batches, cuDNN's heuristics in both): {same}")
+        if json.dumps(out["metrics"]) != json.dumps(ref) or not same:
+            fail(f"rank {r}'s evaluation differs from one process's")
+        expect_launches(f"rank {r}", out["launches"], {"pyramid_pack": 1, "roi_align": 3,
+                                                       "upsample_add": 3})
+    diff = max(abs(ref[k] - eval_metrics[k]) for k in ref
+               if math.isfinite(ref[k]) and math.isfinite(eval_metrics[k]))
+    print(f"one process with cuDNN's heuristics {ref}; phase 23 (autotuned) {eval_metrics}: "
+          f"largest difference {diff:.3g} (not held: other conv algorithms)")
+
+
+def tool_process(label: str, args, card: str):
+    """Run `args` (a command in this directory) as its own process; fails
+    on a non-zero exit. Returns its standard output."""
+    t0 = time.perf_counter()
+    done = subprocess.run(args, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=RANK_JOIN_S)
+    print(f"[{label}] {time.perf_counter() - t0:.2f} s, exit {done.returncode} ({card})")
+    if done.returncode != 0:
+        fail(f"{label} failed:\n{done.stdout[-2000:]}\n{done.stderr[-4000:]}")
+    return done.stdout
+
+
+def metrics_close(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(
+        abs(a[k] - b[k]) <= METRIC_LIMIT or (math.isnan(a[k]) and math.isnan(b[k])) for k in a)
+
+
+def torchrun_phase(card: str, root: str) -> None:
+    """Phase 25 (d): train.py under torchrun over two gloo ranks, test.py
+    with --chips 2 against --chips 1."""
+    import sys
+
+    print("(d) the tools: torchrun train.py over two gloo ranks, test.py --chips 2 vs --chips 1")
+    root = f"{root}/tools"
+    os.makedirs(root)
+    train_ann, val_ann, _ = png_coco(root)
+    work = f"{root}/dist"
+    out = tool_process("torchrun --standalone --nproc_per_node 2 train.py", [
+        sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+        "tools_torch/train.py", "--distributed", "--dist-backend", "gloo", "--config",
+        "htd_r50_1x", "--bf16", "--batch-size", "4", "--train-ann", train_ann, "--train-img", root,
+        "--work-dir", work, "--log-interval", "1", "--seed", "0", "--set",
+        "train.total_epochs=1"], card)
+    files = sorted(os.listdir(work))
+    with open(f"{work}/train.log.json") as f:
+        records = [json.loads(line) for line in f]
+    with open(f"{work}/train.log") as f:
+        log = f.read().splitlines()
+    printed = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    steps = TOOLS_TRAIN_IMAGES // 4
+    print(f"train.py: files {files}; {len(records)} log records (global batch 4, 2 per rank), "
+          f"printed once each: {printed == records}; losses {[r['loss'] for r in records]}; "
+          f"train.log {len(log)} lines, {len(set(log))} distinct")
+    if files != ["config.json", "epoch_1.pth", "train.log", "train.log.json"]:
+        fail(f"train.py under torchrun wrote {files}")
+    if [(r["epoch"], r["iter"]) for r in records] != [(1, i + 1) for i in range(steps)] \
+            or printed != records or len(log) != len(set(log)) \
+            or not all(math.isfinite(v) for r in records for v in r.values()):
+        fail(f"train.py under torchrun logged {records} and printed {printed}")
+    meta = torch.load(f"{work}/epoch_1.pth", map_location="cpu", weights_only=True)["meta"]
+    if (meta["step"], meta["epoch"]) != (steps, 1):
+        fail(f"epoch_1.pth meta {meta}")
+
+    test = [sys.executable, "tools_torch/test.py", "--config", "htd_r50_1x", "--bf16",
+            "--checkpoint", f"{work}/epoch_1.pth", "--ann", val_ann, "--img-root", root,
+            "--set", "rcnn_test.score_thr=0.0"]
+    two = json.loads(tool_process("test.py --chips 2 --batch-size 8", test + [
+        "--chips", "2", "--dist-backend", "gloo", "--batch-size", "8", "--dump",
+        f"{root}/two.json"], card).splitlines()[-1])
+    one = json.loads(tool_process("test.py --batch-size 4", test + [
+        "--batch-size", "4", "--dump", f"{root}/one.json"], card).splitlines()[-1])
+    with open(f"{root}/one.json") as f, open(f"{root}/two.json") as g:
+        same = f.read() == g.read()
+    print(f"test.py --chips 2 (4 images per rank and batch) {two}; --chips 1 at batch 4 {one}; "
+          f"dumps identical: {same}")
+    finite_metrics("test.py --chips 2", two)
+    if not metrics_close(two, one):
+        fail("test.py --chips 2 and --chips 1 disagree")
+
+
+def parallel_phase(card: str, eval_metrics: dict) -> None:
+    """Phase 25: data parallelism over torch.distributed."""
+    import tempfile
+
+    phase("25 data parallel: NCCL at world size 1, two gloo ranks on the card (training, "
+          "evaluation), the tools under torchrun")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        for part, fn in (("a", lambda: nccl_phase(card, root)),
+                         ("b", lambda: gloo_train_phase(card, root)),
+                         ("c", lambda: gloo_eval_phase(card, root, eval_metrics)),
+                         ("d", lambda: torchrun_phase(card, root))):
+            t0 = time.perf_counter()
+            fn()
+            print(f"phase 25 ({part}): {time.perf_counter() - t0:.2f} s")
+    print(f"phase 25: {time.perf_counter() - t_phase:.2f} s in all ({card})")
+
+
 def tta_eval_phases(card, pairs, k7_launches, imgs):
-    """Phases 20-23; returns the kernel records of K7 and K8."""
+    """Phases 20-23; returns the kernel records of K7 and K8, and phase
+    23's metrics."""
     from htd_tpu_torch import htd_r101_dcn_2x, init_detector
 
     k7_err, k7 = k7_phase(pairs, card)    # with autograd, for K7's gradients
@@ -2259,8 +2795,8 @@ def tta_eval_phases(card, pairs, k7_launches, imgs):
         k8_launches, k8 = fence_phase(model, imgs[0], cfg, card)
         tta_phase(model, stds, imgs, card)
         del model
-        eval_phase(card)
-    return [
+        eval_metrics = eval_phase(card)
+    return eval_metrics, [
         {"name": "upsample_add", "route": "cuda", "source": "htd_tpu_torch/csrc/upsample_add.cu",
          "replaces": "htd_tpu/ops/upsample.py:70", "launches": k7_launches,
          "max_abs_err": k7_err, "ms": k7["ms"], "plain_ms": k7["plain_ms"],
@@ -2402,10 +2938,10 @@ def main():
         else:
             plain = cuda_ms(lambda: roi_align_plain(pyr, rois, lvl, strides, 7, 0, s),
                             iters=3, warmup=1)
-        dev = device_times(call, ("roi_align_fwd",))
+        dev = device_times(call, {"roi_align_fwd": 1})
         # probe: the same rois moved past the image, so that every sample is
         # outside it: the geometry and the output writes alone
-        outside = device_times(lambda: call(rois + OUTSIDE_PX), ("roi_align_fwd",))
+        outside = device_times(lambda: call(rois + OUTSIDE_PX), {"roi_align_fwd": 1})
         nbytes, ops = k2_bound(pyr, rois, lvl, strides, s, all_lv)
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
         for key, v in (("ms", ms), ("plain_ms", plain), ("bytes_ms", b_ms), ("ops_ms", o_ms),
@@ -2451,14 +2987,17 @@ def run() -> None:
     """The inference phases 1-11 under `torch.inference_mode`, then the
     training phases 12-19 with autograd (models built in inference mode
     hold inference tensors, which autograd rejects), then phases 20-23
-    (TTA and evaluation), then the result."""
+    (TTA and evaluation), 24 (the tools) and 25 (data parallel), then the
+    result."""
     with torch.inference_mode():
         card, kind, kernels, t_start, k7_launches, pairs = main()
     kernels.append(train_phases(card))
     kernels.extend(dcn_train_phases(card, images()))
-    kernels.extend(tta_eval_phases(card, [(lo.clone(), la.clone()) for lo, la in pairs],
-                                   k7_launches, images()))
+    eval_metrics, records = tta_eval_phases(card, [(lo.clone(), la.clone()) for lo, la in pairs],
+                                            k7_launches, images())
+    kernels.extend(records)
     tools_phase(card)
+    parallel_phase(card, eval_metrics)
     print(f"kernel times are per image (K2: the sum of its 3 calls per request; K3: of its "
           f"30 launches per R-101-DCN request; K7: of its 3 launches per R-50 request; K8: one "
           f"launch on the largest fenced tensor) and per train step (K4: its 3 calls, R-50; K5, "

@@ -6,7 +6,10 @@ Counterpart of `htd_tpu/apis.py` (`init_detector`, `inference_detector`,
 `calibrate_dcn`; mmdet apis/inference.py and test.py). The model runs on
 CUDA unless the caller asks for the CPU with `device="cpu"`; with no
 device given and no GPU present the entry points raise rather than fall
-back. The JAX package's multi-chip `mesh=` evaluation is not ported yet.
+back. `evaluate_dataset(group=...)` evaluates over the ranks of a
+`torch.distributed` process group, one process per rank (the JAX
+package's `mesh=` and multi-host evaluation): batches dealt round-robin,
+detections gathered, every rank computing the metrics.
 """
 
 from __future__ import annotations
@@ -154,38 +157,73 @@ def evaluate_proposals(model: HTDDetector, dataset, batch_size: int = 8,
 @torch.inference_mode()
 def evaluate_dataset(model: HTDDetector, dataset, batch_size: int = 8,
                      scale: Optional[Tuple[int, int]] = None, max_images: Optional[int] = None,
-                     log_every: int = 50, return_detections: bool = False):
+                     log_every: int = 50, return_detections: bool = False, group=None):
     """COCO evaluation: batched bucket-padded inference (`simple_test`) over
     the dataset in orientation-homogeneous batches, then the COCO bbox
     metrics of `data.coco_eval.evaluate_coco_map` (mAP, mAP_50, mAP_75,
     mAP_s/m/l, AR@100). With `return_detections`, also img_id -> (boxes,
-    scores, labels) in original-image coordinates."""
+    scores, labels) in original-image coordinates.
+
+    With a process `group` (`torch.distributed`), rank r of n runs the
+    batches whose index is r mod n (`batch_size` is the rank's batch;
+    `max_images` counts the rank's images), every rank's detections are
+    padded to the same batch count with img_id -1 rows and gathered
+    (`parallel.gather_detections`), and every rank returns the metrics of
+    all of them (the reference's multi_gpu_test)."""
     from htd_tpu_torch.data.coco import grouped_batches, make_test_batch
     from htd_tpu_torch.data.coco_eval import evaluate_coco_map
+    from htd_tpu_torch.parallel.dist import gather_detections, max_over_ranks, world
 
     scale = scale or model.cfg.test_scale
     if model.cfg.roi_extractor.max_samples < 8:
         print(f"[eval] model built with the serving RoIAlign preset (roi_extractor.max_samples="
               f"{model.cfg.roi_extractor.max_samples}); for exact mmcv sampling_ratio=0 "
               f"accuracy build with max_samples=8", file=sys.stderr)
+    rank, size = world(group) if group is not None else (0, 1)
     detections: Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+    gathered = []
     seen = 0
     t0 = time.time()
-    for records in grouped_batches(dataset, batch_size, shuffle=False):
+    for bi, records in enumerate(grouped_batches(dataset, batch_size, shuffle=False)):
+        if bi % size != rank:
+            continue
         if max_images is not None and seen >= max_images:
             break
         images, shapes, sfs, ids = make_test_batch(dataset, records, scale=scale,
                                                    batch_size=batch_size, device=model.device)
         dets = model.simple_test(images, shapes, sfs)
         boxes, scores, labels, valid = (t.cpu().numpy() for t in dets)
+        if group is not None:
+            # the dtypes of the padding rows below, on every rank
+            gathered.append((boxes.astype(np.float32), scores.astype(np.float32),
+                             labels.astype(np.int32), valid.astype(bool), ids))
         for i, img_id in enumerate(ids):
             if img_id < 0:
                 continue
             m = valid[i]
             detections[int(img_id)] = (boxes[i][m], scores[i][m], labels[i][m])
             seen += 1
-        if log_every and seen % log_every < batch_size:
+        if log_every and seen % log_every < batch_size and rank == 0:
             print(f"[eval] {seen} imgs, {seen / max(time.time() - t0, 1e-9):.2f} img/s")
+    if group is not None:
+        # every rank pads to the same batch count, so that the gathered
+        # arrays have one shape
+        n_batches = max_over_ranks(len(gathered), group)
+        p = model.cfg.rcnn_test.max_per_img
+        while len(gathered) < n_batches:
+            gathered.append((np.zeros((batch_size, p, 4), np.float32),
+                             np.zeros((batch_size, p), np.float32),
+                             np.zeros((batch_size, p), np.int32),
+                             np.zeros((batch_size, p), bool), np.full(batch_size, -1, np.int64)))
+        boxes, scores, labels, valid, ids = gather_detections(
+            *(np.concatenate([g[j] for g in gathered]) for j in range(5)), group=group)
+        # rank r's k-th batch is batch k * size + r: back into the dataset's order
+        order = np.arange(len(ids)).reshape(size, n_batches, batch_size).transpose(1, 0, 2)
+        detections = {}
+        for i in order.reshape(-1):
+            if ids[i] >= 0:
+                m = valid[i]
+                detections[int(ids[i])] = (boxes[i][m], scores[i][m], labels[i][m])
     gt = {k: v for k, v in dataset.groundtruth().items() if k in detections}
     metrics = evaluate_coco_map(detections, gt, num_classes=len(dataset.cat_ids) or 80)
     return (metrics, detections) if return_detections else metrics

@@ -322,11 +322,24 @@ def _coerce(old, s: str):
     return s
 
 
+def _child(node, key: str):
+    return node[int(key)] if isinstance(node, tuple) else getattr(node, key)
+
+
+def _with_child(node, key: str, value):
+    if isinstance(node, tuple):
+        i = int(key)
+        return node[:i] + (value,) + node[i + 1:]
+    return dataclasses.replace(node, **{key: value})
+
+
 def apply_overrides(cfg: HTDConfig, options: "list[str]") -> HTDConfig:
-    """Apply 'dotted.path=value' overrides to a (frozen, nested) config.
+    """Apply 'dotted.path=value' overrides to a (frozen, nested) config; a
+    number in the path indexes a tuple of configs (`train.rcnn.0`).
 
     Example: apply_overrides(cfg, ["train.lr=0.01", "compute_dtype=bfloat16",
-    "train.lr_steps=16,22", "rcnn_test.use_soft_nms=true"]).
+    "train.lr_steps=16,22", "rcnn_test.use_soft_nms=true",
+    "train.rcnn.1.sampler.num=256"]).
     """
     for opt in options:
         path, _, raw = opt.partition("=")
@@ -334,13 +347,11 @@ def apply_overrides(cfg: HTDConfig, options: "list[str]") -> HTDConfig:
         # walk down collecting the dataclass chain
         chain = [cfg]
         for k in keys[:-1]:
-            chain.append(getattr(chain[-1], k))
-        leaf_parent = chain[-1]
-        old = getattr(leaf_parent, keys[-1])
-        new = _coerce(old, raw.strip())
-        node = dataclasses.replace(leaf_parent, **{keys[-1]: new})
+            chain.append(_child(chain[-1], k))
+        new = _coerce(_child(chain[-1], keys[-1]), raw.strip())
+        node = _with_child(chain[-1], keys[-1], new)
         for parent, k in zip(reversed(chain[:-1]), reversed(keys[:-1])):
-            node = dataclasses.replace(parent, **{k: node})
+            node = _with_child(parent, k, node)
         cfg = node
     return cfg
 

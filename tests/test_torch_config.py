@@ -60,3 +60,23 @@ def test_dump_config_matches_jax(preset):
     """The dump of every preset is the JAX package's, character for
     character."""
     assert PC.dump_config(getattr(PC, preset)()) == JC.dump_config(getattr(JC, preset)())
+
+
+@pytest.mark.parametrize("option,check", [
+    ("train.rcnn.0.sampler.num=32", lambda c: c.train.rcnn[0].sampler.num == 32
+     and c.train.rcnn[1].sampler.num == 512),
+    ("train.rcnn.1.assigner.pos_iou_thr=0.7", lambda c: c.train.rcnn[1].assigner.pos_iou_thr
+     == 0.7 and c.train.rcnn[0].assigner.pos_iou_thr == 0.5),
+    ("train.rcnn.1.sampler.add_gt_as_proposals=false",
+     lambda c: c.train.rcnn[1].sampler.add_gt_as_proposals is False),
+])
+def test_apply_overrides_indexes_tuples(option, check):
+    """The port's paths may index a tuple of configs (the JAX package's
+    cannot): only the indexed element changes, the others stay the
+    preset's, and the tuple stays a tuple."""
+    base = PC.htd_r50_1x()
+    cfg = PC.apply_overrides(base, [option])
+    assert check(cfg) and isinstance(cfg.train.rcnn, tuple)
+    assert len(cfg.train.rcnn) == len(base.train.rcnn)
+    with pytest.raises(IndexError):
+        PC.apply_overrides(base, ["train.rcnn.2.sampler.num=1"])
