@@ -127,6 +127,21 @@ script exits non-zero without its final line:
      gloo` (one epoch; one checkpoint and one log, by rank 0, no line
      twice) and tools_torch/test.py --chips 2 against --chips 1 at the
      same per-rank batch (metrics within one unit of the 4th place).
+ 26. JPEG and robustness: (a) the JPEG fixtures of tests/data/jpeg read by
+     the port's host decoder (csrc/jpeg_decode.cpp, built by the host's
+     C++ compiler) bit-equal to cv2.imread's pixels (the manifest's
+     SHA-256), the progressive one refused with ValueError, the host decode
+     time of the photo-sized ones; (b) tools_torch/test.py --eval bbox on a
+     mini-COCO of the four photo-sized JPEG files (K1 1, K2 3, K7 3 per
+     batch); (c) tools_torch/test_robustness.py, R-50 bf16 at batch 8, on
+     phase 24's PNG mini-COCO with the 10 ported corruptions at severities
+     0, 1, 3 and 5: every cell in its json, K1 1, K2 3, K7 3 launches per
+     batch in every cell, severity 0's detections bit-identical to
+     `evaluate_dataset`'s on the clean set with the same model, then
+     robustness_eval.py's P, mPC and rPC; (d) every ported corruption at
+     severities 1-5 on two seeded probe images against the SHA-256 of the
+     JAX package's outputs (tests/data/jpeg/corruptions.json), and each
+     corruption's host time per megapixel.
 Every forward launches K7 3 times (one per FPN top-down add), whatever its
 batch. It needs CUDA: with no GPU, or run outside the repository, it fails.
 """
@@ -134,6 +149,7 @@ batch. It needs CUDA: with no GPU, or run outside the repository, it fails.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -189,6 +205,9 @@ GLOO_STEPS = 4             # phase 25 (b): train steps per rank, the first cold
 METRIC_LIMIT = 1e-4
 RANK_JOIN_S = 600          # phase 25: the longest a group of spawned ranks may take
 TRAIN_BUCKET = (800, 1344)
+JPEG_DIR = "tests/data/jpeg"     # phase 26's fixtures and manifests
+PHOTO_DECODES = 5          # phase 26 (a): timed decodes of each photo-sized fixture
+ROBUST_SEVERITIES = (0, 1, 3, 5)   # phase 26 (c)
 DEVICE_TIME_TRACES = 3      # traces `device_times` takes before it fails on a launch count
 SMALL_STEP_HW = (192, 288)  # phases 14, 18 and 25: the float32 reference step's batch
 TRAIN_IMG_SHAPES = [(800, 1333), (750, 1344)]
@@ -237,12 +256,16 @@ def device_times(fn, keys=None, iters: int = 20, cold: bool = False) -> dict:
 
     The profiler loses some launches' records (on the H100 late in this
     script: one K4 call of 10 in every trace, whatever the spins around
-    the loop; once a whole trace of 115 K3 launches), so each kernel's
-    time is its mean over the launches the trace holds, times its
-    launches per call (its count over `iters`, rounded). A trace whose
-    counts, so rounded, give a key other launches per call than `keys`
-    says is taken again, and after DEVICE_TIME_TRACES such traces the call
-    fails; records lost are reported. With `cold`, a 256 MB `bitwise_not_`
+    the loop; once a whole trace of 115 K3 launches; a quarter of K5's
+    launches in three traces running), so each kernel's time is its mean
+    over the launches the trace holds, times its launches per call: the
+    count `keys` gives for a key that one kernel name matches, when the
+    trace holds at least one and at most that many of its launches per
+    run; else its count over `iters`, rounded. A trace that so gives a key
+    other launches per call than `keys` says (none held, more than
+    launched, or a key over several names that lost records) is taken
+    again, and after DEVICE_TIME_TRACES such traces the call fails;
+    records lost are reported. With `cold`, a 256 MB `bitwise_not_`
     before each run evicts the 50 MB L2 cache, so that a byte-bound call
     reads its inputs from device memory; its own kernels are left out."""
     from torch.profiler import ProfilerActivity, profile
@@ -262,6 +285,10 @@ def device_times(fn, keys=None, iters: int = 20, cold: bool = False) -> dict:
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and not e.key.startswith("htd.") and "bitwise_not" not in e.key]
         per_call = {e.key: round(e.count / iters) for e in events}
+        for k, n in keys.items():
+            named = [e for e in events if k in e.key]
+            if len(named) == 1 and 0 < named[0].count <= iters * n:
+                per_call[named[0].key] = n      # records are lost, never added
         got = {k: sum(n for name, n in per_call.items() if k in name) for k in keys}
         if got == keys:
             break
@@ -2449,20 +2476,25 @@ def nccl_world_of_one(card: str, group) -> None:
     batch = train_batch(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     counted_steps(state, batch, gen, 0, group=group)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train_step(state, batch, gen, group=group)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    # the host's record of the collective; NCCL's kernel (at one rank its
-    # one-rank reduction, `onerank.cu`)
-    host = sum(e.count for e in events if e.key == "nccl:all_reduce"
-               and e.device_type == torch.autograd.DeviceType.CPU)
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("nccl:")
-               and ("nccl" in e.key.lower() or "onerank" in e.key.lower())]
-    print(f"profile of one step: nccl:all_reduce x{host} on the host; NCCL's kernels: " + "; ".join(
-        f"{e.key[:90]} x{e.count} device {e.device_time_total / 1e3:.3f} ms"
-        for e in kernels) + f" ({card})")
+    # the profiler may lose the kernel's one record (see `device_times`):
+    # a step whose trace holds none is profiled again
+    for _ in range(DEVICE_TIME_TRACES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            train_step(state, batch, gen, group=group)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # the host's record of the collective; NCCL's kernel (at one rank its
+        # one-rank reduction, `onerank.cu`)
+        host = sum(e.count for e in events if e.key == "nccl:all_reduce"
+                   and e.device_type == torch.autograd.DeviceType.CPU)
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith("nccl:")
+                   and ("nccl" in e.key.lower() or "onerank" in e.key.lower())]
+        print(f"profile of one step: nccl:all_reduce x{host} on the host; NCCL's kernels: "
+              + "; ".join(f"{e.key[:90]} x{e.count} device {e.device_time_total / 1e3:.3f} ms"
+                          for e in kernels) + f" ({card})")
+        if kernels or host != 1:
+            break
     if host != 1 or sum(e.count for e in kernels) != 1:
         fail("the profiled step holds not one NCCL all-reduce and its kernel")
     times = {}
@@ -2780,6 +2812,215 @@ def parallel_phase(card: str, eval_metrics: dict) -> None:
     print(f"phase 25: {time.perf_counter() - t_phase:.2f} s in all ({card})")
 
 
+def probe_image(seed: int, h: int, w: int) -> np.ndarray:
+    """A seeded (h, w, 3) uint8 BGR image on which phase 26 (d) holds the
+    corruptions to their manifest: integer gradients and `RandomState`
+    noise, the same on every machine."""
+    r = np.random.RandomState(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    base = np.stack([(x * 5 + y * 2) % 256, (y * 3 + 40) % 256, (x * 2 + y * 7 + 90) % 256], -1)
+    return np.clip(base + r.randint(-40, 41, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def sha256(img: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def jpeg_coco(root: str, photos):
+    """A mini-COCO over the photo-sized fixtures: ann.json in `root` with
+    seeded boxes over categories 1-3, the images read from JPEG_DIR."""
+    rng = np.random.RandomState(1)
+    images, anns = [], []
+    for i, (name, (h, w)) in enumerate(photos):
+        images.append(dict(id=i + 1, file_name=name, height=h, width=w))
+        for _ in range(rng.randint(2, 6)):
+            bw, bh = rng.uniform(24, w / 2), rng.uniform(24, h / 2)
+            x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            anns.append(dict(id=len(anns) + 1, image_id=i + 1,
+                             category_id=int(rng.choice([1, 2, 3])),
+                             bbox=[x, y, bw, bh], area=bw * bh, iscrowd=0))
+    path = f"{root}/jpeg_ann.json"
+    with open(path, "w") as f:
+        json.dump(dict(images=images, annotations=anns, categories=[
+            dict(id=k, name=f"c{k}") for k in (1, 2, 3)]), f)
+    return path
+
+
+class RecordedEvaluations:
+    """Wraps `htd_tpu_torch.apis.evaluate_dataset` (the tools import it at
+    call time): each call runs with `return_detections=True` and the
+    launch counts set to 0 just before; records (model, dataset,
+    detections, counts, seconds) and returns the metrics alone."""
+
+    def __init__(self):
+        import htd_tpu_torch.apis as apis
+
+        self.apis, self.original, self.calls = apis, apis.evaluate_dataset, []
+
+    def __enter__(self):
+        from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+
+        def recorded(model, dataset, **kwargs):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics, dets = self.original(model, dataset, return_detections=True, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append((model, dataset, dets, dict(launch_counts),
+                               time.perf_counter() - t0))
+            return metrics
+
+        self.apis.evaluate_dataset = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.apis.evaluate_dataset = self.original
+
+
+def same_detections(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        all(np.array_equal(x, y) for x, y in zip(a[k], b[k])) for k in a)
+
+
+def robustness_phase(card: str) -> None:
+    """Phase 26: JPEG files read on the host, and corruption robustness."""
+    import tempfile
+
+    from htd_tpu_torch.data import corruptions as corr
+    from htd_tpu_torch.data.jpeg import read_jpeg
+    from htd_tpu_torch.ops import _build
+    from tools_torch import robustness_eval
+    from tools_torch import test as test_tool
+    from tools_torch import test_robustness
+
+    phase("26 main path: JPEG decoding on the host, and R-50 evaluation under corruption")
+    t_phase = time.perf_counter()
+    host = _build.build_host()
+    print(f"host library built from htd_tpu_torch/csrc/*.cpp in {host.seconds:.2f} s (fresh "
+          f"build: {host.built}) -> {host.path.parent.name}")
+
+    # (a) the fixtures against cv2.imread's pixels (the manifest's hashes)
+    jdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), JPEG_DIR)
+    with open(f"{jdir}/manifest.json") as f:
+        manifest = json.load(f)
+    for name, want in manifest.items():
+        path = f"{jdir}/{name}"
+        if "raises" in want:
+            try:
+                read_jpeg(path)
+            except ValueError as e:
+                print(f"[jpeg] {name}: ValueError as expected ({e})")
+                continue
+            fail(f"{name}: the port decoded a file it must refuse")
+        img = read_jpeg(path)
+        if list(img.shape) != want["shape"] or sha256(img) != want["sha256"]:
+            fail(f"{name}: decoded {img.shape}, not cv2.imread's pixels {want}")
+    photos = sorted(n for n in manifest if n.startswith("photo"))
+    t0 = time.perf_counter()
+    pixels = 0
+    for _ in range(PHOTO_DECODES):
+        for name in photos:
+            pixels += read_jpeg(f"{jdir}/{name}").shape[0] * manifest[name]["shape"][1]
+    dt = time.perf_counter() - t0
+    n = PHOTO_DECODES * len(photos)
+    print(f"[jpeg] {len(manifest) - 1} fixtures bit-equal to cv2.imread's pixels (SHA-256 of "
+          f"the manifest), the progressive one refused; host decode of the {len(photos)} "
+          f"photo-sized files (x{PHOTO_DECODES}): {1e3 * dt / n:.2f} ms per image, "
+          f"{pixels / dt / 1e6:.2f} MP/s on the host ({card})")
+
+    with tempfile.TemporaryDirectory() as root:
+        # (b) test.py on a JPEG mini-COCO
+        ann = jpeg_coco(root, [(n, tuple(manifest[n]["shape"][:2])) for n in photos])
+        land = sum(manifest[n]["shape"][1] >= manifest[n]["shape"][0] for n in photos)
+        n_batches = -(-land // 8) + -(-(len(photos) - land) // 8)
+        metrics, counts = tool_run("test.py --eval bbox on the JPEG mini-COCO", lambda:
+                                   test_tool.main(["--config", "htd_r50_1x", "--bf16", "--ann",
+                                                   ann, "--img-root", jdir, "--eval", "bbox",
+                                                   "--set", "rcnn_test.score_thr=0.0"]), card)
+        finite_metrics("test.py on JPEG files", metrics)
+        expect_launches("test.py on JPEG files", counts, {
+            "pyramid_pack": n_batches, "roi_align": 3 * n_batches,
+            "upsample_add": 3 * n_batches})
+        print(f"test.py, R-50 bf16, {len(photos)} JPEG files in {n_batches} batches: {metrics}")
+
+        # (c) test_robustness.py on phase 24's PNG mini-COCO
+        _, val_ann, _ = png_coco(root)
+        out = f"{root}/robustness.json"
+        with RecordedEvaluations() as rec:
+            _, counts = tool_run("test_robustness.py", lambda: test_robustness.main([
+                "--config", "htd_r50_1x", "--bf16", "--ann", val_ann, "--img-root", root,
+                "--out", out, "--corruptions", *corr.PORTED_CORRUPTIONS, "--severities",
+                *map(str, ROBUST_SEVERITIES), "--set", "rcnn_test.score_thr=0.0"]), card)
+        with open(out) as f:
+            cells = json.load(f)
+        missing = [(c, s) for c in corr.PORTED_CORRUPTIONS for s in ROBUST_SEVERITIES
+                   if str(s) not in cells.get(c, {})]
+        if missing:
+            fail(f"test_robustness.py wrote no cell for {missing}")
+        model, clean, clean_dets, _, clean_s = rec.calls[0]
+        n_land = sum(r.landscape for r in clean.records)
+        n_batches = -(-n_land // 8) + -(-(len(clean) - n_land) // 8)
+        want = {"pyramid_pack": n_batches, "roi_align": 3 * n_batches,
+                "upsample_add": 3 * n_batches}
+        for i, (_, ds, _, c, _) in enumerate(rec.calls):
+            expect_launches(f"test_robustness.py cell {i} ({getattr(ds, 'corruption', 'clean')}"
+                            f" {getattr(ds, 'severity', 0)})", c, want)
+        n_cells = 1 + len(corr.PORTED_CORRUPTIONS) * (len(ROBUST_SEVERITIES) - 1)
+        if len(rec.calls) != n_cells:
+            fail(f"test_robustness.py evaluated {len(rec.calls)} cells, not {n_cells}")
+        from htd_tpu_torch.apis import evaluate_dataset
+
+        _, dets = evaluate_dataset(model, clean, batch_size=8, log_every=0,
+                                   return_detections=True)
+        n_dets = sum(len(v[1]) for v in dets.values())
+        if not same_detections(dets, clean_dets) or n_dets == 0:
+            fail("severity 0's detections differ from evaluate_dataset's on the clean set")
+        print(f"{n_cells} cells ({len(corr.PORTED_CORRUPTIONS)} corruptions x severities "
+              f"{ROBUST_SEVERITIES[1:]}, severity 0 once), {len(clean)} PNG images at batch 8, "
+              f"K1 {n_batches}, K2 {3 * n_batches}, K7 {3 * n_batches} launches per cell; "
+              f"severity 0: {n_dets} detections bit-identical to evaluate_dataset's on the "
+              f"clean set with the same model")
+        t0 = time.perf_counter()
+        megapixels = sum(clean.load_image(r).size for r in clean.records) / 3e6
+        decode_s = time.perf_counter() - t0
+        by_name = {}
+        for _, ds, _, _, sec in rec.calls[1:]:
+            by_name.setdefault(ds.corruption, []).append(round(sec, 2))
+        print(f"cell wall s (host clock, evaluate_dataset with its image loads): clean "
+              f"{clean_s:.2f}, of which {decode_s:.2f} s decode the {len(clean)} PNG files "
+              f"({megapixels:.2f} MP) on the host; per corruption at severities "
+              f"{ROBUST_SEVERITIES[1:]}: {by_name} ({card})")
+        printed, _ = tool_run("robustness_eval.py", lambda: robustness_eval.main(
+            [out, "--prints", "P", "mPC", "rPC", "--aggregate", "all"]), card)
+        for key in ("P", "mPC"):
+            finite_metrics(f"robustness_eval.py {key}", printed[key])
+        print(f"robustness_eval.py: P {printed['P']}; mPC {printed['mPC']}; rPC "
+              f"{printed['rPC']} (random weights: NaN where P is 0)")
+
+    # (d) the corruptions on this host against the JAX package's outputs
+    with open(f"{jdir}/corruptions.json") as f:
+        ref = json.load(f)
+    probes = [probe_image(*p) for p in ref["probes"]]
+    bad = [(name, sev, i) for name, by_sev in ref["sha256"].items()
+           for sev, hashes in by_sev.items() for i, (img, h) in enumerate(zip(probes, hashes))
+           if sha256(corr.corrupt(img, name, int(sev), seed=ref["seed"])) != h]
+    if bad or sorted(ref["sha256"]) != sorted(corr.PORTED_CORRUPTIONS):
+        fail(f"corruptions differ from the JAX package's outputs: {bad}")
+    imgs = [read_jpeg(f"{jdir}/{n}") for n in photos]
+    mp = sum(im.shape[0] * im.shape[1] for im in imgs) / 1e6
+    times = {}
+    for name in corr.PORTED_CORRUPTIONS:
+        t0 = time.perf_counter()
+        for k, im in enumerate(imgs):
+            corr.corrupt(im, name, 3, seed=k)
+        times[name] = round(1e3 * (time.perf_counter() - t0) / mp, 1)
+    print(f"[corruptions] {len(ref['sha256'])} corruptions x severities 1-5 x {len(probes)} "
+          f"probe images ({', '.join(f'{h}x{w}' for _, h, w in ref['probes'])}) bit-equal to "
+          f"the JAX package's outputs (SHA-256 of the manifest); host ms per MP at severity 3 "
+          f"on the photo-sized fixtures: {times} ({card})")
+    print(f"phase 26: {time.perf_counter() - t_phase:.2f} s in all ({card})")
+
+
 def tta_eval_phases(card, pairs, k7_launches, imgs):
     """Phases 20-23; returns the kernel records of K7 and K8, and phase
     23's metrics."""
@@ -2987,8 +3228,8 @@ def run() -> None:
     """The inference phases 1-11 under `torch.inference_mode`, then the
     training phases 12-19 with autograd (models built in inference mode
     hold inference tensors, which autograd rejects), then phases 20-23
-    (TTA and evaluation), 24 (the tools) and 25 (data parallel), then the
-    result."""
+    (TTA and evaluation), 24 (the tools), 25 (data parallel) and 26 (JPEG
+    and robustness), then the result."""
     with torch.inference_mode():
         card, kind, kernels, t_start, k7_launches, pairs = main()
     kernels.append(train_phases(card))
@@ -2998,6 +3239,7 @@ def run() -> None:
     kernels.extend(records)
     tools_phase(card)
     parallel_phase(card, eval_metrics)
+    robustness_phase(card)
     print(f"kernel times are per image (K2: the sum of its 3 calls per request; K3: of its "
           f"30 launches per R-101-DCN request; K7: of its 3 launches per R-50 request; K8: one "
           f"launch on the largest fenced tensor) and per train step (K4: its 3 calls, R-50; K5, "

@@ -5,7 +5,10 @@ custom.py over the json, no pycocotools): xywh -> xyxy clipped to the
 image, category ids -> contiguous labels, crowd boxes kept apart as
 ignore regions, train filtering (images under `min_size` px or without a
 gt dropped), orientation-homogeneous batches. The batch functions run the
-port's `preprocess` on `device` and return tensors there.
+port's `preprocess` on `device` and return tensors there. Images are read
+on the host by the port's own decoders, PNG by `data/png.py` and JPEG by
+`data/jpeg.py`, each bit-equal to OpenCV's `imread(IMREAD_COLOR)`, so COCO
+sets need no OpenCV.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from htd_tpu_torch.data import png
+from htd_tpu_torch.data import jpeg, png
 from htd_tpu_torch.data.pipeline import bucket_shape, pad_gt, preprocess
 from htd_tpu_torch.train.train_step import TrainBatch
 
@@ -94,19 +97,22 @@ class CocoDataset:
         return out
 
     def load_image(self, rec: ImageRecord) -> np.ndarray:
-        """The record's image, (H, W, 3) uint8 BGR. A PNG file (known by its
-        signature) is decoded by `data.png.read_png`; any other format by
-        OpenCV, which raises `ImportError` where it is not installed."""
+        """The record's image, (H, W, 3) uint8 BGR, decoded by its file's
+        signature: PNG by `data.png.read_png`, JPEG by `data.jpeg.read_jpeg`
+        (whether or not OpenCV is installed); any other format by OpenCV,
+        which raises `ImportError` where it is not installed."""
         path = os.path.join(self.img_root, rec.file_name)
         with open(path, "rb") as f:
             signature = f.read(len(png.SIGNATURE))
         if signature == png.SIGNATURE:
             return png.read_png(path)
+        if signature.startswith(jpeg.SIGNATURE):
+            return jpeg.read_jpeg(path)
         try:
             import cv2
         except ImportError as e:
-            raise ImportError(f"{path} is not a PNG file; reading it needs OpenCV (cv2), "
-                              f"which is not installed") from e
+            raise ImportError(f"{path} is neither a PNG nor a JPEG file; reading it needs "
+                              f"OpenCV (cv2), which is not installed") from e
         img = cv2.imread(path, cv2.IMREAD_COLOR)
         if img is None:
             raise ValueError(f"OpenCV cannot read {path}")

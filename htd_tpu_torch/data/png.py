@@ -3,9 +3,10 @@
 `read_png` returns what OpenCV's `cv2.imread(path, cv2.IMREAD_COLOR)`
 returns for the 8-bit, non-interlaced PNG files it reads: (H, W, 3) uint8
 in BGR order, grey replicated into the three channels, a palette looked
-up, an alpha channel (and any tRNS transparency) dropped. It lets
-`CocoDataset.load_image` read PNG images where OpenCV is not installed;
-any other PNG raises `ValueError`.
+up, an alpha channel (and any tRNS transparency) dropped. The port reads
+images with its own decoders, PNG here and JPEG in `data/jpeg.py`
+(`CocoDataset.load_image` picks one by the file's signature), never with
+OpenCV; any other PNG raises `ValueError`.
 """
 
 from __future__ import annotations

@@ -1,11 +1,15 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 The sources in `htd_tpu_torch/csrc/*.cu` have a plain C interface and no
 PyTorch headers. Each is compiled by its own `nvcc` process (all started
 together) for `sm_90a`, then linked into one shared library that `ctypes`
 loads. The library lands in `htd_tpu_torch/_build/<hash>/`, keyed by a
 hash of the sources and flags, so a checkout builds it at first use and
-reuses it afterwards. Nothing here runs at import time.
+reuses it afterwards.
+
+The host code in `csrc/*.cpp` (the JPEG decoder) is built apart, by the
+host's C++ compiler (`$CXX`, else `c++` on `PATH`), into
+`_build/host-<hash>/`; it needs no CUDA. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 import tempfile
@@ -26,6 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 
 class BuildInfo(NamedTuple):
@@ -120,6 +126,66 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.htd_upsample_add.restype = i32
     lib.htd_layout_fence.argtypes = [vp, vp, ctypes.c_longlong, vp]
     lib.htd_layout_fence.restype = i32
+
+
+def _host_compiler() -> List[str]:
+    if os.environ.get("CXX"):
+        return shlex.split(os.environ["CXX"])
+    found = shutil.which("c++")
+    if found:
+        return [found]
+    raise RuntimeError("no host C++ compiler: set CXX, or put c++ on PATH (the host "
+                       "library, htd_tpu_torch/csrc/*.cpp, needs one)")
+
+
+def build_host() -> BuildInfo:
+    """Compile the host library from `csrc/*.cpp` unless this exact build
+    exists; return its info. Concurrent builds (test workers) each compile
+    to a name of their own and move it into place."""
+    t0 = time.perf_counter()
+    cxx = _host_compiler()
+    sources = sorted(CSRC.glob("*.cpp"))
+    h = hashlib.sha256(" ".join(cxx + HOST_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out_dir = BUILD_ROOT / f"host-{h.hexdigest()[:16]}"
+    lib = out_dir / "libhtd_host.so"
+    if lib.exists():
+        return BuildInfo(lib, time.perf_counter() - t0, False, "")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so")
+    os.close(fd)
+    try:
+        cmd = [*cxx, *HOST_FLAGS, *map(str, sources), "-o", tmp]
+        try:
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+        except FileNotFoundError as e:
+            raise RuntimeError(f"the host C++ compiler {cxx[0]!r} (from CXX or PATH) was "
+                               f"not found") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"host build failed:\n{' '.join(cmd)}\n{proc.stdout}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return BuildInfo(lib, time.perf_counter() - t0, True, proc.stdout)
+
+
+@functools.lru_cache(maxsize=None)
+def load_host() -> Tuple[ctypes.CDLL, BuildInfo]:
+    """Build (if needed) and load the host library, once per process."""
+    info = build_host()
+    lib = ctypes.CDLL(str(info.path))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.htd_jpeg_header.argtypes = [vp, i64, vp]
+    lib.htd_jpeg_header.restype = ctypes.c_int
+    lib.htd_jpeg_decode.argtypes = [vp, i64, vp, i32, i32]
+    lib.htd_jpeg_decode.restype = ctypes.c_int
+    lib.htd_jpeg_reconstruct.argtypes = [i32, vp, vp, vp, i64, i32, i32, i32, vp]
+    lib.htd_jpeg_reconstruct.restype = ctypes.c_int
+    return lib, info
 
 
 @functools.lru_cache(maxsize=None)

@@ -155,20 +155,23 @@ def test_read_png_raises(tmp_path, rng, case):
 
 def test_load_image_without_cv2(tmp_path, rng, monkeypatch):
     """Where cv2 cannot be imported, `CocoDataset.load_image` reads a PNG
-    (what cv2 read before) and raises ImportError, naming the file and
-    cv2, on a JPEG."""
+    and a JPEG as cv2 reads them (each through the port's own decoder) and
+    raises ImportError, naming the file and cv2, on another format (BMP)."""
     img = _samples(rng, 30, 40, 3)
     cv2.imwrite(str(tmp_path / "a.png"), img)
     cv2.imwrite(str(tmp_path / "b.jpg"), img)
-    want = cv2.imread(str(tmp_path / "a.png"), cv2.IMREAD_COLOR)
+    cv2.imwrite(str(tmp_path / "c.bmp"), img)
+    want = [cv2.imread(str(tmp_path / n), cv2.IMREAD_COLOR) for n in ("a.png", "b.jpg")]
     ann = tmp_path / "ann.json"
     ann.write_text('{"images": [{"id": 1, "file_name": "a.png", "height": 30, "width": 40}, '
-                   '{"id": 2, "file_name": "b.jpg", "height": 30, "width": 40}], '
+                   '{"id": 2, "file_name": "b.jpg", "height": 30, "width": 40}, '
+                   '{"id": 3, "file_name": "c.bmp", "height": 30, "width": 40}], '
                    '"annotations": [], "categories": [{"id": 1, "name": "a"}]}')
     ds = pcoco.CocoDataset(str(ann), str(tmp_path), test_mode=True)
-    jpg = ds.load_image(ds.records[1])
-    assert jpg.shape == (30, 40, 3)
+    bmp = ds.load_image(ds.records[2])
+    assert bmp.shape == (30, 40, 3)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    np.testing.assert_array_equal(ds.load_image(ds.records[0]), want)
-    with pytest.raises(ImportError, match=r"b\.jpg.*cv2"):
-        ds.load_image(ds.records[1])
+    for rec, ref in zip(ds.records, want):
+        np.testing.assert_array_equal(ds.load_image(rec), ref)
+    with pytest.raises(ImportError, match=r"c\.bmp.*cv2"):
+        ds.load_image(ds.records[2])
