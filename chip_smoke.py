@@ -121,8 +121,9 @@ script exits non-zero without its final line:
      mean of the two halves' gradients and the SGD step computed here;
      (c) `evaluate_dataset` over two gloo ranks on phase 23's mini-COCO
      at batch 8 per rank: metrics and gathered detections bit-identical
-     to one process's at batch 8 (cuDNN's heuristics in both), against
-     phase 23's autotuned metrics too; (d) `torchrun --standalone
+     to one fresh process's at batch 8 (spawned as the ranks are, cuDNN's
+     heuristics and deterministic algorithms in all three), against phase
+     23's autotuned metrics too; (d) `torchrun --standalone
      --nproc_per_node 2 tools_torch/train.py --distributed --dist-backend
      gloo` (one epoch; one checkpoint and one log, by rank 0, no line
      twice) and tools_torch/test.py --chips 2 against --chips 1 at the
@@ -130,18 +131,20 @@ script exits non-zero without its final line:
  26. JPEG and robustness: (a) the JPEG fixtures of tests/data/jpeg read by
      the port's host decoder (csrc/jpeg_decode.cpp, built by the host's
      C++ compiler) bit-equal to cv2.imread's pixels (the manifest's
-     SHA-256), the progressive one refused with ValueError, the host decode
-     time of the photo-sized ones; (b) tools_torch/test.py --eval bbox on a
-     mini-COCO of the four photo-sized JPEG files (K1 1, K2 3, K7 3 per
-     batch); (c) tools_torch/test_robustness.py, R-50 bf16 at batch 8, on
-     phase 24's PNG mini-COCO with the 10 ported corruptions at severities
-     0, 1, 3 and 5: every cell in its json, K1 1, K2 3, K7 3 launches per
-     batch in every cell, severity 0's detections bit-identical to
-     `evaluate_dataset`'s on the clean set with the same model, then
-     robustness_eval.py's P, mPC and rPC; (d) every ported corruption at
-     severities 1-5 on two seeded probe images against the SHA-256 of the
-     JAX package's outputs (tests/data/jpeg/corruptions.json), and each
-     corruption's host time per megapixel.
+     SHA-256): baseline, progressive, CMYK and cut-short files, and the
+     host decode time of the photo-sized ones, the progressive photo apart
+     from the baseline ones; (b) tools_torch/test.py --eval bbox on a
+     mini-COCO of the five photo-sized JPEG files, the progressive one
+     among them (K1 1, K2 3, K7 3 per batch); (c)
+     tools_torch/test_robustness.py, R-50 bf16 at batch 8, on phase 24's
+     PNG mini-COCO with all 19 corruptions at severities 0, 1, 3 and 5:
+     every cell in its json, K1 1, K2 3, K7 3 launches per batch in every
+     cell, severity 0's detections bit-identical to `evaluate_dataset`'s on
+     the clean set with the same model, then robustness_eval.py's P, mPC and
+     rPC; (d) all 19 corruptions at severities 1-5 on two seeded probe
+     images against the SHA-256 of the JAX package's outputs
+     (tests/data/jpeg/corruptions.json), and each corruption's host time
+     per megapixel.
 Every forward launches K7 3 times (one per FPN top-down add), whatever its
 batch. It needs CUDA: with no GPU, or run outside the repository, it fails.
 """
@@ -2372,18 +2375,24 @@ def spawn_ranks(fn, nprocs: int, *args) -> None:
             fail(f"{fn.__name__}: the ranks did not end within {RANK_JOIN_S} s")
 
 
-def join_group(rank: int, world_size: int, rendezvous: str, backend: str = "gloo"):
-    """A spawned rank of phase 25: the kernels loaded (phase 2 built them),
-    the parent's TF32 settings (off since phase 4), the default process
-    group joined at the file `rendezvous`, rank r on cuda:(r mod the card
-    count)."""
+def spawned_setup() -> None:
+    """A process spawned by phase 25: the kernels loaded (phase 2 built
+    them), the parent's TF32 settings (off since phase 4)."""
     from htd_tpu_torch.ops import _build
-    from htd_tpu_torch.parallel import init_distributed
 
     torch.set_num_threads(2)
     _build.load()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def join_group(rank: int, world_size: int, rendezvous: str, backend: str = "gloo"):
+    """A spawned rank of phase 25 (`spawned_setup`), the default process
+    group joined at the file `rendezvous`, rank r on cuda:(r mod the card
+    count)."""
+    from htd_tpu_torch.parallel import init_distributed
+
+    spawned_setup()
     return init_distributed(backend, f"file://{rendezvous}", rank=rank, world_size=world_size,
                             local_rank=rank)
 
@@ -2660,51 +2669,57 @@ def gloo_train_phase(card: str, root: str) -> None:
     torch.cuda.empty_cache()
 
 
-def gloo_eval_rank(rank: int, root: str) -> None:
-    """Phase 25 (c): one of two gloo ranks running `evaluate_dataset` on
-    phase 23's mini-COCO at batch 8."""
-    import torch.distributed as dist
-
+def spawned_evaluation(root: str, tag: str, group=None) -> None:
+    """Phase 25 (c) in a spawned process: `evaluate_dataset` of R-50 bf16
+    on phase 23's mini-COCO at batch 8 with cuDNN's heuristics restricted
+    to deterministic algorithms, over `group` (None: this process alone),
+    saved to {root}/gloo_eval{tag}.pt."""
     from htd_tpu_torch import evaluate_dataset, htd_r50_1x, init_detector
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
-    join_group(rank, 2, f"{root}/gloo_eval")
     torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
     model = init_detector(htd_r50_1x(compute_dtype="bfloat16"), seed=0)
     scale_scores(model)
-    os.makedirs(f"{root}/coco{rank}")
-    ds = SeededCoco(f"{root}/coco{rank}").dataset
+    os.makedirs(f"{root}/coco{tag}")
+    ds = SeededCoco(f"{root}/coco{tag}").dataset
     torch.cuda.synchronize()
     reset_launch_counts()
     metrics, dets = evaluate_dataset(model, ds, batch_size=8, log_every=0,
-                                     return_detections=True, group=dist.group.WORLD)
+                                     return_detections=True, group=group)
     torch.cuda.synchronize()
     torch.save({"metrics": metrics, "dets": dets, "launches": dict(launch_counts)},
-               f"{root}/gloo_eval{rank}.pt")
+               f"{root}/gloo_eval{tag}.pt")
+
+
+def gloo_eval_rank(rank: int, root: str) -> None:
+    """Phase 25 (c): one of two gloo ranks running `spawned_evaluation`."""
+    import torch.distributed as dist
+
+    join_group(rank, 2, f"{root}/gloo_eval")
+    spawned_evaluation(root, str(rank), dist.group.WORLD)
     dist.barrier()
     dist.destroy_process_group()
 
 
+def one_process_eval(rank: int, root: str) -> None:
+    """Phase 25 (c)'s reference: `spawned_evaluation` in one fresh process
+    set up as a rank is, with no group."""
+    spawned_setup()
+    spawned_evaluation(root, "ref")
+
+
 def gloo_eval_phase(card: str, root: str, eval_metrics: dict) -> None:
     """Phase 25 (c): `evaluate_dataset` over two gloo ranks against one
-    process."""
-    from htd_tpu_torch import evaluate_dataset, htd_r50_1x, init_detector
-
+    fresh process."""
     print("(c) evaluate_dataset over two gloo ranks, R-50 bf16, batch 8 per rank, phase 23's "
           "mini-COCO")
-    # cuDNN's autotuner (on since phase 3) may pick other algorithms in
-    # another process; the ranks and this reference take its heuristics
-    torch.backends.cudnn.benchmark = False
-    with torch.inference_mode():
-        model = init_detector(htd_r50_1x(compute_dtype="bfloat16"), seed=0)
-        scale_scores(model)
-        os.makedirs(f"{root}/coco")
-        ds = SeededCoco(f"{root}/coco").dataset
-        ref, ref_dets = evaluate_dataset(model, ds, batch_size=8, log_every=0,
-                                         return_detections=True)
-        del model
-    torch.backends.cudnn.benchmark = True
-    torch.cuda.empty_cache()
+    # The reference is a fresh process too: cuDNN's autotuner (on here since
+    # phase 3) and, through the free memory it sees, its heuristics may pick
+    # other algorithms in this long-lived process than in a new one.
+    spawn_ranks(one_process_eval, 1, root)
+    one = torch.load(f"{root}/gloo_evalref.pt", weights_only=False)
+    ref, ref_dets = one["metrics"], one["dets"]
     spawn_ranks(gloo_eval_rank, 2, root)
     for r in range(2):
         out = torch.load(f"{root}/gloo_eval{r}.pt", weights_only=False)
@@ -2712,15 +2727,15 @@ def gloo_eval_phase(card: str, root: str, eval_metrics: dict) -> None:
             np.array_equal(x, y) for k in ref_dets for x, y in zip(ref_dets[k], out["dets"][k])))
         n = sum(len(v[1]) for v in out["dets"].values())
         print(f"rank {r}: launches {out['launches']}; metrics {out['metrics']}; {n} gathered "
-              f"detections of {len(out['dets'])} images, bit-identical to one process's (same "
-              f"batches, cuDNN's heuristics in both): {same}")
+              f"detections of {len(out['dets'])} images, bit-identical to one fresh process's "
+              f"(same batches, cuDNN's heuristics in both): {same}")
         if json.dumps(out["metrics"]) != json.dumps(ref) or not same:
             fail(f"rank {r}'s evaluation differs from one process's")
         expect_launches(f"rank {r}", out["launches"], {"pyramid_pack": 1, "roi_align": 3,
                                                        "upsample_add": 3})
     diff = max(abs(ref[k] - eval_metrics[k]) for k in ref
                if math.isfinite(ref[k]) and math.isfinite(eval_metrics[k]))
-    print(f"one process with cuDNN's heuristics {ref}; phase 23 (autotuned) {eval_metrics}: "
+    print(f"one fresh process with cuDNN's heuristics {ref}; phase 23 (autotuned) {eval_metrics}: "
           f"largest difference {diff:.3g} (not held: other conv algorithms)")
 
 
@@ -2904,29 +2919,27 @@ def robustness_phase(card: str) -> None:
     with open(f"{jdir}/manifest.json") as f:
         manifest = json.load(f)
     for name, want in manifest.items():
-        path = f"{jdir}/{name}"
-        if "raises" in want:
-            try:
-                read_jpeg(path)
-            except ValueError as e:
-                print(f"[jpeg] {name}: ValueError as expected ({e})")
-                continue
-            fail(f"{name}: the port decoded a file it must refuse")
-        img = read_jpeg(path)
+        img = read_jpeg(f"{jdir}/{name}")
         if list(img.shape) != want["shape"] or sha256(img) != want["sha256"]:
             fail(f"{name}: decoded {img.shape}, not cv2.imread's pixels {want}")
     photos = sorted(n for n in manifest if n.startswith("photo"))
-    t0 = time.perf_counter()
-    pixels = 0
-    for _ in range(PHOTO_DECODES):
-        for name in photos:
-            pixels += read_jpeg(f"{jdir}/{name}").shape[0] * manifest[name]["shape"][1]
-    dt = time.perf_counter() - t0
-    n = PHOTO_DECODES * len(photos)
-    print(f"[jpeg] {len(manifest) - 1} fixtures bit-equal to cv2.imread's pixels (SHA-256 of "
-          f"the manifest), the progressive one refused; host decode of the {len(photos)} "
-          f"photo-sized files (x{PHOTO_DECODES}): {1e3 * dt / n:.2f} ms per image, "
-          f"{pixels / dt / 1e6:.2f} MP/s on the host ({card})")
+    kinds = {n: "progressive" if "progressive" in n else "baseline" for n in photos}
+    decode = {}
+    for kind in ("baseline", "progressive"):
+        names = [n for n in photos if kinds[n] == kind]
+        t0 = time.perf_counter()
+        for _ in range(PHOTO_DECODES):
+            for name in names:
+                read_jpeg(f"{jdir}/{name}")
+        dt = time.perf_counter() - t0
+        pixels = PHOTO_DECODES * sum(manifest[n]["shape"][0] * manifest[n]["shape"][1]
+                                     for n in names)
+        decode[kind] = (f"{1e3 * dt / (PHOTO_DECODES * len(names)):.2f} ms per image, "
+                        f"{pixels / dt / 1e6:.2f} MP/s")
+    print(f"[jpeg] {len(manifest)} fixtures bit-equal to cv2.imread's pixels (SHA-256 of the "
+          f"manifest; progressive, CMYK and cut-short ones among them); host decode of the "
+          f"photo-sized files (x{PHOTO_DECODES}): {len(photos) - 1} baseline "
+          f"{decode['baseline']}, 1 progressive {decode['progressive']} ({card})")
 
     with tempfile.TemporaryDirectory() as root:
         # (b) test.py on a JPEG mini-COCO
@@ -2949,11 +2962,11 @@ def robustness_phase(card: str) -> None:
         with RecordedEvaluations() as rec:
             _, counts = tool_run("test_robustness.py", lambda: test_robustness.main([
                 "--config", "htd_r50_1x", "--bf16", "--ann", val_ann, "--img-root", root,
-                "--out", out, "--corruptions", *corr.PORTED_CORRUPTIONS, "--severities",
+                "--out", out, "--corruptions", *corr.ALL_CORRUPTIONS, "--severities",
                 *map(str, ROBUST_SEVERITIES), "--set", "rcnn_test.score_thr=0.0"]), card)
         with open(out) as f:
             cells = json.load(f)
-        missing = [(c, s) for c in corr.PORTED_CORRUPTIONS for s in ROBUST_SEVERITIES
+        missing = [(c, s) for c in corr.ALL_CORRUPTIONS for s in ROBUST_SEVERITIES
                    if str(s) not in cells.get(c, {})]
         if missing:
             fail(f"test_robustness.py wrote no cell for {missing}")
@@ -2965,7 +2978,7 @@ def robustness_phase(card: str) -> None:
         for i, (_, ds, _, c, _) in enumerate(rec.calls):
             expect_launches(f"test_robustness.py cell {i} ({getattr(ds, 'corruption', 'clean')}"
                             f" {getattr(ds, 'severity', 0)})", c, want)
-        n_cells = 1 + len(corr.PORTED_CORRUPTIONS) * (len(ROBUST_SEVERITIES) - 1)
+        n_cells = 1 + len(corr.ALL_CORRUPTIONS) * (len(ROBUST_SEVERITIES) - 1)
         if len(rec.calls) != n_cells:
             fail(f"test_robustness.py evaluated {len(rec.calls)} cells, not {n_cells}")
         from htd_tpu_torch.apis import evaluate_dataset
@@ -2975,7 +2988,7 @@ def robustness_phase(card: str) -> None:
         n_dets = sum(len(v[1]) for v in dets.values())
         if not same_detections(dets, clean_dets) or n_dets == 0:
             fail("severity 0's detections differ from evaluate_dataset's on the clean set")
-        print(f"{n_cells} cells ({len(corr.PORTED_CORRUPTIONS)} corruptions x severities "
+        print(f"{n_cells} cells ({len(corr.ALL_CORRUPTIONS)} corruptions x severities "
               f"{ROBUST_SEVERITIES[1:]}, severity 0 once), {len(clean)} PNG images at batch 8, "
               f"K1 {n_batches}, K2 {3 * n_batches}, K7 {3 * n_batches} launches per cell; "
               f"severity 0: {n_dets} detections bit-identical to evaluate_dataset's on the "
@@ -3004,12 +3017,12 @@ def robustness_phase(card: str) -> None:
     bad = [(name, sev, i) for name, by_sev in ref["sha256"].items()
            for sev, hashes in by_sev.items() for i, (img, h) in enumerate(zip(probes, hashes))
            if sha256(corr.corrupt(img, name, int(sev), seed=ref["seed"])) != h]
-    if bad or sorted(ref["sha256"]) != sorted(corr.PORTED_CORRUPTIONS):
+    if bad or sorted(ref["sha256"]) != sorted(corr.ALL_CORRUPTIONS):
         fail(f"corruptions differ from the JAX package's outputs: {bad}")
     imgs = [read_jpeg(f"{jdir}/{n}") for n in photos]
     mp = sum(im.shape[0] * im.shape[1] for im in imgs) / 1e6
     times = {}
-    for name in corr.PORTED_CORRUPTIONS:
+    for name in corr.ALL_CORRUPTIONS:
         t0 = time.perf_counter()
         for k, im in enumerate(imgs):
             corr.corrupt(im, name, 3, seed=k)

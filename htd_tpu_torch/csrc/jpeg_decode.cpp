@@ -1,25 +1,44 @@
-// Baseline JPEG decoding on the host, bit-equal to libjpeg-turbo's default
+// JPEG decoding on the host, bit-equal to libjpeg-turbo's default
 // decompression as OpenCV's `imread(path, IMREAD_COLOR)` runs it.
 //
-// Reads SOF0 and SOF1 files of 8-bit precision with one (grey) or three
-// (YCbCr, or RGB by the Adobe marker or the component ids) components, any
-// sampling factors whose ratios are whole, Huffman tables 0-3, 8- and
-// 16-bit quantisation tables, restart intervals and any number of
-// interleaved or single-component scans. Everything else is refused with
-// its own error code (the `Error` enum below), which the Python side turns
-// into a ValueError naming the file.
+// Reads SOF0, SOF1 (sequential) and SOF2 (progressive) Huffman files of
+// 8-bit precision with one (grey), three (YCbCr, or RGB by the Adobe marker
+// or the component ids) or four components (CMYK, or YCCK by the Adobe
+// marker's transform), any sampling factors whose ratios are whole, Huffman
+// tables 0-3, 8- and 16-bit quantisation tables, restart intervals and any
+// number of interleaved or single-component scans. Progressive scans follow
+// jdphuff.c: DC first and refinement, AC first with EOB runs and AC
+// refinement with correction bits, spectral selection and successive
+// approximation. Arithmetic-coded, lossless, hierarchical and 12-bit files
+// are refused with their own error code (the `Error` enum below), which the
+// Python side turns into a ValueError naming the file.
+//
+// A file that ends early reads as libjpeg's stdio source gives it to
+// OpenCV: jdatasrc.c inserts an EOI marker (FF D9) each time it finds no
+// more data, so the entropy decoder meets a marker, decodes zero bits for
+// the rest of the MCU it is in and leaves every later MCU of the scan as it
+// was (zero in a first scan); the markers after it read as EOI. A file that
+// ends before its first scan raises, as `imread` returns nothing. For a
+// progressive file whose coefficients are not all fully known at the end
+// (one cut short, or a scan script that stops early), the output pass
+// applies jdcoefct.c's block smoothing: the first nine AC coefficients, and
+// the DC where no AC is known, estimated from the 5x5 neighbourhood of DC
+// values.
 //
 // The back end, shared with `htd_jpeg_reconstruct`, follows libjpeg-turbo:
-// dequantisation and the islow IDCT (jidctint.c) with its range-limit
-// table; per component, upsampling as jdsample.c picks it with
+// dequantisation and the islow IDCT (jidctint.c) in the 16-bit lanes of
+// libjpeg-turbo's SIMD version; per component, upsampling as jdsample.c picks it with
 // do_fancy_upsampling (the triangle filters h2v1, h2v2 and h1v2, with
 // their alternating rounding biases and edge columns, the rows above the
 // first and below the last real row taken as copies of that row as
 // jdmainct.c's context pointers do; plain replication for other whole
 // ratios and for h2 components at most 2 samples wide); then the
-// fixed-point YCbCr to RGB tables of jdcolor.c. Every step is integer
-// arithmetic, so the result does not depend on the CPU. The output is
-// (H, W, 3) uint8 in BGR order; a grey image fills all three channels.
+// fixed-point YCbCr to RGB tables of jdcolor.c, or for four components
+// jdcolor.c's YCCK to CMYK and OpenCV's CMYK to BGR
+// (icvCvt_CMYK2BGR_8u_C4C3R: each of C, M, Y as K - ((255 - x) K >> 8)).
+// Every step is integer arithmetic, so the result does not depend on the
+// CPU. The output is (H, W, 3) uint8 in BGR order; a grey image fills all
+// three channels.
 //
 // Plain C interface for ctypes; no Python or PyTorch headers.
 
@@ -34,15 +53,14 @@ namespace {
 enum Error {
   kOk = 0,
   kNotJpeg = 1,        // no SOI marker
-  kTruncated = 2,      // the data ends before the image does
-  kProgressive = 3,    // SOF2
+  kNoScan = 2,         // the data ends (or EOI comes) before the first scan
   kLossless = 4,       // SOF3
   kHierarchical = 5,   // SOF5-7 (differential)
   kArithmetic = 6,     // SOF9-11, SOF13-15
   kPrecision = 7,      // sample precision other than 8 bits
-  kComponents = 8,     // neither 1 nor 3 components
+  kComponents = 8,     // 2 components, or more than 4
   kSampling = 9,       // sampling ratios that are not whole
-  kCorrupt = 10,       // malformed markers, tables or entropy-coded data
+  kCorrupt = 10,       // malformed markers, tables or scan parameters
   kBadArgument = 11,   // the caller's sizes disagree with the file's
   kNoMemory = 12,      // a buffer could not be allocated
   kTooLarge = 13,      // more than 2^30 pixels, OpenCV's CV_IO_MAX_IMAGE_PIXELS
@@ -56,19 +74,36 @@ const int kNatural[64 + 16] = {
     // extra entries for corrupt data (libjpeg's jpeg_natural_order)
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
-enum Color { kGrey = 0, kYCbCr = 1, kRGB = 2 };
+enum Color { kGrey = 0, kYCbCr = 1, kRGB = 2, kCMYK = 3, kYCCK = 4 };
+
+const int kSavedCoefs = 10;  // jdcoefct.c's SAVED_COEFS: the DC and the first 9 AC
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
-  int bw = 0, bh = 0;        // blocks that hold image samples
+  int bw = 0, bh = 0;          // blocks that hold image samples
   int stride_w = 0, rows = 0;  // blocks allocated (whole MCUs)
-  bool latched = false, coded = false;
-  int16_t qt[64];            // natural order, latched at the component's first scan
-  std::vector<int16_t> coef;  // stride_w x rows blocks of 64, natural order
+  bool latched = false;
+  int16_t qt[64] = {};         // natural order, latched at the component's first scan
+  std::vector<int16_t> coef;   // stride_w x rows blocks of 64, natural order
+  // Progressive: jdphuff.c's coef_bits (the Al of the last scan that coded
+  // each coefficient, -1 before any) and the copy taken when a scan of the
+  // component starts (its second half of cinfo->coef_bits).
+  int bits[64], prev_bits[64];
+  Component() {
+    for (int k = 0; k < 64; ++k) bits[k] = prev_bits[k] = -1;
+  }
+};
+
+// Block smoothing's inputs, latched as jdcoefct.c's smoothing_ok does.
+struct Smoothing {
+  int total_rows = 0;  // iMCU rows of the frame
+  int last_good = 0;   // the last iMCU row decoded with data to spare
+  std::vector<int> bits, prev;  // per component, kSavedCoefs coef_bits each
 };
 
 struct Frame {
   int height = 0, width = 0, hmax = 1, vmax = 1;
+  bool progressive = false;
   std::vector<Component> comps;
 };
 
@@ -76,121 +111,83 @@ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // ------------------------------------------------------------ back end
 
-// libjpeg's prepare_range_limit_table, post-IDCT part: index x & 1023 of
-// the centred IDCT output.
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; ++i) {
-      if (i < 128) t[i] = (uint8_t)(i + 128);
-      else if (i < 512) t[i] = 255;
-      else if (i < 896) t[i] = 0;
-      else t[i] = (uint8_t)(i - 896);
+// jidctint.c's jpeg_idct_islow as libjpeg-turbo's SIMD version
+// (jidctint-sse2.asm, jidctint-avx2.asm) computes it, which OpenCV runs on
+// x86-64: coefficients times their quantisation step in 16 bits (pmullw),
+// the sums in0 +- in4, in7 + in3 and in5 + in1 of each pass in 16 bits
+// (paddw), the products in pairs in 32 bits (pmaddwd), each pass's result
+// saturated to 16 bits (packssdw) and the samples to -128..127 before the
+// +128 (packsswb). A block whose AC coefficients are all zero takes the
+// shortcut DC << 2 in 16 bits (psllw). On coefficients of real images every
+// one of these equals the C version; they differ only where a 16-bit lane
+// overflows, in garbage decoded from a cut-short file. 8x8 samples out at
+// `out` with row stride `stride`.
+inline int16_t wrap16(int32_t x) { return (int16_t)(uint16_t)(uint32_t)x; }
+inline int16_t sat16(int32_t x) { return (int16_t)(x < -32768 ? -32768 : (x > 32767 ? 32767 : x)); }
+
+#if defined(__GNUC__)
+#define HTD_INLINE inline __attribute__((always_inline))  // 16 passes per block
+#else
+#define HTD_INLINE inline
+#endif
+
+// One 1-D pass over in[0..7] (16 bits each), descaled by `shift` into out.
+HTD_INLINE void idct_pass(const int16_t* in, int shift, int32_t* out) {
+  const int32_t z2 = in[2], z3 = in[6];
+  const int32_t tmp3 = z2 * 10703 + z3 * 4433;    // F_0_541 + F_0_765, F_0_541
+  const int32_t tmp2 = z2 * 4433 + z3 * -10704;   // F_0_541, F_0_541 - F_1_847
+  const int32_t tmp0 = (int32_t)wrap16(in[0] + in[4]) * 8192;
+  const int32_t tmp1 = (int32_t)wrap16(in[0] - in[4]) * 8192;
+  const int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const int32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const int32_t t0 = in[7], t1 = in[5], t2 = in[3], t3 = in[1];
+  const int32_t z3o = wrap16(t0 + t2), z4o = wrap16(t1 + t3);
+  const int32_t Z3 = z3o * -6436 + z4o * 9633;    // F_1_175 - F_1_961, F_1_175
+  const int32_t Z4 = z3o * 9633 + z4o * 6437;     // F_1_175, F_1_175 - F_0_390
+  const int32_t T0 = t0 * -4927 + t3 * -7373 + Z3;
+  const int32_t T3 = t0 * -7373 + t3 * 4926 + Z4;
+  const int32_t T1 = t1 * -4176 + t2 * -20995 + Z4;
+  const int32_t T2 = t1 * -20995 + t2 * 4177 + Z3;
+  const int32_t half = 1 << (shift - 1);
+  out[0] = (tmp10 + T3 + half) >> shift;
+  out[7] = (tmp10 - T3 + half) >> shift;
+  out[1] = (tmp11 + T2 + half) >> shift;
+  out[6] = (tmp11 - T2 + half) >> shift;
+  out[2] = (tmp12 + T1 + half) >> shift;
+  out[5] = (tmp12 - T1 + half) >> shift;
+  out[3] = (tmp13 + T0 + half) >> shift;
+  out[4] = (tmp13 - T0 + half) >> shift;
+}
+
+void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride) {
+  const int CONST_BITS = 13, PASS1_BITS = 2;
+  int16_t ws[64];
+  uint64_t ac = 0;
+  for (int k = 8; k < 64; k += 4) {
+    uint64_t w;
+    memcpy(&w, coef + k, sizeof(w));
+    ac |= w;
+  }
+  if (!ac) {
+    for (int c = 0; c < 8; ++c) {
+      const int16_t dc = wrap16(wrap16(coef[c] * q[c]) * (1 << PASS1_BITS));
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
+    }
+  } else {
+    for (int c = 0; c < 8; ++c) {
+      int16_t in[8];
+      int32_t o[8];
+      for (int r = 0; r < 8; ++r) in[r] = wrap16(coef[r * 8 + c] * q[r * 8 + c]);
+      idct_pass(in, CONST_BITS - PASS1_BITS, o);
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = sat16(o[r]);
     }
   }
-};
-const RangeLimit kRange;
-
-// jidctint.c, jpeg_idct_islow: coefficients times their quantisation step,
-// 8x8 samples out at `out` with row stride `stride`.
-void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride) {
-  const int64_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 4433,
-                FIX_0_765366865 = 6270, FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
-                FIX_1_501321110 = 12299, FIX_1_847759065 = 15137, FIX_1_961570560 = 16069,
-                FIX_2_053119869 = 16819, FIX_2_562915447 = 20995, FIX_3_072711026 = 25172;
-  const int CONST_BITS = 13, PASS1_BITS = 2;
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    auto dq = [&](int r) { return (int64_t)coef[r * 8 + c] * q[r * 8 + c]; };
-    int64_t z2 = dq(2), z3 = dq(6);
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = dq(0);
-    z3 = dq(4);
-    int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
-    int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = dq(7);
-    tmp1 = dq(5);
-    tmp2 = dq(3);
-    tmp3 = dq(1);
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = CONST_BITS - PASS1_BITS;
-    const int64_t half = (int64_t)1 << (sh - 1);
-    ws[0 * 8 + c] = (int)((tmp10 + tmp3 + half) >> sh);
-    ws[7 * 8 + c] = (int)((tmp10 - tmp3 + half) >> sh);
-    ws[1 * 8 + c] = (int)((tmp11 + tmp2 + half) >> sh);
-    ws[6 * 8 + c] = (int)((tmp11 - tmp2 + half) >> sh);
-    ws[2 * 8 + c] = (int)((tmp12 + tmp1 + half) >> sh);
-    ws[5 * 8 + c] = (int)((tmp12 - tmp1 + half) >> sh);
-    ws[3 * 8 + c] = (int)((tmp13 + tmp0 + half) >> sh);
-    ws[4 * 8 + c] = (int)((tmp13 - tmp0 + half) >> sh);
-  }
   for (int r = 0; r < 8; ++r) {
-    const int* w = ws + r * 8;
-    uint8_t* o = out + (size_t)r * stride;
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    int64_t tmp0 = ((int64_t)w[0] + w[4]) * (1 << CONST_BITS);
-    int64_t tmp1 = ((int64_t)w[0] - w[4]) * (1 << CONST_BITS);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = CONST_BITS + PASS1_BITS + 3;
-    const int64_t half = (int64_t)1 << (sh - 1);
-    auto lim = [&](int64_t x) { return kRange.t[(int)((x + half) >> sh) & 1023]; };
-    o[0] = lim(tmp10 + tmp3);
-    o[7] = lim(tmp10 - tmp3);
-    o[1] = lim(tmp11 + tmp2);
-    o[6] = lim(tmp11 - tmp2);
-    o[2] = lim(tmp12 + tmp1);
-    o[5] = lim(tmp12 - tmp1);
-    o[3] = lim(tmp13 + tmp0);
-    o[4] = lim(tmp13 - tmp0);
+    int32_t o[8];
+    idct_pass(ws + r * 8, CONST_BITS + PASS1_BITS + 3, o);
+    uint8_t* row = out + (size_t)r * stride;
+    for (int c = 0; c < 8; ++c)
+      row[c] = (uint8_t)((o[c] < -128 ? -128 : (o[c] > 127 ? 127 : o[c])) + 128);
   }
 }
 
@@ -277,37 +274,144 @@ const YccTables kYcc;
 
 inline uint8_t clamp255(int x) { return (uint8_t)(x < 0 ? 0 : (x > 255 ? 255 : x)); }
 
-int reconstruct(Frame& f, int color, uint8_t* out) {
+// jdcoefct.c's decompress_smooth_data for one block row `by` of component
+// `c` (index ci): each block's estimates into a copy, then its IDCT into
+// `plane` (row stride ps). The 25 DC registers slide along the row as there,
+// quirks at narrow rows and at the last iMCU row included.
+void smooth_row(const Component& c, int ci, const Smoothing& sm, int by, uint8_t* plane,
+                int ps) {
+  const int v = c.v, R = by / v, brow = by % v;
+  const int block_rows = R < sm.total_rows - 1 ? v : (c.bh % v ? c.bh % v : v);
+  const int ibr = R * block_rows + brow, ibrs = block_rows * sm.total_rows;
+  int rows[5];
+  rows[2] = by;
+  rows[1] = ibr > 0 ? by - 1 : by;
+  rows[0] = ibr > 1 ? by - 2 : rows[1];
+  rows[3] = ibr < ibrs - 1 ? by + 1 : by;
+  rows[4] = ibr < ibrs - 2 ? by + 2 : rows[3];
+  auto dc = [&](int r, int bx) { return (int)c.coef[((size_t)rows[r] * c.stride_w + bx) * 64]; };
+  const int* bits = &(R > sm.last_good ? sm.prev : sm.bits)[(size_t)ci * kSavedCoefs];
+  bool change_dc = true;
+  for (int k = 1; k < kSavedCoefs; ++k) change_dc = change_dc && bits[k] == -1;
+  const int64_t Q00 = c.qt[0], Q01 = c.qt[1], Q10 = c.qt[8], Q20 = c.qt[16], Q11 = c.qt[9],
+                Q02 = c.qt[2], Q03 = c.qt[3], Q12 = c.qt[10], Q21 = c.qt[17], Q30 = c.qt[24];
+  auto estimate = [](int al, int64_t num, int64_t q) {
+    int pred = (int)(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    return num >= 0 ? pred : -pred;
+  };
+  int D[26];  // D[1..25]: DC01..DC25, five rows of five columns
+  for (int r = 0; r < 5; ++r)
+    for (int k = 1; k <= 5; ++k) D[5 * r + k] = dc(r, 0);
+  const int last = c.bw - 1;
+  int16_t ws[64];
+  for (int bx = 0; bx <= last; ++bx) {
+    memcpy(ws, &c.coef[((size_t)by * c.stride_w + bx) * 64], sizeof(ws));
+    if (bx == 0 && bx < last)
+      for (int r = 0; r < 5; ++r) D[5 * r + 4] = dc(r, 1);
+    if (bx + 1 < last)
+      for (int r = 0; r < 5; ++r) D[5 * r + 5] = dc(r, bx + 2);
+    int al;
+    if ((al = bits[1]) != 0 && ws[1] == 0)
+      ws[1] = (int16_t)estimate(al, Q00 * (change_dc ?
+          (-D[1] - D[2] + D[4] + D[5] - 3 * D[6] + 13 * D[7] - 13 * D[9] + 3 * D[10] -
+           3 * D[11] + 38 * D[12] - 38 * D[14] + 3 * D[15] - 3 * D[16] + 13 * D[17] -
+           13 * D[19] + 3 * D[20] - D[21] - D[22] + D[24] + D[25]) :
+          (-7 * D[11] + 50 * D[12] - 50 * D[14] + 7 * D[15])), Q01);
+    if ((al = bits[2]) != 0 && ws[8] == 0)
+      ws[8] = (int16_t)estimate(al, Q00 * (change_dc ?
+          (-D[1] - 3 * D[2] - 3 * D[3] - 3 * D[4] - D[5] - D[6] + 13 * D[7] + 38 * D[8] +
+           13 * D[9] - D[10] + D[16] - 13 * D[17] - 38 * D[18] - 13 * D[19] + D[20] + D[21] +
+           3 * D[22] + 3 * D[23] + 3 * D[24] + D[25]) :
+          (-7 * D[3] + 50 * D[8] - 50 * D[18] + 7 * D[23])), Q10);
+    if ((al = bits[3]) != 0 && ws[16] == 0)
+      ws[16] = (int16_t)estimate(al, Q00 * (change_dc ?
+          (D[3] + 2 * D[7] + 7 * D[8] + 2 * D[9] - 5 * D[12] - 14 * D[13] - 5 * D[14] +
+           2 * D[17] + 7 * D[18] + 2 * D[19] + D[23]) :
+          (-D[3] + 13 * D[8] - 24 * D[13] + 13 * D[18] - D[23])), Q20);
+    if ((al = bits[4]) != 0 && ws[9] == 0)
+      ws[9] = (int16_t)estimate(al, Q00 * (change_dc ?
+          (-D[1] + D[5] + 9 * D[7] - 9 * D[9] - 9 * D[17] + 9 * D[19] + D[21] - D[25]) :
+          (D[10] + D[16] - 10 * D[17] + 10 * D[19] - D[2] - D[20] + D[22] - D[24] + D[4] -
+           D[6] + 10 * D[7] - 10 * D[9])), Q11);
+    if ((al = bits[5]) != 0 && ws[2] == 0)
+      ws[2] = (int16_t)estimate(al, Q00 * (change_dc ?
+          (2 * D[7] - 5 * D[8] + 2 * D[9] + D[11] + 7 * D[12] - 14 * D[13] + 7 * D[14] +
+           D[15] + 2 * D[17] - 5 * D[18] + 2 * D[19]) :
+          (-D[11] + 13 * D[12] - 24 * D[13] + 13 * D[14] - D[15])), Q02);
+    if (change_dc) {
+      if ((al = bits[6]) != 0 && ws[3] == 0)
+        ws[3] = (int16_t)estimate(
+            al, Q00 * (D[7] - D[9] + 2 * D[12] - 2 * D[14] + D[17] - D[19]), Q03);
+      if ((al = bits[7]) != 0 && ws[10] == 0)
+        ws[10] = (int16_t)estimate(
+            al, Q00 * (D[7] - 3 * D[8] + D[9] - D[17] + 3 * D[18] - D[19]), Q12);
+      if ((al = bits[8]) != 0 && ws[17] == 0)
+        ws[17] = (int16_t)estimate(
+            al, Q00 * (D[7] - D[9] - 3 * D[12] + 3 * D[14] + D[17] - D[19]), Q21);
+      if ((al = bits[9]) != 0 && ws[24] == 0)
+        ws[24] = (int16_t)estimate(
+            al, Q00 * (D[7] + 2 * D[8] + D[9] - D[17] - 2 * D[18] - D[19]), Q30);
+      ws[0] = (int16_t)estimate(0, Q00 *
+          (-2 * D[1] - 6 * D[2] - 8 * D[3] - 6 * D[4] - 2 * D[5] - 6 * D[6] + 6 * D[7] +
+           42 * D[8] + 6 * D[9] - 6 * D[10] - 8 * D[11] + 42 * D[12] + 152 * D[13] +
+           42 * D[14] - 8 * D[15] - 6 * D[16] + 6 * D[17] + 42 * D[18] + 6 * D[19] -
+           6 * D[20] - 2 * D[21] - 6 * D[22] - 8 * D[23] - 6 * D[24] - 2 * D[25]), Q00);
+    }
+    idct_islow(ws, c.qt, plane + (size_t)by * 8 * ps + bx * 8, ps);
+    for (int r = 0; r < 5; ++r)
+      for (int k = 1; k <= 4; ++k) D[5 * r + k] = D[5 * r + k + 1];
+  }
+}
+
+int reconstruct(const Frame& f, int color, const Smoothing* sm, uint8_t* out) {
   const int H = f.height, W = f.width;
   const size_t npx = (size_t)H * W;
   std::vector<uint8_t> full(npx * f.comps.size());
   for (size_t ci = 0; ci < f.comps.size(); ++ci) {
-    Component& c = f.comps[ci];
+    const Component& c = f.comps[ci];
     const int cw = ceil_div(W * c.h, f.hmax), ch = ceil_div(H * c.v, f.vmax);
     const int ps = c.bw * 8;
     std::vector<uint8_t> plane((size_t)c.bh * 8 * ps);
-    for (int by = 0; by < c.bh; ++by)
+    for (int by = 0; by < c.bh; ++by) {
+      if (sm) {
+        smooth_row(c, (int)ci, *sm, by, plane.data(), ps);
+        continue;
+      }
       for (int bx = 0; bx < c.bw; ++bx)
         idct_islow(&c.coef[((size_t)by * c.stride_w + bx) * 64], c.qt,
                    &plane[(size_t)by * 8 * ps + bx * 8], ps);
+    }
     const int err = upsample(plane.data(), ps, cw, ch, c.h, c.v, f.hmax, f.vmax, H, W,
                              &full[ci * npx]);
     if (err) return err;
   }
-  if (color == kGrey) {
-    for (size_t i = 0; i < npx; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = full[i];
-  } else if (color == kRGB) {
-    for (size_t i = 0; i < npx; ++i) {
-      out[3 * i] = full[2 * npx + i];
-      out[3 * i + 1] = full[npx + i];
-      out[3 * i + 2] = full[i];
-    }
-  } else {
-    for (size_t i = 0; i < npx; ++i) {
-      const int y = full[i], cb = full[npx + i], cr = full[2 * npx + i];
-      out[3 * i] = clamp255(y + kYcc.cb_b[cb]);
-      out[3 * i + 1] = clamp255(y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
-      out[3 * i + 2] = clamp255(y + kYcc.cr_r[cr]);
+  const uint8_t *p0 = full.data(), *p1 = p0 + npx, *p2 = p1 + npx, *p3 = p2 + npx;
+  for (size_t i = 0; i < npx; ++i) {
+    uint8_t* o = out + 3 * i;
+    if (color == kGrey) {
+      o[0] = o[1] = o[2] = p0[i];
+    } else if (color == kRGB) {
+      o[0] = p2[i];
+      o[1] = p1[i];
+      o[2] = p0[i];
+    } else if (color == kYCbCr) {
+      const int y = p0[i], cb = p1[i], cr = p2[i];
+      o[0] = clamp255(y + kYcc.cb_b[cb]);
+      o[1] = clamp255(y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+      o[2] = clamp255(y + kYcc.cr_r[cr]);
+    } else {
+      int cyan = p0[i], magenta = p1[i], yellow = p2[i];
+      const int k = p3[i];
+      if (color == kYCCK) {  // jdcolor.c's ycck_cmyk_convert
+        const int y = p0[i], cb = p1[i], cr = p2[i];
+        cyan = clamp255(255 - (y + kYcc.cr_r[cr]));
+        magenta = clamp255(255 - (y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)));
+        yellow = clamp255(255 - (y + kYcc.cb_b[cb]));
+      }
+      o[0] = (uint8_t)(k - ((255 - yellow) * k >> 8));
+      o[1] = (uint8_t)(k - ((255 - magenta) * k >> 8));
+      o[2] = (uint8_t)(k - ((255 - cyan) * k >> 8));
     }
   }
   return kOk;
@@ -315,9 +419,21 @@ int reconstruct(Frame& f, int color, uint8_t* out) {
 
 // ------------------------------------------------------------ parsing
 
+// The bytes libjpeg's stdio source hands the decoder: the file, then FF D9
+// again and again (jdatasrc.c's fill_input_buffer inserts an EOI marker
+// each time it finds no more data), so every read past the end is defined.
+struct Stream {
+  const uint8_t* data;
+  int64_t size;
+  uint8_t operator[](int64_t i) const {
+    return i < size ? data[i] : ((i - size) & 1 ? 0xD9 : 0xFF);
+  }
+};
+
 struct Huffman {
   bool defined = false;
   uint8_t vals[256];
+  int nvals = 0;
   int32_t maxcode[18];
   int32_t valoffset[18];
   uint8_t look_len[256], look_sym[256];  // 8-bit lookahead; length 0 = longer code
@@ -351,6 +467,7 @@ int build_huffman(const uint8_t* counts, const uint8_t* vals, int nvals, Huffman
   t.maxcode[17] = 0x7FFFFFFF;
   t.valoffset[17] = 0;
   memcpy(t.vals, vals, nvals);
+  t.nvals = nvals;
   memset(t.look_len, 0, sizeof(t.look_len));
   p = 0;
   for (int l = 1; l <= 8; ++l)
@@ -365,35 +482,45 @@ int build_huffman(const uint8_t* counts, const uint8_t* vals, int nvals, Huffman
   return kOk;
 }
 
+// jdhuff.c's bit reader: reads entropy-coded bytes (FF 00 as FF) until it
+// meets a marker, which it leaves in `unread`, and zero bits after it.
+// `overrun` says that bits past the marker were consumed (libjpeg's
+// insufficient_data).
 struct BitReader {
-  const uint8_t* p;
-  const uint8_t* end;
+  const Stream& s;
+  int64_t& pos;
+  int& unread;
   uint64_t acc = 0;  // bits left-aligned
   int n = 0;         // bits in acc
-  int pad = 0;       // of them, zeros past the segment's end
-  bool at_marker = false;
+  int pad = 0;       // of them, zeros past the marker
   bool overrun = false;
+
+  BitReader(const Stream& st, int64_t& p, int& u) : s(st), pos(p), unread(u) {}
+
+  void reset() {  // discards the bits read ahead, as process_restart does
+    acc = 0;
+    n = pad = 0;
+    overrun = false;
+  }
 
   void fill() {
     while (n <= 56) {
       int b = 0;
-      if (!at_marker && p < end) {
-        b = *p;
+      if (!unread) {
+        b = s[pos];
         if (b == 0xFF) {
-          const uint8_t* q = p + 1;
-          while (q < end && *q == 0xFF) ++q;
-          if (q < end && *q == 0x00) {
-            p = q + 1;
-          } else {
-            at_marker = true;  // p stays on the marker's first 0xFF
+          int64_t q = pos + 1;
+          while (s[q] == 0xFF) ++q;
+          pos = q + 1;
+          if (s[q] != 0x00) {
+            unread = s[q];
             b = 0;
             pad += 8;
           }
         } else {
-          ++p;
+          ++pos;
         }
       } else {
-        at_marker = true;
         pad += 8;
       }
       acc |= (uint64_t)b << (56 - n);
@@ -412,7 +539,7 @@ struct BitReader {
     return v;
   }
   int decode(const Huffman& t) {
-    if (n < 16) fill();
+    if (n < 17) fill();
     const int look = (int)(acc >> 56);
     if (t.look_len[look]) {
       const int l = t.look_len[look];
@@ -425,101 +552,77 @@ struct BitReader {
       ++l;
       code = (int)(acc >> (64 - l));
     }
-    if (l > 16) return -1;
     consume(l);
-    return t.vals[code + t.valoffset[l]];
-  }
-  // Skip to the next marker (libjpeg's next_marker); returns its code, or -1 at the end.
-  int next_marker() {
-    acc = 0;
-    n = pad = 0;
-    at_marker = false;
-    while (p < end) {
-      if (*p != 0xFF) {
-        ++p;
-        continue;
-      }
-      const uint8_t* q = p + 1;
-      while (q < end && *q == 0xFF) ++q;
-      if (q >= end) return -1;
-      if (*q == 0x00) {
-        p = q + 1;
-        continue;
-      }
-      p = q + 1;
-      return *q;
-    }
-    return -1;
+    if (l > 16) return 0;  // a bad code: jpeg_huff_decode fakes a zero after 17 bits
+    return t.vals[(code + t.valoffset[l]) & 0xFF];
   }
 };
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
-int decode_block(BitReader& br, const Huffman& dc, const Huffman& ac, int& pred, int16_t* blk) {
-  const int s = br.decode(dc);
-  if (s < 0 || s > 16) return br.pad ? kTruncated : kCorrupt;
-  if (s) pred += extend(br.bits(s), s);
-  blk[0] = (int16_t)pred;
-  for (int k = 1; k < 64;) {
-    const int rs = br.decode(ac);
-    if (rs < 0) return br.pad ? kTruncated : kCorrupt;
-    const int r = rs >> 4, sz = rs & 15;
-    if (sz) {
-      k += r;
-      blk[kNatural[k]] = (int16_t)extend(br.bits(sz), sz);
-      ++k;
-    } else if (r == 15) {
-      k += 16;
-    } else {
-      break;
-    }
-  }
-  return br.overrun ? kTruncated : kOk;
-}
+// One scan's components and parameters.
+struct Scan {
+  int ns = 0;
+  Component* comps[4];
+  const Huffman* dc[4];
+  const Huffman* ac[4];
+  int ss = 0, se = 63, ah = 0, al = 0;
+};
 
 struct Parser {
-  const uint8_t* data;
-  const uint8_t* end;
-  const uint8_t* p;
+  Stream s;
+  int64_t pos = 0;
+  int unread = 0;  // a marker code the entropy decoder met, not yet handled
   Frame frame;
   bool have_frame = false, jfif = false, adobe = false;
   int adobe_transform = -1, restart = 0;
+  int scans = 0;      // libjpeg's input_scan_number
+  int color = -1;     // latched at the first scan, as jpeg_read_header does
+  int last_good = 0;  // libjpeg's last_good_iMCU_row
   bool qdefined[4] = {false, false, false, false};
   int16_t qtables[4][64];
   Huffman dc[4], ac[4];
 
-  Parser(const uint8_t* d, int64_t size) : data(d), end(d + size), p(d) {}
+  Parser(const uint8_t* d, int64_t size) : s{d, size} {}
 
-  // The next marker's code, skipping fill bytes; -1 at the end of the data.
-  int marker() {
-    while (p < end && *p != 0xFF) ++p;  // extraneous bytes, as libjpeg skips them
-    while (p < end && *p == 0xFF) ++p;
-    if (p >= end) return -1;
-    return *p++;
+  // jdmarker.c's next_marker: skips to an FF, the FF fill bytes and FF 00 pairs.
+  int next_marker() {
+    for (;;) {
+      int c = s[pos++];
+      while (c != 0xFF) c = s[pos++];
+      do c = s[pos++]; while (c == 0xFF);
+      if (c) return c;
+    }
   }
-  int segment(const uint8_t*& body, int& len) {
-    if (end - p < 2) return kTruncated;
-    len = (p[0] << 8 | p[1]) - 2;
-    if (len < 0) return kCorrupt;
-    if (end - p < 2 + len) return kTruncated;
-    body = p + 2;
-    p += 2 + len;
+  int read_marker() {
+    const int c = unread ? unread : next_marker();
+    unread = 0;
+    return c;
+  }
+  // A marker segment's body, read through the stream (so a file cut inside
+  // it reads on into the inserted EOI markers, as libjpeg's does).
+  int segment(std::vector<uint8_t>& body) {
+    const int len = s[pos] << 8 | s[pos + 1];
+    if (len < 2) return kCorrupt;
+    body.resize(len - 2);
+    for (int i = 0; i < len - 2; ++i) body[i] = s[pos + 2 + i];
+    pos += len;
     return kOk;
   }
 
   int sof(int code, const uint8_t* b, int len) {
-    if (code == 0xC2) return kProgressive;
     if (code == 0xC3) return kLossless;
     if (code == 0xC5 || code == 0xC6 || code == 0xC7) return kHierarchical;
     if (code >= 0xC9) return kArithmetic;
     if (have_frame) return kCorrupt;
     if (len < 6) return kCorrupt;
     if (b[0] != 8) return kPrecision;
+    frame.progressive = code == 0xC2;
     frame.height = b[1] << 8 | b[2];
     frame.width = b[3] << 8 | b[4];
     const int nc = b[5];
-    if (nc != 1 && nc != 3) return kComponents;
-    if (len < 6 + 3 * nc || frame.height == 0 || frame.width == 0) return kCorrupt;
+    if (nc != 1 && nc != 3 && nc != 4) return kComponents;
+    if (len != 6 + 3 * nc || frame.height == 0 || frame.width == 0) return kCorrupt;
     if ((int64_t)frame.height * frame.width > ((int64_t)1 << 30)) return kTooLarge;
     frame.comps.resize(nc);
     for (int i = 0; i < nc; ++i) {
@@ -578,71 +681,240 @@ struct Parser {
     return kOk;
   }
 
-  int sos(const uint8_t* b, int len) {
-    if (!have_frame || len < 1) return kCorrupt;
-    const int ns = b[0];
-    if (ns < 1 || ns > 4 || len < 4 + 2 * ns) return kCorrupt;
-    Component* comps[4];
-    int td[4], ta[4];
-    for (int i = 0; i < ns; ++i) {
-      comps[i] = nullptr;
-      for (Component& c : frame.comps)
-        if (c.id == b[1 + 2 * i]) comps[i] = &c;
-      td[i] = b[2 + 2 * i] >> 4;
-      ta[i] = b[2 + 2 * i] & 15;
-      if (!comps[i] || td[i] > 3 || ta[i] > 3 || !dc[td[i]].defined || !ac[ta[i]].defined)
-        return kCorrupt;
-      Component& c = *comps[i];
-      if (!c.latched) {  // libjpeg's latch_quant_tables
-        if (!qdefined[c.tq]) return kCorrupt;
-        memcpy(c.qt, qtables[c.tq], sizeof(c.qt));
-        c.latched = true;
-      }
-      c.coded = true;
-    }
-    const uint8_t* q = b + 1 + 2 * ns;
-    if (q[0] != 0 || q[1] != 63 || q[2] != 0) return kCorrupt;  // Ss, Se, Ah/Al of a sequential scan
+  // A table the scan decodes with must exist, and a DC table's symbols are
+  // sizes up to 15 (jpeg_make_d_derived_tbl).
+  static bool usable(const Huffman& t, bool is_dc) {
+    if (!t.defined) return false;
+    for (int i = 0; is_dc && i < t.nvals; ++i)
+      if (t.vals[i] > 15) return false;
+    return true;
+  }
 
-    BitReader br{p, end};
-    int pred[4] = {0, 0, 0, 0};
+  int parse_sos(const uint8_t* b, int len, Scan& sc) {
+    if (!have_frame || len < 1) return kCorrupt;
+    sc.ns = b[0];
+    if (sc.ns < 1 || sc.ns > 4 || len != 4 + 2 * sc.ns) return kCorrupt;
+    int blocks = 0;
+    for (int i = 0; i < sc.ns; ++i) {
+      sc.comps[i] = nullptr;
+      for (Component& c : frame.comps)
+        if (c.id == b[1 + 2 * i]) sc.comps[i] = &c;
+      if (!sc.comps[i]) return kCorrupt;
+      for (int j = 0; j < i; ++j)
+        if (sc.comps[j] == sc.comps[i]) return kCorrupt;
+      const int td = b[2 + 2 * i] >> 4, ta = b[2 + 2 * i] & 15;
+      if (td > 3 || ta > 3) return kCorrupt;
+      sc.dc[i] = &dc[td];
+      sc.ac[i] = &ac[ta];
+      blocks += sc.comps[i]->h * sc.comps[i]->v;
+    }
+    if (sc.ns > 1 && blocks > 10) return kCorrupt;  // D_MAX_BLOCKS_IN_MCU
+    const uint8_t* q = b + 1 + 2 * sc.ns;
+    sc.ss = q[0];
+    sc.se = q[1];
+    sc.ah = q[2] >> 4;
+    sc.al = q[2] & 15;
+    ++scans;
+    if (color < 0) color = pick_color();
+    for (int i = 0; i < sc.ns; ++i) {  // latch_quant_tables
+      Component& c = *sc.comps[i];
+      if (c.latched) continue;
+      if (!qdefined[c.tq]) return kCorrupt;
+      memcpy(c.qt, qtables[c.tq], sizeof(c.qt));
+      c.latched = true;
+    }
+    if (!frame.progressive) {  // jdhuff.c: Ss, Se, Ah/Al are not checked
+      for (int i = 0; i < sc.ns; ++i)
+        if (!usable(*sc.dc[i], true) || !usable(*sc.ac[i], false)) return kCorrupt;
+      return kOk;
+    }
+    // jdphuff.c's start_pass_phuff_decoder
+    const bool dc_band = sc.ss == 0;
+    bool bad = dc_band ? sc.se != 0 : (sc.ss > sc.se || sc.se > 63 || sc.ns != 1);
+    if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
+    if (sc.al > 13) bad = true;
+    if (bad) return kCorrupt;
+    const int lo = sc.ss < 1 ? sc.ss : 1, hi = sc.se > 9 ? sc.se : 9;
+    for (int i = 0; i < sc.ns; ++i) {
+      Component& c = *sc.comps[i];
+      for (int k = lo; k <= hi; ++k) c.prev_bits[k] = scans > 1 ? c.bits[k] : 0;
+      for (int k = sc.ss; k <= sc.se; ++k) c.bits[k] = sc.al;
+      if (dc_band ? (sc.ah == 0 && !usable(*sc.dc[i], true)) : !usable(*sc.ac[i], false))
+        return kCorrupt;
+    }
+    return kOk;
+  }
+
+  // jdmarker.c's jpeg_resync_to_restart, for a marker other than the
+  // expected RSTn: 1 discard it, 2 skip to the next marker and decide
+  // again, 3 leave it (the entropy decoder then reads an empty segment).
+  void resync(int desired) {
+    for (;;) {
+      const int m = unread;
+      int action;
+      if (m < 0xC0) {
+        action = 2;
+      } else if (m < 0xD0 || m > 0xD7) {
+        action = 3;
+      } else if (m == 0xD0 + ((desired + 1) & 7) || m == 0xD0 + ((desired + 2) & 7)) {
+        action = 3;
+      } else if (m == 0xD0 + ((desired - 1) & 7) || m == 0xD0 + ((desired - 2) & 7)) {
+        action = 2;
+      } else {
+        action = 1;
+      }
+      if (action == 1) {
+        unread = 0;
+        return;
+      }
+      if (action == 3) return;
+      unread = next_marker();
+    }
+  }
+
+  // Decodes one scan's entropy-coded data into the components' coefficients.
+  void decode_scan(const Scan& sc) {
+    const bool prog = frame.progressive;
+    const bool dc_band = sc.ss == 0;
     int mcux, mcuy;
-    if (ns == 1) {
-      mcux = comps[0]->bw;
-      mcuy = comps[0]->bh;
+    if (sc.ns == 1) {
+      mcux = sc.comps[0]->bw;
+      mcuy = sc.comps[0]->bh;
     } else {
       mcux = ceil_div(frame.width, 8 * frame.hmax);
       mcuy = ceil_div(frame.height, 8 * frame.vmax);
     }
     const int total = mcux * mcuy;
-    int next_rst = 0;
+    BitReader br(s, pos, unread);
+    int pred[4] = {0, 0, 0, 0};
+    int eobrun = 0, restarts_to_go = restart, next_rst = 0;
+    bool insufficient = false;
+    const int p1 = 1 << sc.al, m1 = -1 * (1 << sc.al);
     for (int m = 0; m < total; ++m) {
-      if (restart && m > 0 && m % restart == 0) {
-        const int code = br.next_marker();
-        if (code < 0) return kTruncated;
-        if (code != 0xD0 + next_rst) return kCorrupt;
+      if (restart && restarts_to_go == 0) {  // process_restart
+        br.reset();
+        if (!unread) unread = next_marker();
+        if (unread == 0xD0 + next_rst)
+          unread = 0;
+        else
+          resync(next_rst);
         next_rst = (next_rst + 1) & 7;
         pred[0] = pred[1] = pred[2] = pred[3] = 0;
+        eobrun = 0;
+        restarts_to_go = restart;
+        if (!unread) insufficient = false;
       }
       const int my = m / mcux, mx = m % mcux;
-      for (int i = 0; i < ns; ++i) {
-        Component& c = *comps[i];
-        const int bh = ns == 1 ? 1 : c.v, bw = ns == 1 ? 1 : c.h;
-        for (int v = 0; v < bh; ++v)
-          for (int h = 0; h < bw; ++h) {
-            const int by = my * bh + v, bx = mx * bw + h;
-            int16_t* blk = &c.coef[((size_t)by * c.stride_w + bx) * 64];
-            const int err = decode_block(br, dc[td[i]], ac[ta[i]], pred[i], blk);
-            if (err) return err;
-          }
+      if (!insufficient) {
+        last_good = sc.ns == 1 ? my / sc.comps[0]->v : my;  // as consume_data sets it
+        for (int i = 0; i < sc.ns; ++i) {
+          Component& c = *sc.comps[i];
+          const int bh = sc.ns == 1 ? 1 : c.v, bw = sc.ns == 1 ? 1 : c.h;
+          for (int v = 0; v < bh; ++v)
+            for (int h = 0; h < bw; ++h) {
+              int16_t* blk = &c.coef[((size_t)(my * bh + v) * c.stride_w + mx * bw + h) * 64];
+              if (!prog) {
+                decode_sequential(br, *sc.dc[i], *sc.ac[i], pred[i], blk);
+              } else if (dc_band && sc.ah == 0) {  // decode_mcu_DC_first
+                const int t = br.decode(*sc.dc[i]);
+                pred[i] += t ? extend(br.bits(t), t) : 0;
+                blk[0] = (int16_t)(pred[i] * (1 << sc.al));
+              } else if (dc_band) {  // decode_mcu_DC_refine
+                if (br.bits(1)) blk[0] |= p1;
+              } else if (sc.ah == 0) {
+                ac_first(br, *sc.ac[i], sc, eobrun, blk);
+              } else {
+                ac_refine(br, *sc.ac[i], sc, p1, m1, eobrun, blk);
+              }
+            }
+        }
+        if (br.overrun) insufficient = true;
+      }
+      if (restart) --restarts_to_go;
+    }
+  }
+
+  static void decode_sequential(BitReader& br, const Huffman& dc, const Huffman& ac, int& pred,
+                                int16_t* blk) {
+    const int s = br.decode(dc);
+    if (s) pred += extend(br.bits(s), s);
+    blk[0] = (int16_t)pred;
+    for (int k = 1; k < 64; ++k) {
+      const int rs = br.decode(ac);
+      const int r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        k += r;
+        blk[kNatural[k]] = (int16_t)extend(br.bits(sz), sz);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        break;
       }
     }
-    // leave p on the marker after the scan
-    const uint8_t* cur = br.p;
-    while (cur < end && !(cur[0] == 0xFF && cur + 1 < end && cur[1] != 0x00 && cur[1] != 0xFF &&
-                          !(cur[1] >= 0xD0 && cur[1] <= 0xD7)))
-      ++cur;
-    p = cur;
-    return kOk;
+  }
+
+  // jdphuff.c's decode_mcu_AC_first
+  static void ac_first(BitReader& br, const Huffman& t, const Scan& sc, int& eobrun,
+                       int16_t* blk) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = sc.ss; k <= sc.se; ++k) {
+      const int rs = br.decode(t);
+      int r = rs >> 4;
+      const int sz = rs & 15;
+      if (sz) {
+        k += r;
+        blk[kNatural[k]] = (int16_t)(extend(br.bits(sz), sz) * (1 << sc.al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.bits(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c's decode_mcu_AC_refine
+  static void ac_refine(BitReader& br, const Huffman& t, const Scan& sc, int p1, int m1,
+                        int& eobrun, int16_t* blk) {
+    int k = sc.ss;
+    auto correct = [&](int16_t& coef) {
+      if (br.bits(1) && (coef & p1) == 0) coef = (int16_t)(coef + (coef >= 0 ? p1 : m1));
+    };
+    if (eobrun == 0) {
+      for (; k <= sc.se; ++k) {
+        const int rs = br.decode(t);
+        int r = rs >> 4, sz = rs & 15, val = 0;
+        if (sz) {
+          val = br.bits(1) ? p1 : m1;  // a size other than 1 only warns
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.bits(r);
+          break;
+        }
+        do {
+          int16_t& coef = blk[kNatural[k]];
+          if (coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= sc.se);
+        if (val) blk[kNatural[k]] = (int16_t)val;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= sc.se; ++k) {
+        int16_t& coef = blk[kNatural[k]];
+        if (coef != 0) correct(coef);
+      }
+      --eobrun;
+    }
   }
 
   void app(int code, const uint8_t* b, int len) {
@@ -653,58 +925,82 @@ struct Parser {
     }
   }
 
-  int color() const {
-    if (frame.comps.size() == 1) return kGrey;
+  // jdapimin.c's default_decompress_parms
+  int pick_color() const {
+    const size_t nc = frame.comps.size();
+    if (nc == 1) return kGrey;
+    if (nc == 4) return adobe && adobe_transform != 0 ? kYCCK : kCMYK;
     if (jfif) return kYCbCr;
     if (adobe) return adobe_transform == 0 ? kRGB : kYCbCr;
     const int a = frame.comps[0].id, b = frame.comps[1].id, c = frame.comps[2].id;
     return (a == 82 && b == 71 && c == 66) ? kRGB : kYCbCr;
   }
 
+  // jdcoefct.c's smoothing_ok at the start of the output pass: true (and
+  // `sm` filled) for a progressive frame whose DCs are all at least partly
+  // known and some of whose first 9 ACs are not fully known.
+  bool smoothing(Smoothing& sm) const {
+    if (!frame.progressive) return false;
+    bool useful = false;
+    sm.total_rows = ceil_div(frame.height, 8 * frame.vmax);
+    sm.last_good = last_good;
+    sm.bits.assign(frame.comps.size() * kSavedCoefs, 0);
+    sm.prev.assign(frame.comps.size() * kSavedCoefs, 0);
+    for (size_t ci = 0; ci < frame.comps.size(); ++ci) {
+      const Component& c = frame.comps[ci];
+      if (!c.latched) return false;
+      for (int pos : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+        if (c.qt[pos] == 0) return false;
+      if (c.bits[0] < 0) return false;
+      for (int k = 0; k < kSavedCoefs; ++k) {
+        sm.bits[ci * kSavedCoefs + k] = c.bits[k];
+        sm.prev[ci * kSavedCoefs + k] = scans > 1 ? c.prev_bits[k] : -1;
+        if (k && c.bits[k] != 0) useful = true;
+      }
+    }
+    return useful;
+  }
+
   // Parses markers until the frame header (header_only) or the end of the
-  // image; returns an Error.
+  // image, decoding every scan; returns an Error.
   int run(bool header_only) {
-    if (end - p < 2 || p[0] != 0xFF || p[1] != 0xD8) return kNotJpeg;
-    p += 2;
+    if (s[0] != 0xFF || s[1] != 0xD8) return kNotJpeg;
+    pos = 2;
+    std::vector<uint8_t> body;
     while (true) {
-      const int code = marker();
-      if (code < 0) {
-        if (!have_frame) return kTruncated;
-        if (header_only) return kOk;
-        for (const Component& c : frame.comps)
-          if (!c.coded) return kTruncated;
-        return kOk;  // every component decoded; a missing EOI only warns in libjpeg
-      }
-      if (code == 0xD9) {
-        if (!have_frame) return kCorrupt;
-        for (const Component& c : frame.comps)
-          if (!c.coded) return header_only ? kOk : kTruncated;
-        return kOk;
-      }
+      const int code = read_marker();
+      if (code == 0xD9) return scans ? (int)kOk : (int)kNoScan;
       if (code == 0x01 || (code >= 0xD0 && code <= 0xD7)) continue;  // TEM, stray RSTn
-      const uint8_t* body;
-      int len, err;
-      if ((err = segment(body, len))) return err;
-      if (code >= 0xC0 && code <= 0xCF && code != 0xC4 && code != 0xC8 && code != 0xCC) {
-        if ((err = sof(code, body, len))) return err;
-        if (header_only) return kOk;
-      } else if (code == 0xC4) {
-        if ((err = dht(body, len))) return err;
+      if (code == 0xD8) return kCorrupt;                              // a second SOI
+      const bool known = (code >= 0xC0 && code <= 0xCF) || (code >= 0xDA && code <= 0xDD) ||
+                         code >= 0xE0;
+      if (!known || (code >= 0xF0 && code <= 0xFD)) return kCorrupt;  // JPGn, RESn, DHP, EXP
+      int err = segment(body);
+      if (err) return err;
+      const uint8_t* b = body.data();
+      const int len = (int)body.size();
+      if (code == 0xC4) {
+        err = dht(b, len);
       } else if (code == 0xCC) {
-        return kArithmetic;  // DAC
+        err = kArithmetic;  // DAC
+      } else if (code == 0xC8) {
+        err = kCorrupt;  // JPG
+      } else if (code >= 0xC0 && code <= 0xCF) {
+        err = sof(code, b, len);
+        if (!err && header_only) return kOk;
       } else if (code == 0xDB) {
-        if ((err = dqt(body, len))) return err;
+        err = dqt(b, len);
       } else if (code == 0xDD) {
-        if (len < 2) return kCorrupt;
-        restart = body[0] << 8 | body[1];
+        if (len != 2) return kCorrupt;
+        restart = b[0] << 8 | b[1];
       } else if (code == 0xDA) {
         if (header_only) return kCorrupt;
-        if ((err = sos(body, len))) return err;
+        Scan sc;
+        if (!(err = parse_sos(b, len, sc))) decode_scan(sc);
       } else if (code >= 0xE0 && code <= 0xEF) {
-        app(code, body, len);
-      } else if (code == 0xDC) {
-        return kCorrupt;  // DNL: the height is not in the frame header
-      }  // COM and anything else: skipped
+        app(code, b, len);
+      }  // COM and DNL: skipped
+      if (err) return err;
     }
   }
 };
@@ -742,7 +1038,8 @@ extern "C" int htd_jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, 
     const int err = ps.run(false);
     if (err) return err;
     if (ps.frame.height != height || ps.frame.width != width) return (int)kBadArgument;
-    return reconstruct(ps.frame, ps.color(), out);
+    Smoothing sm;
+    return reconstruct(ps.frame, ps.color, ps.smoothing(sm) ? &sm : nullptr, out);
   });
 }
 
@@ -787,6 +1084,6 @@ extern "C" int htd_jpeg_reconstruct(int32_t ncomp, const int32_t* samp, const ui
       left -= n;
     }
     if (left) return (int)kBadArgument;
-    return reconstruct(f, color, out);
+    return reconstruct(f, color, nullptr, out);
   });
 }

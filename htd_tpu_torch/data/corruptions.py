@@ -3,22 +3,21 @@
 Dietterich, ICLR 2019, as the reference's `Corrupt` pipeline step applies
 them to the raw image before Resize).
 
-The registry (`BENCHMARK_CORRUPTIONS`, `HOLDOUT_CORRUPTIONS`,
-`ALL_CORRUPTIONS`, `GROUPS`), `corrupt` and `CorruptedDataset` name all 19
-corruptions. Ten of them are ported (`PORTED_CORRUPTIONS`), each bit-equal
-to the JAX package's on uint8 BGR images:
-- the four noises, `fog` and `contrast`: the same numpy arithmetic and
-  `RandomState` draws;
-- `brightness` and `saturate`: OpenCV's uint8 BGR/HSV conversions, here
+All 19 corruptions of the registry (`BENCHMARK_CORRUPTIONS`,
+`HOLDOUT_CORRUPTIONS`, `ALL_CORRUPTIONS`, `GROUPS`) are here, each a copy of
+the JAX package's function with the same `RandomState` draws in the same
+order, bit-equal to it on uint8 BGR images. Where the reference calls
+OpenCV or PIL, the port calls its own copy of the routine:
+- the noises, `fog`, `contrast` and the pixel swaps of `glass_blur`: the
+  same numpy arithmetic;
+- `brightness`, `saturate`: OpenCV's uint8 BGR/HSV conversions,
   `data.imgproc.bgr_to_hsv` / `hsv_to_bgr`;
-- `pixelate`: OpenCV's `INTER_AREA` and `INTER_NEAREST` resizes, here
-  `data.imgproc.resize_area` / `resize_nearest`;
-- `jpeg_compression`: PIL's JPEG round trip, here
-  `data.jpeg.compress_roundtrip` (libjpeg-turbo's arithmetic, the decoder's
-  back end in C++).
-The other nine (the blurs, `snow`, `frost`, `elastic_transform`,
-`spatter`) rest on OpenCV's float32 filters and warps, which the port has
-not reproduced yet: `corrupt` raises `NotImplementedError` for them.
+- `pixelate`: `imgproc.resize_area` / `resize_nearest`;
+- `jpeg_compression`: PIL's JPEG round trip, `data.jpeg.compress_roundtrip`;
+- the blurs, `snow`, `frost`, `elastic_transform`, `spatter`: OpenCV's
+  float32 `GaussianBlur`, `filter2D`, `warpAffine`, `remap` and INTER_LINEAR
+  `resize`, `getRotationMatrix2D`, `getAffineTransform` and uint8
+  `BGR2GRAY`, as `data.imgproc` reproduces them.
 """
 
 from __future__ import annotations
@@ -92,6 +91,92 @@ def speckle_noise(img, severity, seed=0):
     return _to_uint8(x + x * _rng(seed).normal(size=x.shape, scale=c))
 
 
+# ---------------------------------------------------------------- blur
+
+
+def _gaussian_blur(x: np.ndarray, sigma: float) -> np.ndarray:
+    k = int(2 * round(3.5 * sigma) + 1)
+    return imgproc.gaussian_blur(x, (k, k), sigma, border=imgproc.BORDER_REFLECT)
+
+
+def gaussian_blur(img, severity, seed=0):
+    c = [1, 2, 3, 4, 6][severity - 1]
+    return _to_uint8(_gaussian_blur(_to_float(img), c))
+
+
+def _disk_kernel(radius: int, alias_blur: float) -> np.ndarray:
+    if radius <= 8:
+        coords = np.arange(-8, 8 + 1)
+        ksize = (3, 3)
+    else:
+        coords = np.arange(-radius, radius + 1)
+        ksize = (5, 5)
+    xx, yy = np.meshgrid(coords, coords)
+    disk = ((xx ** 2 + yy ** 2) <= radius ** 2).astype(np.float32)
+    disk /= disk.sum()
+    return imgproc.gaussian_blur(disk, ksize, alias_blur)
+
+
+def defocus_blur(img, severity, seed=0):
+    radius, alias = [(3, 0.1), (4, 0.5), (6, 0.5), (8, 0.5), (10, 0.5)][severity - 1]
+    x = _to_float(img)
+    kern = _disk_kernel(radius, alias)
+    return _to_uint8(imgproc.filter2d(x, kern, border=imgproc.BORDER_REFLECT))
+
+
+def glass_blur(img, severity, seed=0):
+    """Gaussian blur + iterated local pixel swaps (vectorized: each pass
+    swaps every interior pixel with a random neighbour within max_delta)."""
+    sigma, max_delta, iters = [
+        (0.7, 1, 2), (0.9, 2, 1), (1.0, 2, 3), (1.1, 3, 2), (1.5, 4, 2)
+    ][severity - 1]
+    r = _rng(seed)
+    x = _gaussian_blur(_to_float(img), sigma)
+    h, w = x.shape[:2]
+    ys, xs = np.mgrid[0:h, 0:w]
+    for _ in range(iters):
+        dy = r.randint(-max_delta, max_delta + 1, size=(h, w))
+        dx = r.randint(-max_delta, max_delta + 1, size=(h, w))
+        ny = np.clip(ys + dy, 0, h - 1)
+        nx = np.clip(xs + dx, 0, w - 1)
+        swapped = x[ny, nx]
+        # the reference's two fancy-index assignments, repeated indices and
+        # all (numpy keeps the last write)
+        x[ys, xs], x[ny, nx] = swapped, x[ys, xs].copy()
+    return _to_uint8(_gaussian_blur(x, sigma))
+
+
+def motion_blur(img, severity, seed=0):
+    size, sigma = [(10, 3), (15, 5), (15, 8), (15, 12), (20, 15)][severity - 1]
+    angle = _rng(seed).uniform(-45, 45)
+    # line kernel of length `size` blurred along its axis with `sigma`
+    k = np.zeros((size, size), np.float32)
+    k[size // 2, :] = 1.0
+    k = imgproc.gaussian_blur(k, (1, 2 * int(sigma) + 1), 0, sigma)
+    rot = imgproc.rotation_matrix_2d((size / 2 - 0.5, size / 2 - 0.5), angle, 1.0)
+    k = imgproc.warp_affine(k, rot, (size, size))
+    k /= max(k.sum(), 1e-8)
+    x = _to_float(img)
+    return _to_uint8(imgproc.filter2d(x, k, border=imgproc.BORDER_REFLECT))
+
+
+def zoom_blur(img, severity, seed=0):
+    c = [
+        np.arange(1, 1.11, 0.01), np.arange(1, 1.16, 0.01),
+        np.arange(1, 1.21, 0.02), np.arange(1, 1.26, 0.02),
+        np.arange(1, 1.31, 0.03),
+    ][severity - 1]
+    x = _to_float(img)
+    h, w = x.shape[:2]
+    out = np.zeros_like(x)
+    for zoom in c:
+        zh, zw = int(np.ceil(h * zoom)), int(np.ceil(w * zoom))
+        z = imgproc.resize_linear(x, (zw, zh))
+        top, left = (zh - h) // 2, (zw - w) // 2
+        out += z[top : top + h, left : left + w]
+    return _to_uint8((x + out) / (len(c) + 1))
+
+
 # ---------------------------------------------------------------- weather
 
 
@@ -135,6 +220,48 @@ def fog(img, severity, seed=0):
     return _to_uint8(x * mx / max(mx + c, 1e-8))
 
 
+def frost(img, severity, seed=0):
+    """Procedural frost (the reference's: no bundled textures)."""
+    xw, fw = [(1.0, 0.4), (0.8, 0.6), (0.7, 0.7), (0.65, 0.7), (0.6, 0.75)][
+        severity - 1
+    ]
+    x = _to_float(img)
+    r = _rng(seed)
+    h, w = x.shape[:2]
+    base = _plasma_fractal(h, w, 1.8, r)
+    crystals = _gaussian_blur(r.uniform(size=(h, w)).astype(np.float32), 1.0)
+    layer = np.clip((base * 0.6 + crystals * 0.6) - 0.35, 0, 1) * 1.6
+    layer = np.clip(layer, 0, 1)[..., None] * np.array([1.0, 0.98, 0.94], np.float32)
+    return _to_uint8(xw * x + fw * layer)
+
+
+def snow(img, severity, seed=0):
+    loc, scale, zoom, thr, blur_sigma, blend = [
+        (0.1, 0.3, 3.0, 0.5, 4, 0.8),
+        (0.2, 0.3, 2.0, 0.5, 4, 0.7),
+        (0.55, 0.3, 4.0, 0.9, 8, 0.7),
+        (0.55, 0.3, 4.5, 0.85, 8, 0.65),
+        (0.55, 0.3, 2.5, 0.85, 12, 0.55),
+    ][severity - 1]
+    r = _rng(seed)
+    x = _to_float(img)
+    h, w = x.shape[:2]
+    layer = r.normal(size=(h, w), loc=loc, scale=scale).astype(np.float32)
+    zh, zw = int(np.ceil(h * zoom)), int(np.ceil(w * zoom))
+    layer = imgproc.resize_linear(layer, (zw, zh))[:h, :w]
+    layer[layer < thr] = 0.0
+    # streak the flakes like the motion-blurred reference layer
+    k = np.zeros((blur_sigma * 2 + 1, blur_sigma * 2 + 1), np.float32)
+    k[:, blur_sigma] = 1.0
+    ang = imgproc.rotation_matrix_2d((blur_sigma, blur_sigma), r.uniform(-135, -45), 1.0)
+    k = imgproc.warp_affine(k, ang, k.shape[::-1])
+    k /= max(k.sum(), 1e-8)
+    layer = imgproc.filter2d(layer, k)[..., None]
+    gray = imgproc.bgr_to_gray(_to_uint8(x)).astype(np.float32) / 255.0
+    whitened = blend * x + (1 - blend) * np.maximum(x, gray[..., None] * 1.5 + 0.5)
+    return _to_uint8(np.clip(whitened + layer + np.rot90(layer, 2), 0, 1))
+
+
 def brightness(img, severity, seed=0):
     c = [0.1, 0.2, 0.3, 0.4, 0.5][severity - 1]
     hsv = imgproc.bgr_to_hsv(img).astype(np.float32)
@@ -159,6 +286,38 @@ def contrast(img, severity, seed=0):
     return _to_uint8((x - mean) * c + mean)
 
 
+def elastic_transform(img, severity, seed=0):
+    """Affine jitter + gaussian-smoothed random displacement field."""
+    h, w = img.shape[:2]
+    shape_size = np.array([h, w], np.float32)
+    # (displacement alpha, field sigma, affine sigma) as fractions of size
+    a, s, aff = [
+        (0.05, 0.3, 0.06), (0.065, 0.3, 0.06), (0.085, 0.22, 0.045),
+        (0.11, 0.16, 0.03), (0.16, 0.1, 0.02),
+    ][severity - 1]
+    alpha = a * min(h, w)
+    sigma = s * min(h, w)
+    r = _rng(seed)
+
+    center = shape_size[::-1] / 2.0  # (x, y)
+    sq = min(h, w) // 3
+    pts1 = np.float32([
+        center + sq, [center[0] + sq, center[1] - sq], center - sq
+    ])
+    pts2 = pts1 + r.uniform(-aff * min(h, w), aff * min(h, w), pts1.shape).astype(
+        np.float32
+    )
+    m = imgproc.affine_transform(pts1, pts2)
+    x = imgproc.warp_affine(_to_float(img), m, (w, h), border=imgproc.BORDER_REFLECT_101)
+
+    k = int(2 * round(3 * sigma) + 1)
+    dx = imgproc.gaussian_blur(r.uniform(-1, 1, (h, w)).astype(np.float32), (k, k), sigma) * alpha
+    dy = imgproc.gaussian_blur(r.uniform(-1, 1, (h, w)).astype(np.float32), (k, k), sigma) * alpha
+    xs, ys = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    out = imgproc.remap(x, xs + dx, ys + dy, border=imgproc.BORDER_REFLECT_101)
+    return _to_uint8(out)
+
+
 def pixelate(img, severity, seed=0):
     c = [0.6, 0.5, 0.4, 0.3, 0.25][severity - 1]
     h, w = img.shape[:2]
@@ -171,19 +330,50 @@ def jpeg_compression(img, severity, seed=0):
     return compress_roundtrip(img, c)
 
 
+def spatter(img, severity, seed=0):
+    """Water (sev 1-3: glossy highlight blobs) / mud (sev 4-5: brown blobs)."""
+    loc, scale, sigma, thr, mud = [
+        (0.65, 0.3, 4, 0.69, False), (0.65, 0.3, 3, 0.68, False),
+        (0.65, 0.3, 2, 0.68, False), (0.65, 0.3, 1, 0.65, True),
+        (0.67, 0.4, 1, 0.65, True),
+    ][severity - 1]
+    r = _rng(seed)
+    x = _to_float(img)
+    h, w = x.shape[:2]
+    liquid = r.normal(size=(h, w), loc=loc, scale=scale).astype(np.float32)
+    liquid = _gaussian_blur(liquid, sigma)
+    mask = (liquid > thr).astype(np.float32)
+    mask = _gaussian_blur(mask, 0.8)
+    if not mud:
+        # water: bluish translucent sheen
+        color = np.array([0.85, 0.7, 0.55], np.float32)  # BGR light blue
+        return _to_uint8(x * (1 - 0.55 * mask[..., None]) +
+                         0.55 * mask[..., None] * color)
+    color = np.array([0.24, 0.42, 0.63], np.float32)  # BGR mud brown
+    return _to_uint8(x * (1 - mask[..., None]) + mask[..., None] * color)
+
+
 _CORRUPTIONS = {
     "gaussian_noise": gaussian_noise,
     "shot_noise": shot_noise,
     "impulse_noise": impulse_noise,
     "speckle_noise": speckle_noise,
+    "gaussian_blur": gaussian_blur,
+    "defocus_blur": defocus_blur,
+    "glass_blur": glass_blur,
+    "motion_blur": motion_blur,
+    "zoom_blur": zoom_blur,
+    "snow": snow,
+    "frost": frost,
     "fog": fog,
     "brightness": brightness,
     "contrast": contrast,
+    "elastic_transform": elastic_transform,
     "pixelate": pixelate,
     "jpeg_compression": jpeg_compression,
+    "spatter": spatter,
     "saturate": saturate,
 }
-PORTED_CORRUPTIONS = [c for c in ALL_CORRUPTIONS if c in _CORRUPTIONS]
 
 
 def corrupt(
@@ -192,22 +382,17 @@ def corrupt(
     """Apply `corruption` at `severity` in [1, 5] to a uint8 BGR image.
 
     Severity 0 returns the image unchanged (reference test_robustness.py:243
-    treats severity 0 as the clean baseline). A corruption of the registry
-    that is not ported yet raises `NotImplementedError`."""
+    treats severity 0 as the clean baseline)."""
     if severity == 0:
         return img
     if not 1 <= severity <= 5:
         raise ValueError(f"severity must be in [0, 5], got {severity}")
-    if corruption not in ALL_CORRUPTIONS:
+    if corruption not in _CORRUPTIONS:
         raise ValueError(
-            f"unknown corruption {corruption!r}; options: {sorted(ALL_CORRUPTIONS)}"
+            f"unknown corruption {corruption!r}; options: {sorted(_CORRUPTIONS)}"
         )
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"expected uint8 HWC BGR image, got {img.dtype} {img.shape}")
-    if corruption not in _CORRUPTIONS:
-        raise NotImplementedError(
-            f"corruption {corruption!r} is not ported yet; ported: {PORTED_CORRUPTIONS}"
-        )
     return _CORRUPTIONS[corruption](img, severity, seed=seed)
 
 

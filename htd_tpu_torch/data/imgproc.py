@@ -1,18 +1,34 @@
-"""OpenCV's uint8 colour conversions and resizes that the corruptions use,
-in numpy on the host, bit for bit.
+"""OpenCV's image routines that the corruptions use, on the host, bit for
+bit with OpenCV 5 as it runs on x86-64.
 
+uint8, in numpy:
 - `bgr_to_hsv`: `cv2.cvtColor(img, COLOR_BGR2HSV)` for uint8 (H in 0-179):
   the fixed-point division tables `sdiv_table` and `hdiv_table180` with
   `hsv_shift = 12` and their rounding.
 - `hsv_to_bgr`: `COLOR_HSV2BGR` for uint8: float32 arithmetic on S and V
   scaled by 1/255 with OpenCV's fused multiply-adds, each channel times
   255 truncated in OpenCV's vector loop and rounded in its scalar tail.
+- `bgr_to_gray`: `COLOR_BGR2GRAY` for uint8, (3735 B + 19235 G + 9798 R +
+  2**14) >> 15.
 - `resize_area`: `cv2.resize(..., INTER_AREA)` when shrinking: the
   whole-factor fast path (2x2 as `(a + b + c + d + 2) >> 2`, other factors
   as the int sum times the float reciprocal of the area) and the general
   path with float32 area weights summed in OpenCV's order.
 - `resize_nearest`: `cv2.resize(..., INTER_NEAREST)`, source index
   `floor(x * (1 / fx))` in double precision.
+
+float32, the loops in C++ (`csrc/imgproc.cpp`, in the host library that
+`ops._build.load_host` builds, whose header gives each routine's order of
+operations):
+- `gaussian_blur`: `cv2.GaussianBlur` (sepFilter2D with `gaussian_kernel`'s
+  taps; a one-row or one-column image is not filtered across it);
+- `filter2d`: `cv2.filter2D`, direct under 130 taps, in float64 from 130;
+- `warp_affine`, `remap`: INTER_LINEAR in float coordinates;
+- `resize_linear`: `cv2.resize(..., INTER_LINEAR)`.
+
+float64, in Python: `gaussian_kernel` (`getGaussianKernel` for CV_32F),
+`rotation_matrix_2d` (`getRotationMatrix2D`), `affine_transform`
+(`getAffineTransform`: OpenCV's LU solve of the 6x6 system).
 """
 
 from __future__ import annotations
@@ -155,3 +171,187 @@ def resize_nearest(img: np.ndarray, dsize) -> np.ndarray:
     xs = np.minimum(np.floor(np.arange(dw) * ifx).astype(np.int64), sw - 1)
     ys = np.minimum(np.floor(np.arange(dh) * ify).astype(np.int64), sh - 1)
     return np.ascontiguousarray(img[ys[:, None], xs[None, :]])
+
+
+def bgr_to_gray(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 BGR -> (H, W) uint8, as `cv2.cvtColor(img, COLOR_BGR2GRAY)`."""
+    b, g, r = (img[..., i].astype(np.int64) for i in range(3))
+    return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15).astype(np.uint8)
+
+
+# ---------------------------------------------------------------- float32
+
+# OpenCV's border codes
+BORDER_CONSTANT, BORDER_REFLECT, BORDER_REFLECT_101 = 0, 2, 4
+
+# getGaussianKernel's fixed kernels for sigma <= 0
+_SMALL_GAUSSIANS = {1: [1.0], 3: [0.25, 0.5, 0.25], 5: [0.0625, 0.25, 0.375, 0.25, 0.0625],
+                    7: [0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125],
+                    9: [4 / 256, 13 / 256, 30 / 256, 51 / 256, 60 / 256, 51 / 256, 30 / 256,
+                        13 / 256, 4 / 256]}
+
+
+def gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
+    """`cv2.getGaussianKernel(ksize, sigma, CV_32F)` as (ksize,) float32:
+    OpenCV's float64 taps (x doubled, so exp(x^2 * -0.125 / sigma^2)), each
+    divided by their sum, then rounded to float32."""
+    if sigma <= 0 and ksize in _SMALL_GAUSSIANS:
+        return np.array(_SMALL_GAUSSIANS[ksize], np.float32)
+    s = sigma if sigma > 0 else ksize * 0.15 + 0.35
+    scale = -0.125 / (s * s)
+    half = (ksize - 1) // 2
+    taps = [math.exp(float(x * x) * scale) for x in range(1 - ksize, 1 - ksize + 2 * half, 2)]
+    total = 0.0
+    for t in taps:
+        total += t
+    total = total * 2 + 1 + (ksize % 2 == 0)
+    mul = 1.0 / total
+    out = np.full(ksize, mul)
+    for i, t in enumerate(taps):
+        out[i] = out[ksize - 1 - i] = t * mul
+    return out.astype(np.float32)
+
+
+def _host():
+    from htd_tpu_torch.ops import _build
+
+    return _build.load_host()[0]
+
+
+def _f32_image(x: np.ndarray):
+    """A C-contiguous float32 copy of x as (H, W, cn), and whether x was 2-D."""
+    x = np.ascontiguousarray(x, np.float32)
+    if x.ndim not in (2, 3) or 0 in x.shape:
+        raise ValueError(f"expected a non-empty (H, W) or (H, W, C) image, got {x.shape}")
+    return (x[..., None] if x.ndim == 2 else x), x.ndim == 2
+
+
+def _call(name: str, *args) -> None:
+    code = getattr(_host(), name)(*args)
+    if code:
+        raise (MemoryError if code == 2 else ValueError)(f"{name}: bad arguments ({code})")
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def gaussian_blur(x: np.ndarray, ksize, sigma_x: float, sigma_y: float = 0.0,
+                  border: int = BORDER_REFLECT_101) -> np.ndarray:
+    """`cv2.GaussianBlur(x, ksize, sigma_x, sigmaY=sigma_y, borderType=border)`
+    for float32, ksize = (width, height) odd; border BORDER_REFLECT or
+    BORDER_REFLECT_101 (OpenCV's default), reflected as often as a kernel
+    wider than the image needs."""
+    img, squeeze = _f32_image(x)
+    h, w, cn = img.shape
+    kw, kh = ksize
+    kx = gaussian_kernel(kw, sigma_x) if w > 1 else np.ones(1, np.float32)
+    ky = gaussian_kernel(kh, sigma_y if sigma_y > 0 else sigma_x) if h > 1 else np.ones(
+        1, np.float32)
+    out = np.empty_like(img)
+    _call("htd_sep_filter_f32", _ptr(img), h, w, cn, _ptr(kx), kx.size, _ptr(ky), ky.size,
+          border, _ptr(out))
+    return out[..., 0] if squeeze else out
+
+
+def filter2d(x: np.ndarray, kernel: np.ndarray, border: int = BORDER_REFLECT_101) -> np.ndarray:
+    """`cv2.filter2D(x, -1, kernel, borderType=border)` for float32: the
+    correlation with `kernel`, anchored at its centre."""
+    img, squeeze = _f32_image(x)
+    k = np.ascontiguousarray(kernel, np.float32)
+    if k.ndim != 2:
+        raise ValueError(f"expected a 2-D kernel, got {k.shape}")
+    out = np.empty_like(img)
+    _call("htd_filter2d_f32", _ptr(img), *img.shape, _ptr(k), *k.shape, border, _ptr(out))
+    return out[..., 0] if squeeze else out
+
+
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """`cv2.getRotationMatrix2D(center, angle, scale)`: (2, 3) float64, the
+    centre rounded to float32 as OpenCV's Point2f holds it."""
+    a = angle * (math.pi / 180)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    cx, cy = (float(np.float32(c)) for c in center)
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def affine_transform(src, dst) -> np.ndarray:
+    """`cv2.getAffineTransform(src, dst)` for three float32 points each:
+    (2, 3) float64 from OpenCV's LU solve (partial pivoting, no fused
+    products), zeros where the points are collinear."""
+    src = np.asarray(src, np.float32).astype(np.float64)
+    dst = np.asarray(dst, np.float32).astype(np.float64)
+    a = [[0.0] * 6 for _ in range(6)]
+    b = [0.0] * 6
+    for i in range(3):
+        a[2 * i][0:3] = a[2 * i + 1][3:6] = [float(src[i, 0]), float(src[i, 1]), 1.0]
+        b[2 * i], b[2 * i + 1] = float(dst[i, 0]), float(dst[i, 1])
+    eps = np.finfo(np.float64).eps * 100
+    for i in range(6):
+        k = max(range(i, 6), key=lambda j: (abs(a[j][i]), -j))
+        if abs(a[k][i]) < eps:
+            return np.zeros((2, 3))
+        a[i], a[k], b[i], b[k] = a[k], a[i], b[k], b[i]
+        d = -1 / a[i][i]
+        for j in range(i + 1, 6):
+            alpha = a[j][i] * d
+            for c in range(i + 1, 6):
+                a[j][c] += alpha * a[i][c]
+            b[j] += alpha * b[i]
+    for i in range(5, -1, -1):
+        s = b[i]
+        for c in range(i + 1, 6):
+            s -= a[i][c] * b[c]
+        b[i] = s / a[i][i]
+    return np.array(b).reshape(2, 3)
+
+
+def _invert_affine(m: np.ndarray) -> np.ndarray:
+    """warpAffine's inversion of the forward map, in float64."""
+    m = [float(v) for v in np.asarray(m, np.float64).ravel()]
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, m[1] * -d, m[3] * -d, a22
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return np.array(m)
+
+
+def warp_affine(x: np.ndarray, m: np.ndarray, dsize, border: int = BORDER_CONSTANT) -> np.ndarray:
+    """`cv2.warpAffine(x, m, dsize, flags=INTER_LINEAR, borderMode=border)`
+    for float32 (a constant border is 0): the inverse of m in float64, then
+    rounded to float32 for the per-pixel arithmetic."""
+    img, squeeze = _f32_image(x)
+    w, h = dsize
+    inv = _invert_affine(m).astype(np.float32)
+    out = np.empty((h, w, img.shape[2]), np.float32)
+    _call("htd_warp_affine_f32", _ptr(img), *img.shape, _ptr(inv), h, w, border, _ptr(out))
+    return out[..., 0] if squeeze else out
+
+
+def remap(x: np.ndarray, map_x: np.ndarray, map_y: np.ndarray,
+          border: int = BORDER_CONSTANT) -> np.ndarray:
+    """`cv2.remap(x, map_x, map_y, INTER_LINEAR, borderMode=border)` for
+    float32 images and float32 maps of the output's (H, W)."""
+    img, squeeze = _f32_image(x)
+    mx = np.ascontiguousarray(map_x, np.float32)
+    my = np.ascontiguousarray(map_y, np.float32)
+    if mx.ndim != 2 or mx.shape != my.shape:
+        raise ValueError(f"maps must be two equal (H, W) arrays, got {mx.shape}, {my.shape}")
+    out = np.empty(mx.shape + (img.shape[2],), np.float32)
+    _call("htd_remap_f32", _ptr(img), *img.shape, _ptr(mx), _ptr(my), *mx.shape, border,
+          _ptr(out))
+    return out[..., 0] if squeeze else out
+
+
+def resize_linear(x: np.ndarray, dsize) -> np.ndarray:
+    """`cv2.resize(x, dsize, interpolation=INTER_LINEAR)` for float32, dsize =
+    (width, height)."""
+    img, squeeze = _f32_image(x)
+    w, h = dsize
+    out = np.empty((h, w, img.shape[2]), np.float32)
+    _call("htd_resize_linear_f32", _ptr(img), *img.shape, h, w, _ptr(out))
+    return out[..., 0] if squeeze else out

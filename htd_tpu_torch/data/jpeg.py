@@ -1,15 +1,24 @@
 """JPEG decoding on the host, and PIL's JPEG round trip.
 
-`read_jpeg` / `decode_jpeg` return what OpenCV's `cv2.imread(path,
-cv2.IMREAD_COLOR)` returns for a baseline JPEG file: (H, W, 3) uint8 in
-BGR order, grey replicated into the three channels, the EXIF orientation
-applied. The entropy decoding and the back end (dequantisation, the islow
-IDCT, fancy upsampling, YCbCr to BGR) are the C++ of `csrc/jpeg_decode.cpp`,
-built for the host by `ops._build.load_host`; they follow libjpeg-turbo
-step for step in integer arithmetic, so the pixels are OpenCV's bit for
-bit. Progressive, lossless, hierarchical, arithmetic-coded, 12-bit, 2- or
-4-component (CMYK, YCCK) and truncated files, and files of more than 2**30
-pixels (which OpenCV refuses too), raise `ValueError`.
+`read_jpeg` returns what OpenCV's `cv2.imread(path, cv2.IMREAD_COLOR)`
+returns for a JPEG file: (H, W, 3) uint8 in BGR order, grey replicated into
+the three channels, the EXIF orientation applied. It reads baseline,
+extended-sequential and progressive Huffman files with one, three or four
+components (CMYK, or YCCK by the Adobe marker, turned into BGR as OpenCV
+does), and files cut short as libjpeg's stdio source reads them: the data
+after the cut decodes as zero bits of an inserted EOI marker, and a
+progressive file's coefficients that are not fully known are estimated by
+libjpeg's block smoothing. The entropy decoding and the back end
+(dequantisation, the islow IDCT as libjpeg-turbo's SIMD computes it, fancy
+upsampling, the colour conversions) are the C++ of `csrc/jpeg_decode.cpp`,
+built for the host by `ops._build.load_host`; they follow libjpeg-turbo step
+for step in integer arithmetic, so the pixels are OpenCV's bit for bit.
+Arithmetic-coded, lossless, hierarchical and 12-bit files, 2-component
+files, files that end before their first scan (where `imread` returns
+nothing) and files of more than 2**30 pixels (which OpenCV refuses too)
+raise `ValueError` naming the file. `decode_jpeg` reads bytes as
+`read_jpeg` reads a file holding them (`cv2.imdecode` returns nothing on a
+cut-short buffer, where `imread` of the file decodes it).
 
 `compress_roundtrip` is PIL's `Image.save(format="JPEG", quality=q)`
 followed by `Image.open(...).convert("RGB")`, returned in BGR order: the
@@ -31,13 +40,12 @@ SIGNATURE = b"\xff\xd8\xff"
 # csrc/jpeg_decode.cpp's Error codes
 _ERRORS = {
     1: "not a JPEG file",
-    2: "truncated JPEG data",
-    3: "progressive JPEG files are not read",
+    2: "the JPEG data ends before its first scan",
     4: "lossless JPEG files are not read",
     5: "hierarchical JPEG files are not read",
     6: "arithmetic-coded JPEG files are not read",
     7: "only 8-bit JPEG files are read",
-    8: "only grey and 3-component JPEG files are read (not CMYK, YCCK or 2 components)",
+    8: "only grey, 3- and 4-component JPEG files are read (not 2 components)",
     9: "JPEG sampling factors whose ratios are not whole are not read",
     10: "corrupt JPEG data",
     11: "bad arguments to the JPEG back end",
@@ -122,8 +130,9 @@ def _decode(data: bytes, source: str) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """A JPEG file's bytes as (H, W, 3) uint8 BGR, as `cv2.imdecode(...,
-    IMREAD_COLOR)` gives them; raises `ValueError` on what it cannot read."""
+    """A JPEG file's bytes as (H, W, 3) uint8 BGR, as `cv2.imread(path,
+    IMREAD_COLOR)` gives them from a file; raises `ValueError` on what it
+    cannot read."""
     return _decode(bytes(data), "JPEG data")
 
 

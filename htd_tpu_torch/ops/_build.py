@@ -7,9 +7,11 @@ loads. The library lands in `htd_tpu_torch/_build/<hash>/`, keyed by a
 hash of the sources and flags, so a checkout builds it at first use and
 reuses it afterwards.
 
-The host code in `csrc/*.cpp` (the JPEG decoder) is built apart, by the
-host's C++ compiler (`$CXX`, else `c++` on `PATH`), into
-`_build/host-<hash>/`; it needs no CUDA. Nothing here runs at import time.
+The host code in `csrc/*.cpp` (the JPEG decoder, OpenCV's float32 filters
+and warps) is built apart, by the host's C++ compiler (`$CXX`, else `c++`
+on `PATH`), into `_build/host-<hash>/`, with `-ffp-contract=off` so that
+no product and sum are fused where OpenCV keeps them apart; it needs no
+CUDA. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off"]
 
 
 class BuildInfo(NamedTuple):
@@ -185,6 +187,14 @@ def load_host() -> Tuple[ctypes.CDLL, BuildInfo]:
     lib.htd_jpeg_decode.restype = ctypes.c_int
     lib.htd_jpeg_reconstruct.argtypes = [i32, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.htd_jpeg_reconstruct.restype = ctypes.c_int
+    lib.htd_sep_filter_f32.argtypes = [vp, i32, i32, i32, vp, i32, vp, i32, i32, vp]
+    lib.htd_filter2d_f32.argtypes = [vp, i32, i32, i32, vp, i32, i32, i32, vp]
+    lib.htd_warp_affine_f32.argtypes = [vp, i32, i32, i32, vp, i32, i32, i32, vp]
+    lib.htd_remap_f32.argtypes = [vp, i32, i32, i32, vp, vp, i32, i32, i32, vp]
+    lib.htd_resize_linear_f32.argtypes = [vp, i32, i32, i32, i32, i32, vp]
+    for fn in (lib.htd_sep_filter_f32, lib.htd_filter2d_f32, lib.htd_warp_affine_f32,
+               lib.htd_remap_f32, lib.htd_resize_linear_f32):
+        fn.restype = ctypes.c_int
     return lib, info
 
 

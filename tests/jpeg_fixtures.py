@@ -5,14 +5,16 @@
 The folder holds JPEG files written by OpenCV and PIL: every sampling that
 `cv2.imwrite` offers (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1), grey, a restart
 interval, PIL's optimised Huffman tables, EXIF orientations 3, 6 and 8 in
-both byte orders, odd sizes down to 1x1, qualities 5-100, one progressive
-file and four photo-sized ones (`separate_scans` writes files of one
-scan per component, which neither library does, for the tests).
-`manifest.json` gives each file's shape and
-the SHA-256 of what `cv2.imread(path, IMREAD_COLOR)` returns (the
-progressive file: that the port must refuse it). `corruptions.json` gives
-the SHA-256 of `htd_tpu.data.corruptions.corrupt` at severities 1-5 for
-each corruption the port has, on `chip_smoke.probe_image`'s two seeded
+both byte orders, odd sizes down to 1x1, qualities 5-100, progressive files
+(OpenCV's, and PIL's with optimised tables), a CMYK file (PIL's), baseline
+and progressive files cut short at two offsets each (one progressive cut in
+its first scan, one in a refinement scan, so that libjpeg's block smoothing
+runs), four photo-sized baseline files and one photo-sized progressive file
+(`separate_scans` writes files of one scan per component, which neither
+library does, for the tests). `manifest.json` gives each file's shape and
+the SHA-256 of what `cv2.imread(path, IMREAD_COLOR)` returns. `corruptions.json`
+gives the SHA-256 of `htd_tpu.data.corruptions.corrupt` at severities 1-5
+for each of the 19 corruptions, on `chip_smoke.probe_image`'s two seeded
 images. `chip_smoke.py` (phase 26) and `tests/test_torch_jpeg.py` hold the
 port to both on the machines they run on.
 """
@@ -232,6 +234,28 @@ def separate_scans(img: np.ndarray, quality: int = 75, subsampled: bool = True,
     return out + b"\xff\xd9"
 
 
+def cmyk_jpeg(img: np.ndarray, quality: int = 85, **kwargs) -> bytes:
+    """`img` (BGR) converted to CMYK and saved by PIL (Adobe marker, transform 0)."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img[..., ::-1]).convert("CMYK").save(buf, "JPEG", quality=quality, **kwargs)
+    return buf.getvalue()
+
+
+def scans(data: bytes) -> list:
+    """(start, end) of each scan's entropy-coded data: from just past its SOS
+    segment to the next marker other than RSTn."""
+    out, pos = [], 0
+    while (pos := data.find(b"\xff\xda", pos)) >= 0:
+        start = end = pos + 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        while not (data[end] == 0xFF and data[end + 1] not in (0, 0xFF, *range(0xD0, 0xD8))):
+            end += 1
+        out.append((start, end))
+        pos = end
+    return out
+
+
 def fixture_files() -> dict:
     """name -> bytes of every fixture."""
     import cv2
@@ -254,6 +278,17 @@ def fixture_files() -> dict:
         files[f"exif{o}_{'mm' if big else 'ii'}_20x36.jpg"] = with_exif(
             cv2_jpeg(pattern(10 + o, 20, 36), 85), o, big)
     files["progressive_32x48.jpg"] = cv2_jpeg(pattern(9, 32, 48), 80, progressive=True)
+    files["pil_progressive_optimize_45x38_q80.jpg"] = pil_jpeg(
+        pattern(14, 45, 38), quality=80, progressive=True, optimize=True)
+    files["pil_cmyk_27x41_q85.jpg"] = cmyk_jpeg(pattern(15, 27, 41), 85)
+    base = cv2_jpeg(pattern(16, 40, 56), 90, 420, restart=4)
+    (start, end), = scans(base)
+    for tag, cut in (("a", start + (end - start) // 3), ("b", end - 100)):
+        files[f"cut_baseline_40x56_{tag}.jpg"] = base[:cut]
+    prog = cv2_jpeg(pattern(17, 40, 56), 85, progressive=True)
+    first, refine = scans(prog)[0], scans(prog)[-2]
+    for tag, cut in (("a", (first[0] + first[1]) // 2), ("b", (refine[0] + refine[1]) // 2)):
+        files[f"cut_progressive_40x56_{tag}.jpg"] = prog[:cut]
     for i in range(4):
         hw = (427, 640) if i % 2 == 0 else (640, 427)
         img = photo(i, *hw)
@@ -261,18 +296,18 @@ def fixture_files() -> dict:
             cv2_jpeg(img, 80) if i == 0 else pil_jpeg(img, quality=75) if i == 1 else
             cv2_jpeg(img, 90, 422, restart=8) if i == 2 else pil_jpeg(img, quality=85,
                                                                       optimize=True))
+    files["photo4_progressive.jpg"] = cv2_jpeg(photo(4, 427, 640), 80, progressive=True)
     return files
 
 
 def corruption_hashes() -> dict:
     """corruption -> severity -> [sha256 of the JAX package's output per probe image]."""
-    from htd_tpu.data.corruptions import corrupt
-    from htd_tpu_torch.data.corruptions import PORTED_CORRUPTIONS
+    from htd_tpu.data.corruptions import ALL_CORRUPTIONS, corrupt
 
     images = [probe_image(*p) for p in PROBES]
     return {name: {str(sev): [sha256(corrupt(img, name, sev, seed=CORRUPTION_SEED))
                               for img in images] for sev in range(1, 6)}
-            for name in PORTED_CORRUPTIONS}
+            for name in ALL_CORRUPTIONS}
 
 
 def main() -> None:
@@ -284,9 +319,6 @@ def main() -> None:
     manifest = {}
     for name, data in fixture_files().items():
         (ROOT / name).write_bytes(data)
-        if name.startswith("progressive"):
-            manifest[name] = {"raises": "ValueError"}
-            continue
         img = cv2.imread(str(ROOT / name), cv2.IMREAD_COLOR)
         manifest[name] = {"shape": list(img.shape), "sha256": sha256(img)}
     (ROOT / "manifest.json").write_text(json.dumps(manifest, indent=1) + "\n")

@@ -2,20 +2,21 @@
 host) against OpenCV's `imdecode` / `imread(IMREAD_COLOR)`, bit for bit, on
 seeded images that OpenCV and PIL encode here: every sampling OpenCV
 writes, qualities 5-100, odd sizes down to 1x1, restart intervals, PIL's
-optimised tables, grey, EXIF orientations 1-8 in both byte orders, and
-files of one scan per component written here; the
-files it refuses; `CocoDataset.load_image` against the JAX package's; the
-two manifests of `tests/data/jpeg/` against cv2 and the JAX package."""
+optimised tables, grey, EXIF orientations 1-8 in both byte orders, files
+of one scan per component written here, progressive files (OpenCV's and
+PIL's), PIL's CMYK files, and baseline and progressive files cut short
+(`imread` of the file: libjpeg's inserted EOI, zero bits, block smoothing);
+the files it refuses; `CocoDataset.load_image` against the JAX package's;
+the two manifests of `tests/data/jpeg/` against cv2 and the JAX package."""
 
-import io
 import json
+import re
 import sys
 
 import cv2
 import numpy as np
 import pytest
 import torch
-from PIL import Image
 
 from chip_smoke import probe_image, sha256
 from htd_tpu.data import coco as jcoco
@@ -112,22 +113,94 @@ def test_malformed_exif_is_ignored(case):
     np.testing.assert_array_equal(decode_jpeg(data), decode_jpeg(plain))
 
 
-def test_refuses_what_it_cannot_read(tmp_path):
-    """Progressive files (OpenCV's and PIL's), truncated data and files that
-    are not JPEG raise ValueError naming the file."""
-    img = F.pattern(0, 32, 48)
-    for k, data in enumerate([F.cv2_jpeg(img, 80, progressive=True),
-                              F.pil_jpeg(img, quality=80, progressive=True)]):
-        path = tmp_path / f"p{k}.jpg"
-        path.write_bytes(data)
-        with pytest.raises(ValueError, match=rf"p{k}\.jpg: progressive"):
+def _assert_reads_as_imread(path) -> None:
+    """read_jpeg(path) is cv2.imread(path)'s image, or raises ValueError
+    naming the file where imread returns nothing."""
+    want = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    if want is None:
+        with pytest.raises(ValueError, match=re.escape(path.name)):
             read_jpeg(path)
+    else:
+        np.testing.assert_array_equal(read_jpeg(path), want, err_msg=path.name)
+
+
+@pytest.mark.parametrize("restart", [0, 3])
+@pytest.mark.parametrize("sampling", [444, 422, 420, 440, 411])
+def test_progressive_cv2(sampling, restart, tmp_path):
+    """OpenCV's progressive files (its libjpeg's standard scan script: DC
+    first and refinement, AC first with EOB runs and AC refinement) at every
+    sampling, qualities 5-100, odd sizes down to 1x1, with and without a
+    restart interval, read as imread reads them."""
+    path = tmp_path / "p.jpg"
+    for i, (h, w) in enumerate(SIZES):
+        for q in (5, 50, 100):
+            path.write_bytes(F.cv2_jpeg(F.pattern(i, h, w), q, sampling, restart, progressive=True))
+            _assert_reads_as_imread(path)
+
+
+@pytest.mark.parametrize("optimize", [False, True])
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+def test_progressive_pil(subsampling, optimize, tmp_path):
+    """PIL's progressive files at 4:4:4, 4:2:2 and 4:2:0, with its default
+    and its optimised Huffman tables; grey ones; one with EXIF orientation 6."""
+    path = tmp_path / "p.jpg"
+    for i, (h, w) in enumerate(SIZES):
+        img = F.pattern(i, h, w)
+        for q in (7, 40, 95):
+            path.write_bytes(F.pil_jpeg(img, quality=q, subsampling=subsampling,
+                                        optimize=optimize, progressive=True))
+            _assert_reads_as_imread(path)
+        path.write_bytes(F.pil_jpeg(img[..., subsampling], quality=60, optimize=optimize,
+                                    progressive=True))
+        _assert_reads_as_imread(path)
+    path.write_bytes(F.with_exif(F.pil_jpeg(F.pattern(9, 20, 36), quality=80, optimize=optimize,
+                                            subsampling=subsampling, progressive=True), 6))
+    assert read_jpeg(path).shape == (36, 20, 3)
+    _assert_reads_as_imread(path)
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+def test_cmyk(progressive, tmp_path):
+    """PIL's CMYK files (Adobe transform 0) at two sizes and qualities:
+    libjpeg's CMYK output turned into BGR as OpenCV does (each of C, M, Y as
+    K - ((255 - x) K >> 8))."""
+    path = tmp_path / "c.jpg"
+    for i, (h, w) in enumerate([(16, 24), (37, 50)]):
+        for q in (30, 95):
+            path.write_bytes(F.cmyk_jpeg(F.pattern(20 + i, h, w), q, progressive=progressive))
+            _assert_reads_as_imread(path)
+
+
+@pytest.mark.parametrize("kind", ["baseline", "restart", "progressive", "progressive-restart"])
+def test_truncated(kind, tmp_path):
+    """Files cut short at offsets across their headers and every scan read
+    as imread reads them: the rest of the cut MCU from zero bits, later MCUs
+    left as they were, libjpeg's block smoothing where a progressive file's
+    coefficients are not fully known, ValueError naming the file where
+    imread returns nothing (a cut before the first scan's data)."""
+    img = F.pattern(30, 40, 56)
+    data = F.cv2_jpeg(img, 90, 420, restart=2 if "restart" in kind else 0,
+                      progressive=kind.startswith("progressive"))
+    scans = F.scans(data)
+    cuts = {2, 100, scans[0][0] - 3, scans[0][0]}
+    for start, end in scans:
+        cuts.update(range(start + 1, end, max(1, (end - start) // 4)))
+    for cut in sorted(cuts):
+        path = tmp_path / f"{kind}_{cut}.jpg"
+        path.write_bytes(data[:cut])
+        _assert_reads_as_imread(path)
+
+
+def test_refuses_what_it_cannot_read(tmp_path):
+    """Files that end before their first scan's data and files that are not
+    JPEG raise ValueError naming the file (imread returns nothing for
+    them)."""
     data = F.cv2_jpeg(F.pattern(1, 40, 56), 90)
-    sos = data.index(b"\xff\xda")
-    for cut in (sos + 20, (sos + len(data)) // 2, len(data) - 40, 100):
+    for cut in (100, data.index(b"\xff\xda") + 5):
         path = tmp_path / f"cut{cut}.jpg"
         path.write_bytes(data[:cut])
-        with pytest.raises(ValueError, match=rf"cut{cut}\.jpg: truncated"):
+        assert cv2.imread(str(path), cv2.IMREAD_COLOR) is None
+        with pytest.raises(ValueError, match=rf"cut{cut}\.jpg: "):
             read_jpeg(path)
     with pytest.raises(ValueError, match="not a JPEG"):
         decode_jpeg(b"\x89PNG\r\n\x1a\n")
@@ -135,28 +208,26 @@ def test_refuses_what_it_cannot_read(tmp_path):
 
 @pytest.mark.parametrize("case,message", [
     ("SOF9", "arithmetic"), ("SOF3", "lossless"), ("SOF5", "hierarchical"),
-    ("12-bit", "only 8-bit"), ("CMYK", "3-component"), ("65535x65535", "2\\*\\*30")])
+    ("12-bit", "only 8-bit"), ("2 components", "not 2 components"),
+    ("65535x65535", "2\\*\\*30")])
 def test_refuses_other_kinds(case, message):
     """Each kind of file the decoder does not read has its own message:
-    baseline files whose frame header says otherwise, PIL's CMYK file, a
-    frame over OpenCV's 2**30-pixel limit (which cv2 refuses too)."""
-    if case == "CMYK":
-        buf = io.BytesIO()
-        Image.fromarray(F.pattern(0, 16, 24)).convert("CMYK").save(buf, "JPEG")
-        data = buf.getvalue()
+    baseline files whose frame header says otherwise (arithmetic, lossless,
+    hierarchical, 12-bit, 2 components), a frame over OpenCV's 2**30-pixel
+    limit (which cv2 refuses too)."""
+    data = bytearray(F.cv2_jpeg(F.pattern(0, 16, 24), 80))
+    sof = data.index(b"\xff\xc0")
+    if case.startswith("SOF"):
+        data[sof + 1] = 0xC0 + int(case[3:])
+    elif case == "12-bit":
+        data[sof + 4] = 12
+    elif case == "2 components":
+        data[sof + 9] = 2
     else:
-        data = bytearray(F.cv2_jpeg(F.pattern(0, 16, 24), 80))
-        sof = data.index(b"\xff\xc0")
-        if case.startswith("SOF"):
-            data[sof + 1] = 0xC0 + int(case[3:])
-        elif case == "12-bit":
-            data[sof + 4] = 12
-        else:
-            data[sof + 5:sof + 9] = b"\xff\xff\xff\xff"
-            assert _cv2(bytes(data)) is None
-        data = bytes(data)
+        data[sof + 5:sof + 9] = b"\xff\xff\xff\xff"
+        assert _cv2(bytes(data)) is None
     with pytest.raises(ValueError, match=message):
-        decode_jpeg(data)
+        decode_jpeg(bytes(data))
 
 
 def _jpeg_coco(root):
@@ -199,10 +270,6 @@ def test_fixture_manifest():
     assert sorted(manifest) == sorted(p.name for p in F.ROOT.glob("*.jpg"))
     for name, want in manifest.items():
         path = str(F.ROOT / name)
-        if "raises" in want:
-            with pytest.raises(ValueError, match="progressive"):
-                read_jpeg(path)
-            continue
         ref = cv2.imread(path, cv2.IMREAD_COLOR)
         assert [list(ref.shape), sha256(ref)] == [want["shape"], want["sha256"]], name
         assert sha256(read_jpeg(path)) == want["sha256"], name
@@ -210,11 +277,11 @@ def test_fixture_manifest():
 
 def test_corruption_manifest():
     """tests/data/jpeg/corruptions.json holds the SHA-256 of the JAX
-    package's `corrupt` for every ported corruption at severities 1-5 on
-    the two probe images, and the port reproduces every one."""
+    package's `corrupt` for all 19 corruptions at severities 1-5 on the two
+    probe images, and the port reproduces every one."""
     ref = json.loads((F.ROOT / "corruptions.json").read_text())
     assert ref["seed"] == F.CORRUPTION_SEED and ref["probes"] == [list(p) for p in F.PROBES]
-    assert sorted(ref["sha256"]) == sorted(pcorr.PORTED_CORRUPTIONS)
+    assert sorted(ref["sha256"]) == sorted(pcorr.ALL_CORRUPTIONS)
     probes = [probe_image(*p) for p in F.PROBES]
     for name, by_sev in ref["sha256"].items():
         for sev, hashes in by_sev.items():

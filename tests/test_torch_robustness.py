@@ -93,14 +93,12 @@ def _close(a, b):
     return abs(a - b) <= 1e-6 or (math.isnan(a) and math.isnan(b))
 
 
-def test_tool_matches_jax(jpeg_coco, checkpoint, tiny_presets, tmp_path, monkeypatch, capsys):
-    """tools_torch/test_robustness.py --device cpu writes the JAX tool's
-    json layout (the same corruptions, severities and metric keys, severity
-    0 evaluated once and shared) with its metrics within 1e-6; its severity
-    0 equals `evaluate_dataset` on the clean set; both print the same P /
-    mPC / rPC."""
+def _tools_agree(common, names, jpeg_coco, checkpoint, tmp_path, monkeypatch, capsys):
+    """Runs both tools with `common` arguments; checks the json layouts,
+    metrics within 1e-6 and printed P / mPC / rPC; returns the port's json
+    and what it printed."""
     ann, root = jpeg_coco
-    args = ["--checkpoint", checkpoint, "--ann", ann, "--img-root", root] + COMMON
+    args = ["--checkpoint", checkpoint, "--ann", ann, "--img-root", root] + common
     monkeypatch.syspath_prepend(TOOLS)     # the JAX tool imports robustness_eval from tools/
     monkeypatch.setattr(sys, "argv", ["test_robustness.py", *args, "--out",
                                       str(tmp_path / "j.json")])
@@ -109,24 +107,51 @@ def test_tool_matches_jax(jpeg_coco, checkpoint, tiny_presets, tmp_path, monkeyp
     printed = ptool.main(args + ["--out", str(tmp_path / "p.json"), "--device", "cpu"])
     assert capsys.readouterr().out.split("\nmodel:")[-1].replace("p.json", "j.json") == jprinted
     j, p = (json.loads((tmp_path / f).read_text()) for f in ("j.json", "p.json"))
-    assert list(p) == list(j) == ["gaussian_noise", "jpeg_compression"]
+    assert list(p) == list(j) == names
     for corruption in j:
         assert list(p[corruption]) == list(j[corruption]) == ["0", "1"]
         for sev in j[corruption]:
             pm, jm = p[corruption][sev]["bbox"], j[corruption][sev]["bbox"]
             assert list(pm) == list(jm)
             assert all(_close(pm[k], jm[k]) for k in jm), (corruption, sev, pm, jm)
-    assert p["jpeg_compression"]["0"] == p["gaussian_noise"]["0"]
+    assert p[names[1]]["0"] == p[names[0]]["0"]
+    return p, printed
 
-    cfg = PC.apply_overrides(PC.htd_r50_1x(), COMMON[COMMON.index("--set") + 1:])
+
+def _clean_metrics(common, ann, root, checkpoint):
+    cfg = PC.apply_overrides(PC.htd_r50_1x(), common[common.index("--set") + 1:])
     model = init_detector(cfg, checkpoint, device="cpu")
-    clean = evaluate_dataset(model, CocoDataset(ann, root, test_mode=True), batch_size=4,
-                             scale=(96, 64))
+    return evaluate_dataset(model, CocoDataset(ann, root, test_mode=True), batch_size=4,
+                            scale=(96, 64))
+
+
+def test_tool_matches_jax(jpeg_coco, checkpoint, tiny_presets, tmp_path, monkeypatch, capsys):
+    """tools_torch/test_robustness.py --device cpu writes the JAX tool's
+    json layout (the same corruptions, severities and metric keys, severity
+    0 evaluated once and shared) with its metrics within 1e-6; its severity
+    0 equals `evaluate_dataset` on the clean set; both print the same P /
+    mPC / rPC."""
+    p, printed = _tools_agree(COMMON, ["gaussian_noise", "jpeg_compression"], jpeg_coco,
+                              checkpoint, tmp_path, monkeypatch, capsys)
+    clean = _clean_metrics(COMMON, *jpeg_coco, checkpoint)
     assert p["gaussian_noise"]["0"]["bbox"] == {k: None if v != v else v
                                                 for k, v in clean.items()}
     assert clean["mAP_50"] > 0
     assert set(printed) == {"P", "mPC", "rPC"}
     assert printed["P"]["mAP"] == pytest.approx(clean["mAP"], abs=0)
+
+
+def test_tool_matches_jax_blur_elastic(jpeg_coco, checkpoint, tiny_presets, tmp_path, monkeypatch,
+                                       capsys):
+    """The same with a blur and `elastic_transform` (OpenCV's float32
+    filters and warps, the port's own copies) at severities 0 and 1."""
+    common = COMMON[:COMMON.index("--corruptions") + 1] + ["motion_blur", "elastic_transform"] \
+        + COMMON[COMMON.index("--severities"):]
+    p, _ = _tools_agree(common, ["motion_blur", "elastic_transform"], jpeg_coco, checkpoint,
+                        tmp_path, monkeypatch, capsys)
+    clean = _clean_metrics(common, *jpeg_coco, checkpoint)
+    assert p["motion_blur"]["0"]["bbox"] == {k: None if v != v else v for k, v in clean.items()}
+    assert p["motion_blur"]["1"] != p["motion_blur"]["0"]
 
 
 @pytest.mark.parametrize("aggregate", ["benchmark", "all"])
@@ -155,10 +180,11 @@ def test_robustness_eval_matches_jax(tmp_path, capsys, aggregate):
             assert p[k][m] == j[k][m] or (math.isnan(p[k][m]) and math.isnan(j[k][m])), (k, m)
 
 
-@pytest.mark.parametrize("names", [["gaussian_noise", "motion_blur"], ["blur"], ["all"]])
-def test_unported_corruption_fails_first(names, tmp_path, monkeypatch, capsys):
-    """A corruption the port has not reproduced fails at once, naming every
-    such corruption asked for, before a model is built or an image read."""
+@pytest.mark.parametrize("names", [["gaussian_noise", "motion_blurr"], ["blurs"],
+                                   ["all", "no_such"]])
+def test_unknown_corruption_fails_first(names, tmp_path, monkeypatch, capsys):
+    """A name that is neither a corruption nor a group fails at once, naming
+    it, before a model is built or an image read."""
     import htd_tpu_torch.apis as apis
 
     def no_model(*a, **k):
@@ -169,6 +195,5 @@ def test_unported_corruption_fails_first(names, tmp_path, monkeypatch, capsys):
         ptool.main(["--ann", str(tmp_path / "missing.json"), "--out", str(tmp_path / "o.json"),
                     "--device", "cpu", "--corruptions", *names])
     err = capsys.readouterr().err
-    assert "not ported yet" in err and "motion_blur" in err
-    assert ("zoom_blur" in err) == (names != ["gaussian_noise", "motion_blur"])
+    assert f"unknown corruption {names[-1]!r}" in err
     assert not (tmp_path / "o.json").exists()
