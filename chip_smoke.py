@@ -145,6 +145,20 @@ script exits non-zero without its final line:
      images against the SHA-256 of the JAX package's outputs
      (tests/data/jpeg/corruptions.json), and each corruption's host time
      per megapixel.
+ 27. production-scale evaluation and the last tools: (a) the arithmetic-coded
+     and lossless fixtures of tests/data/jpeg against the manifest, and the
+     host decode rate of the photo-sized baseline, arithmetic and lossless
+     (written here, decoded to its source pixels) files; (b)
+     tools_torch/drill_production.py --images 100 at 1333x800 (its test.py and
+     coco_error_analysis.py in this process: K1 1, K2 3, K7 3 launches per
+     batch of 4; the card's float32 detections against the port's float32
+     on the CPU for a subset; the COCO matcher's host seconds, native and
+     its numpy twin, on test.py's dump); (c) tools_torch/ab_fidelity.py in
+     both modes at 768x1344 bf16 (5 rungs each, K2 3 launches per call, ms
+     per image by CUDA events); (d) tools_torch/get_flops.py for R-50 and
+     R-101-DCN at 768x1344 bf16; (e) tools_torch/dist_test.sh with one chip
+     against test.py, and dist_train.sh under torchrun with one NCCL rank
+     for 2 steps; each part's wall time.
 Every forward launches K7 3 times (one per FPN top-down add), whatever its
 batch. It needs CUDA: with no GPU, or run outside the repository, it fails.
 """
@@ -158,10 +172,8 @@ import math
 import os
 import shutil
 import statistics
-import struct
 import subprocess
 import time
-import zlib
 
 import numpy as np
 import torch
@@ -211,6 +223,10 @@ TRAIN_BUCKET = (800, 1344)
 JPEG_DIR = "tests/data/jpeg"     # phase 26's fixtures and manifests
 PHOTO_DECODES = 5          # phase 26 (a): timed decodes of each photo-sized fixture
 ROBUST_SEVERITIES = (0, 1, 3, 5)   # phase 26 (c)
+ARITH_PHOTO = "photo5_arith.jpg"   # phase 27 (a): the photo-sized arithmetic fixture
+DRILL_IMAGES = 100         # phase 27 (b): tools_torch/drill_production.py --images
+DRILL_MIRROR = 5           # its --mirror-images (each a float32 forward on the host's CPU)
+DRILL_SCALE = (1333, 800)
 DEVICE_TIME_TRACES = 3      # traces `device_times` takes before it fails on a launch count
 SMALL_STEP_HW = (192, 288)  # phases 14, 18 and 25: the float32 reference step's batch
 TRAIN_IMG_SHAPES = [(800, 1333), (750, 1344)]
@@ -2152,35 +2168,13 @@ def eval_phase(card):
     return metrics
 
 
-def write_png(path: str, img_bgr: np.ndarray) -> None:
-    """(H, W, 3) uint8 BGR as an 8-bit RGB PNG file, with the standard
-    library's zlib: row r filtered with type r % 5 (None, Sub, Up, Average,
-    Paeth), so that reading it back goes through every filter."""
-    x = np.ascontiguousarray(img_bgr[..., ::-1]).astype(np.int16)
-    h, w = x.shape[:2]
-    left, up, upleft = (np.zeros_like(x) for _ in range(3))
-    left[:, 1:], up[1:], upleft[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
-    pa, pb, pc = np.abs(up - upleft), np.abs(left - upleft), np.abs(left + up - 2 * upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-    types = np.arange(h) % 5
-    pred = np.choose(types[:, None, None], (np.zeros_like(x), left, up, (left + up) >> 1, paeth))
-    rows = np.concatenate([types[:, None], ((x - pred) & 255).reshape(h, -1)], axis=1)
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body)))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.astype(np.uint8).tobytes(), 1))
-                + chunk(b"IEND", b""))
-
-
 def png_coco(root: str):
     """Phase 23's seeded mini-COCO written to `root` as PNG files:
     val.json names all MINI_COCO_IMAGES images, train.json the first
     TOOLS_TRAIN_IMAGES / 2 of each orientation. Returns (train.json,
     val.json, the pixels by image id)."""
+    from htd_tpu_torch.data.png import write_png
+
     src = SeededCoco(root).dataset
     with open(f"{root}/ann.json") as f:
         ann = json.load(f)
@@ -2247,10 +2241,10 @@ def tools_phase(card):
             if not np.array_equal(val.load_image(rec), pixels[rec.img_id]):
                 fail(f"CocoDataset.load_image of {rec.file_name} differs from the pixels written")
         n_land = sum(r.landscape for r in val.records)
-        print(f"[png] {len(val)} seeded images written as PNG (rows filtered None, Sub, Up, "
-              f"Average, Paeth in turn) and read back bit-equal through CocoDataset.load_image "
-              f"in {time.perf_counter() - t0:.2f} s; train.json {TOOLS_TRAIN_IMAGES} of them, "
-              f"val.json all ({card})")
+        print(f"[png] {len(val)} seeded images written as PNG (data.png.write_png: rows "
+              f"filtered None, Sub, Up, Average, Paeth in turn) and read back bit-equal "
+              f"through CocoDataset.load_image in {time.perf_counter() - t0:.2f} s; train.json "
+              f"{TOOLS_TRAIN_IMAGES} of them, val.json all ({card})")
 
         steps = TOOLS_TRAIN_IMAGES // 2     # batches of 2, each orientation apart
         common = ["--config", "htd_r50_1x", "--bf16", "--batch-size", "2", "--train-ann",
@@ -3034,6 +3028,220 @@ def robustness_phase(card: str) -> None:
     print(f"phase 26: {time.perf_counter() - t_phase:.2f} s in all ({card})")
 
 
+def in_process(cmd, env=None):
+    """tools_torch/drill_production.py's `_run` in this process: the tool
+    that `cmd` names run by its `main(argv)`, its standard output captured
+    (this process's TF32 switches stand in for `env`'s
+    NVIDIA_TF32_OVERRIDE); returns (the output, wall seconds)."""
+    import io
+
+    from tools_torch import coco_error_analysis
+    from tools_torch import test as test_tool
+
+    module = {"test.py": test_tool,
+              "coco_error_analysis.py": coco_error_analysis}[os.path.basename(cmd[1])]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        module.main(cmd[2:])
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def jpeg_decode_rates(card: str, root: str) -> None:
+    """Phase 27 (a): the arithmetic and lossless fixtures against the
+    manifest, and the host's decode rate of photo-sized files of each kind:
+    the baseline photos, the arithmetic one, and a lossless RGB one written
+    here (tests/jpeg_writers.py's coder), which must decode to its source."""
+    from htd_tpu_torch.data.jpeg import read_jpeg
+    from tests import jpeg_writers
+
+    jdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), JPEG_DIR)
+    with open(f"{jdir}/manifest.json") as f:
+        manifest = json.load(f)
+    new = [n for n in manifest if "arith" in n or n.startswith("lossless")]
+    for name in new:
+        img = read_jpeg(f"{jdir}/{name}")
+        if list(img.shape) != manifest[name]["shape"] or sha256(img) != manifest[name]["sha256"]:
+            fail(f"{name}: decoded {img.shape}, not cv2.imread's pixels {manifest[name]}")
+    src = jpeg_writers.photo(6, 427, 640)
+    lossless = f"{root}/lossless_photo.jpg"
+    with open(lossless, "wb") as f:
+        f.write(jpeg_writers.lossless_jpeg(jpeg_writers.lossless_planes(src, "rgb"), 1,
+                                           app=jpeg_writers.ADOBE_RGB))
+    if not np.array_equal(read_jpeg(lossless), src):
+        fail("the photo-sized lossless RGB file does not decode to its source pixels")
+    rates = {}
+    for kind, paths in (("baseline", [f"{jdir}/photo{i}.jpg" for i in range(4)]),
+                        ("arithmetic", [f"{jdir}/{ARITH_PHOTO}"]), ("lossless", [lossless])):
+        t0 = time.perf_counter()
+        for _ in range(PHOTO_DECODES):
+            imgs = [read_jpeg(path) for path in paths]
+        dt = time.perf_counter() - t0
+        px = PHOTO_DECODES * sum(im.shape[0] * im.shape[1] for im in imgs)
+        rates[kind] = (f"{1e3 * dt / (PHOTO_DECODES * len(paths)):.2f} ms per image, "
+                       f"{px / dt / 1e6:.2f} MP/s")
+    size = os.path.getsize(lossless)
+    print(f"[jpeg] {len(new)} arithmetic-coded and lossless fixtures bit-equal to cv2.imread's "
+          f"pixels (the manifest's SHA-256; SOF9 and SOF10, DAC conditioning, a restart "
+          f"interval, two cut short, lossless RGB at predictors 1 and 7, Pt 2, CMYK); a "
+          f"640x427 lossless RGB file ({size} bytes) decodes to its source; host decode "
+          f"(x{PHOTO_DECODES}, host clock): 4 baseline photos {rates['baseline']}, arithmetic "
+          f"{rates['arithmetic']}, lossless {rates['lossless']} ({card})")
+
+
+def drill_run(card: str, root: str) -> str:
+    """Phase 27 (b): tools_torch/drill_production.py at production scale,
+    its tools run in this process (`in_process`) with the launch counts
+    set to 0 just before; returns the drill's checkpoint."""
+    from tools_torch import drill_production as drill
+
+    out = f"{root}/drill"
+    argv = ["--images", str(DRILL_IMAGES), "--mirror-images", str(DRILL_MIRROR), "--scale",
+            "x".join(map(str, DRILL_SCALE)), "--out", out]
+    saved, drill._run = drill._run, in_process
+    try:
+        summary, counts = tool_run(f"drill_production.py {' '.join(argv[:6])}",
+                                   lambda: drill.main(argv), card)
+    finally:
+        drill._run = saved
+    with open(f"{out}/ann.json") as f:
+        images = json.load(f)["images"]
+    land = sum(im["width"] >= im["height"] for im in images)
+    n_batches = -(-land // 4) + -(-(len(images) - land) // 4)
+    expect_launches("drill_production.py's test.py", counts, {
+        "pyramid_pack": n_batches, "roi_align": 3 * n_batches, "upsample_add": 3 * n_batches})
+    finite_metrics("the drill's test.py", summary["full_set_metrics"])
+    print(f"test.py (R-50 float32, TF32 off, exact grid, {DRILL_SCALE[0]}x{DRILL_SCALE[1]}, "
+          f"batch 4, {len(images)} PNG images in {n_batches} batches; K1 {n_batches}, K2 "
+          f"{3 * n_batches}, K7 {3 * n_batches} launches): {summary['test_images_per_s']} "
+          f"images/s as test.py logs it (model build and cuDNN's first calls in the first "
+          f"batches), {summary['test_wall_s']} s in all; evaluate_coco_map on its dump over 80 "
+          f"categories (host clock): native matcher {summary['matcher_s']} s of "
+          f"{summary['eval_s']} s, numpy twin {summary['matcher_plain_s']} s of "
+          f"{summary['eval_plain_s']} s, metrics equal ({card})")
+    return f"{out}/drill.pth"
+
+
+def fidelity_run(card: str, pre_nms: bool) -> None:
+    """Phase 27 (c): tools_torch/ab_fidelity.py, R-50 bf16 at 768x1344."""
+    from tools_torch import ab_fidelity
+
+    argv = ["--dtype", "bfloat16", "--height", "768", "--width", "1344"] + \
+        (["--pre-nms"] if pre_nms else [])
+    with contextlib.redirect_stderr(open(os.devnull, "w")):
+        out, counts = tool_run(f"ab_fidelity.py{' --pre-nms' if pre_nms else ''}",
+                               lambda: ab_fidelity.main(argv), card)
+    rungs = out["rungs"]
+    calls = len(rungs) * (1 + ab_fidelity.WARMUP_CALLS + ab_fidelity.TIMED_CALLS)
+    expect_launches("ab_fidelity.py", counts, {"roi_align": 3 * calls})
+    if len(rungs) != 5 or not all(math.isfinite(v) for r in rungs.values() for v in r.values()):
+        fail(f"ab_fidelity.py wrote {out}")
+    print(f"ab_fidelity.py{' --pre-nms' if pre_nms else ''}: {json.dumps(out)}")
+    print(f"ms per image by rung (CUDA events over 8 warm calls, bf16, 768x1344; K2 "
+          f"{3 * calls} launches, 3 per call): "
+          f"{ {k: v['ms_per_img'] for k, v in rungs.items()} } ({card})")
+
+
+def flops_run(card: str) -> None:
+    """Phase 27 (d): tools_torch/get_flops.py for R-50 and R-101-DCN."""
+    from tools_torch import get_flops
+
+    for config, n_dcn in (("htd_r50_1x", 0), ("htd_r101_dcn_2x", 30)):
+        with contextlib.redirect_stdout(open(os.devnull, "w")):
+            out, _ = tool_run(f"get_flops.py --config {config}", lambda: get_flops.main(
+                ["--config", config, "--height", "768", "--width", "1344", "--dtype",
+                 "bfloat16"]), card)
+        if out["calls"] != {"deform_conv": n_dcn, "roi_align": 3} or not out["total"] > 0:
+            fail(f"get_flops.py {config}: {out}")
+        print(f"get_flops.py {config} 768x1344 bf16: params {out['params'] / 1e6:.2f} M; "
+              f"FlopCounterMode {out['aten_total'] / 1e9:.2f} GFLOPs "
+              f"({', '.join(f'{k} {v / 1e9:.2f}' for k, v in sorted(out['aten'].items()))}); "
+              f"K3 by formula {out['deform_conv'] / 1e9:.2f}, K2 by formula "
+              f"{out['roi_align'] / 1e9:.2f}; total {out['total'] / 1e9:.2f} GFLOPs")
+
+
+def launchers_run(card: str, root: str, ckpt: str) -> None:
+    """Phase 27 (e): tools_torch/dist_test.sh with one process and
+    dist_train.sh (torchrun, one NCCL rank) for 2 steps, on phase 24's
+    PNG mini-COCO."""
+    import sys
+
+    root = f"{root}/launch"
+    os.makedirs(root)
+    train_ann, val_ann, _ = png_coco(root)
+    env = dict(os.environ, PYTHON=sys.executable)
+    test_args = ["--ann", val_ann, "--img-root", root, "--bf16", "--set",
+                 "rcnn_test.score_thr=0.0"]
+    t0 = time.perf_counter()
+    done = subprocess.run(["bash", "tools_torch/dist_test.sh", "htd_r50_1x", ckpt, "1",
+                           "--dist-backend", "nccl", *test_args, "--dump", f"{root}/launched.json"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                          capture_output=True, text=True, timeout=RANK_JOIN_S)
+    if done.returncode:
+        fail(f"dist_test.sh failed:\n{done.stdout[-2000:]}\n{done.stderr[-3000:]}")
+    launched = json.loads(done.stdout.splitlines()[-1])
+    finite_metrics("dist_test.sh", launched)
+    launched_s = time.perf_counter() - t0
+    direct = json.loads(tool_process("test.py", [
+        sys.executable, "tools_torch/test.py", "--checkpoint", ckpt, *test_args, "--dump",
+        f"{root}/direct.json"], card).splitlines()[-1])
+    with open(f"{root}/launched.json") as f, open(f"{root}/direct.json") as g:
+        raw = f.read(), g.read()
+    dets = json.loads(raw[0])
+    n_dets = sum(len(d["scores"]) for d in dets.values())
+    print(f"[dist_test.sh htd_r50_1x drill.pth 1 --dist-backend nccl] {launched_s:.2f} s: "
+          f"{launched}; test.py as its own process {direct}; raw detections ({n_dets} over "
+          f"{len(dets)} images) bit-identical: {raw[0] == raw[1]}. One chip: test.py --chips 1 "
+          f"evaluates in its own process and forms no NCCL group; the group at world size 1 is "
+          f"phase 25 (a), dist_train.sh's below ({card})")
+    if raw[0] != raw[1] or not n_dets or launched != direct:
+        fail("dist_test.sh and test.py disagree")
+    work = f"{root}/dist_train"
+    t0 = time.perf_counter()
+    done = subprocess.run(["bash", "tools_torch/dist_train.sh", "htd_r50_1x", work,
+                           "--train-ann", train_ann, "--train-img", root, "--bf16",
+                           "--batch-size", "4", "--log-interval", "1", "--seed", "0",
+                           "--set", "train.total_epochs=1"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          env=dict(env, NPROC="1"), capture_output=True, text=True,
+                          timeout=RANK_JOIN_S)
+    if done.returncode:
+        fail(f"dist_train.sh failed:\n{done.stdout[-2000:]}\n{done.stderr[-3000:]}")
+    with open(f"{work}/train.log.json") as f:
+        records = [json.loads(line) for line in f]
+    steps = TOOLS_TRAIN_IMAGES // 4
+    if [(r["epoch"], r["iter"]) for r in records] != [(1, i + 1) for i in range(steps)] \
+            or not all(math.isfinite(v) for r in records for v in r.values()) \
+            or not os.path.exists(f"{work}/epoch_1.pth"):
+        fail(f"dist_train.sh logged {records}")
+    print(f"[NPROC=1 dist_train.sh htd_r50_1x] {time.perf_counter() - t0:.2f} s: torchrun, one "
+          f"NCCL rank, train.py --distributed, {steps} steps at global batch 4, losses "
+          f"{[r['loss'] for r in records]}, epoch_1.pth written ({card})")
+
+
+def drill_phase(card: str) -> None:
+    """Phase 27: production-scale evaluation (the drill), the fidelity
+    ladder, the FLOP counts, the launchers, and the new JPEG kinds."""
+    import tempfile
+
+    phase("27 main path: arithmetic and lossless JPEG on the host, the production drill, the "
+          "fidelity ladder, FLOP counts and the torchrun launchers")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = None
+        for part, fn in (("a", lambda: jpeg_decode_rates(card, root)),
+                         ("b", lambda: drill_run(card, root)),
+                         ("c", lambda: fidelity_run(card, pre_nms=False)),
+                         ("c", lambda: fidelity_run(card, pre_nms=True)),
+                         ("d", lambda: flops_run(card)),
+                         ("e", lambda: launchers_run(card, root, ckpt))):
+            t0 = time.perf_counter()
+            out = fn()
+            ckpt = out if part == "b" else ckpt
+            print(f"phase 27 ({part}): {time.perf_counter() - t0:.2f} s ({card})")
+    print(f"phase 27: {time.perf_counter() - t_phase:.2f} s in all ({card})")
+
+
 def tta_eval_phases(card, pairs, k7_launches, imgs):
     """Phases 20-23; returns the kernel records of K7 and K8, and phase
     23's metrics."""
@@ -3241,8 +3449,9 @@ def run() -> None:
     """The inference phases 1-11 under `torch.inference_mode`, then the
     training phases 12-19 with autograd (models built in inference mode
     hold inference tensors, which autograd rejects), then phases 20-23
-    (TTA and evaluation), 24 (the tools), 25 (data parallel) and 26 (JPEG
-    and robustness), then the result."""
+    (TTA and evaluation), 24 (the tools), 25 (data parallel), 26 (JPEG
+    and robustness) and 27 (production-scale evaluation and the last
+    tools), then the result."""
     with torch.inference_mode():
         card, kind, kernels, t_start, k7_launches, pairs = main()
     kernels.append(train_phases(card))
@@ -3253,6 +3462,7 @@ def run() -> None:
     tools_phase(card)
     parallel_phase(card, eval_metrics)
     robustness_phase(card)
+    drill_phase(card)
     print(f"kernel times are per image (K2: the sum of its 3 calls per request; K3: of its "
           f"30 launches per R-101-DCN request; K7: of its 3 launches per R-50 request; K8: one "
           f"launch on the largest fenced tensor) and per train step (K4: its 3 calls, R-50; K5, "

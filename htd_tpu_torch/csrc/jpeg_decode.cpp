@@ -1,29 +1,51 @@
 // JPEG decoding on the host, bit-equal to libjpeg-turbo's default
 // decompression as OpenCV's `imread(path, IMREAD_COLOR)` runs it.
 //
-// Reads SOF0, SOF1 (sequential) and SOF2 (progressive) Huffman files of
-// 8-bit precision with one (grey), three (YCbCr, or RGB by the Adobe marker
-// or the component ids) or four components (CMYK, or YCCK by the Adobe
-// marker's transform), any sampling factors whose ratios are whole, Huffman
-// tables 0-3, 8- and 16-bit quantisation tables, restart intervals and any
-// number of interleaved or single-component scans. Progressive scans follow
-// jdphuff.c: DC first and refinement, AC first with EOB runs and AC
-// refinement with correction bits, spectral selection and successive
-// approximation. Arithmetic-coded, lossless, hierarchical and 12-bit files
-// are refused with their own error code (the `Error` enum below), which the
-// Python side turns into a ValueError naming the file.
+// Reads SOF0, SOF1 (sequential) and SOF2 (progressive) Huffman files, SOF9
+// (sequential) and SOF10 (progressive) arithmetic-coded files, all of 8-bit
+// precision, and SOF3 lossless Huffman files of 2- to 8-bit precision. DCT
+// files have one (grey), three (YCbCr, or RGB by the Adobe marker or the
+// component ids) or four components (CMYK, or YCCK by the Adobe marker's
+// transform), any sampling factors whose ratios are whole, Huffman tables
+// 0-3 or arithmetic conditioning tables 0-15 (the DAC marker's L, U and Kx,
+// libjpeg's defaults 0, 1 and 5 otherwise), 8- and 16-bit quantisation
+// tables, restart intervals and any number of interleaved or single-component
+// scans. Progressive scans follow jdphuff.c (Huffman) and jdarith.c
+// (arithmetic): DC first and refinement, AC first (with EOB runs) and AC
+// refinement, spectral selection and successive approximation. Arithmetic
+// decoding is jdarith.c's: T.81 Annex D's coder with jaricom.c's table, the
+// DC and AC statistics bins and the fixed 0.5 bin for signs, all statistics
+// and the coder reset at each restart marker.
+//
+// Lossless files follow jdlhuff.c, jdpred.c and jddiffct.c: the Huffman-coded
+// differences (categories 0-16), predictors 1-7 (the first row of the scan
+// and of each restart interval from 2^(P - Pt - 1) and the left neighbour,
+// the first column from the sample above), the point transform Pt, the
+// restart interval a whole number of MCU rows. libjpeg-turbo converts no
+// colour space for lossless data, so IMREAD_COLOR reads a lossless file
+// only when it is RGB (3 components that neither a JFIF marker nor an Adobe
+// transform other than 0 marks as YCbCr) or CMYK (4 components, not YCCK):
+// its samples as they are, (x << Pt) in 8 bits, upsampled by plain
+// replication (no fancy upsampling without DCT blocks). Grey, YCbCr and
+// YCCK lossless files, lossless files of more than 8 bits, lossless
+// arithmetic files (SOF11), 12-bit DCT files and hierarchical files
+// (SOF5-7, SOF13-15) are refused with their own error code (the `Error`
+// enum below), as imread returns None for each of them; the Python side
+// turns it into a ValueError naming the file.
 //
 // A file that ends early reads as libjpeg's stdio source gives it to
 // OpenCV: jdatasrc.c inserts an EOI marker (FF D9) each time it finds no
-// more data, so the entropy decoder meets a marker, decodes zero bits for
-// the rest of the MCU it is in and leaves every later MCU of the scan as it
-// was (zero in a first scan); the markers after it read as EOI. A file that
-// ends before its first scan raises, as `imread` returns nothing. For a
-// progressive file whose coefficients are not all fully known at the end
-// (one cut short, or a scan script that stops early), the output pass
-// applies jdcoefct.c's block smoothing: the first nine AC coefficients, and
-// the DC where no AC is known, estimated from the 5x5 neighbourhood of DC
-// values.
+// more data. The Huffman decoders then meet a marker, decode zero bits for
+// the rest of the MCU (of the MCU row, lossless) they are in and leave every
+// later MCU of the scan as it was (zero in a first scan; lossless samples
+// from zero differences with the prediction reset); the arithmetic decoder
+// reads zero bytes after the marker and goes on decoding every MCU from them.
+// The markers after it read as EOI. A file that ends before its first scan
+// raises, as `imread` returns nothing. For a progressive file whose
+// coefficients are not all fully known at the end (one cut short, or a scan
+// script that stops early), the output pass applies jdcoefct.c's block
+// smoothing: the first nine AC coefficients, and the DC where no AC is
+// known, estimated from the 5x5 neighbourhood of DC values.
 //
 // The back end, shared with `htd_jpeg_reconstruct`, follows libjpeg-turbo:
 // dequantisation and the islow IDCT (jidctint.c) in the 16-bit lanes of
@@ -45,6 +67,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <algorithm>
 #include <new>
 #include <vector>
 
@@ -54,10 +77,10 @@ enum Error {
   kOk = 0,
   kNotJpeg = 1,        // no SOI marker
   kNoScan = 2,         // the data ends (or EOI comes) before the first scan
-  kLossless = 4,       // SOF3
-  kHierarchical = 5,   // SOF5-7 (differential)
-  kArithmetic = 6,     // SOF9-11, SOF13-15
-  kPrecision = 7,      // sample precision other than 8 bits
+  kLosslessColor = 4,  // a lossless file that needs a colour conversion: grey, YCbCr, YCCK
+  kHierarchical = 5,   // SOF5-7, SOF13-15 (differential)
+  kArithLossless = 6,  // SOF11: lossless arithmetic-coded
+  kPrecision = 7,      // DCT files other than 8-bit, lossless files of more than 8 bits
   kComponents = 8,     // 2 components, or more than 4
   kSampling = 9,       // sampling ratios that are not whole
   kCorrupt = 10,       // malformed markers, tables or scan parameters
@@ -78,13 +101,51 @@ enum Color { kGrey = 0, kYCbCr = 1, kRGB = 2, kCMYK = 3, kYCCK = 4 };
 
 const int kSavedCoefs = 10;  // jdcoefct.c's SAVED_COEFS: the DC and the first 9 AC
 
+// jaricom.c's jpeg_aritab, T.81 Table D.2: Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 estimate
+// (T.851) that signs and DC refinement bits are coded with.
+#define V(qe, lps, mps, sw) ((int32_t)(qe) << 16 | (mps) << 8 | (sw) << 7 | (lps))
+const int32_t kAritab[114] = {
+    V(0x5a1d, 1, 1, 1), V(0x2586, 14, 2, 0), V(0x1114, 16, 3, 0), V(0x080b, 18, 4, 0),
+    V(0x03d8, 20, 5, 0), V(0x01da, 23, 6, 0), V(0x00e5, 25, 7, 0), V(0x006f, 28, 8, 0),
+    V(0x0036, 30, 9, 0), V(0x001a, 33, 10, 0), V(0x000d, 35, 11, 0), V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0), V(0x0001, 12, 13, 0), V(0x5a7f, 15, 15, 1), V(0x3f25, 36, 16, 0),
+    V(0x2cf2, 38, 17, 0), V(0x207c, 39, 18, 0), V(0x17b9, 40, 19, 0), V(0x1182, 42, 20, 0),
+    V(0x0cef, 43, 21, 0), V(0x09a1, 45, 22, 0), V(0x072f, 46, 23, 0), V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0), V(0x0303, 51, 26, 0), V(0x0240, 52, 27, 0), V(0x01b1, 54, 28, 0),
+    V(0x0144, 56, 29, 0), V(0x00f5, 57, 30, 0), V(0x00b7, 59, 31, 0), V(0x008a, 60, 32, 0),
+    V(0x0068, 62, 33, 0), V(0x004e, 63, 34, 0), V(0x003b, 32, 35, 0), V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1), V(0x484c, 64, 38, 0), V(0x3a0d, 65, 39, 0), V(0x2ef1, 67, 40, 0),
+    V(0x261f, 68, 41, 0), V(0x1f33, 69, 42, 0), V(0x19a8, 70, 43, 0), V(0x1518, 72, 44, 0),
+    V(0x1177, 73, 45, 0), V(0x0e74, 74, 46, 0), V(0x0bfb, 75, 47, 0), V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0), V(0x0706, 79, 50, 0), V(0x05cd, 48, 51, 0), V(0x04de, 50, 52, 0),
+    V(0x040f, 50, 53, 0), V(0x0363, 51, 54, 0), V(0x02d4, 52, 55, 0), V(0x025c, 53, 56, 0),
+    V(0x01f8, 54, 57, 0), V(0x01a4, 55, 58, 0), V(0x0160, 56, 59, 0), V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0), V(0x00cb, 59, 62, 0), V(0x00ab, 61, 63, 0), V(0x008f, 61, 32, 0),
+    V(0x5b12, 65, 65, 1), V(0x4d04, 80, 66, 0), V(0x412c, 81, 67, 0), V(0x37d8, 82, 68, 0),
+    V(0x2fe8, 83, 69, 0), V(0x293c, 84, 70, 0), V(0x2379, 86, 71, 0), V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0), V(0x174e, 72, 74, 0), V(0x1424, 72, 75, 0), V(0x119c, 74, 76, 0),
+    V(0x0f6b, 74, 77, 0), V(0x0d51, 75, 78, 0), V(0x0bb6, 77, 79, 0), V(0x0a40, 77, 48, 0),
+    V(0x5832, 80, 81, 1), V(0x4d1c, 88, 82, 0), V(0x438e, 89, 83, 0), V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0), V(0x2eae, 92, 86, 0), V(0x299a, 93, 87, 0), V(0x2516, 86, 71, 0),
+    V(0x5570, 88, 89, 1), V(0x4ca9, 95, 90, 0), V(0x44d9, 96, 91, 0), V(0x3e22, 97, 92, 0),
+    V(0x3824, 99, 93, 0), V(0x32b4, 99, 94, 0), V(0x2e17, 93, 86, 0), V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0), V(0x47e5, 102, 98, 0), V(0x41cf, 103, 99, 0), V(0x3c3d, 104, 100, 0),
+    V(0x375e, 99, 93, 0), V(0x5231, 105, 102, 0), V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0),
+    V(0x415e, 103, 99, 0), V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1), V(0x5522, 112, 109, 0),
+    V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0),
+};
+#undef V
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
-  int bw = 0, bh = 0;          // blocks that hold image samples
+  int bw = 0, bh = 0;          // blocks that hold image samples (lossless: samples)
   int stride_w = 0, rows = 0;  // blocks allocated (whole MCUs)
   bool latched = false;
   int16_t qt[64] = {};         // natural order, latched at the component's first scan
   std::vector<int16_t> coef;   // stride_w x rows blocks of 64, natural order
+  std::vector<uint8_t> samples;  // lossless: bw x bh samples, (x << Pt) in 8 bits
   // Progressive: jdphuff.c's coef_bits (the Al of the last scan that coded
   // each coefficient, -1 before any) and the copy taken when a scan of the
   // component starts (its second half of cinfo->coef_bits).
@@ -103,7 +164,8 @@ struct Smoothing {
 
 struct Frame {
   int height = 0, width = 0, hmax = 1, vmax = 1;
-  bool progressive = false;
+  int precision = 8;
+  bool progressive = false, arithmetic = false, lossless = false;
   std::vector<Component> comps;
 };
 
@@ -192,13 +254,14 @@ void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride)
 }
 
 // One component's samples at full resolution (height x width), from its
-// IDCT'd plane of cw x ch real samples (row stride `ps`).
+// plane of cw x ch real samples (row stride `ps`); `fancy` as libjpeg's
+// do_fancy_upsampling, which it turns off for lossless data.
 int upsample(const uint8_t* plane, int ps, int cw, int ch, int h, int v, int hmax, int vmax,
-             int height, int width, uint8_t* out) {
+             int height, int width, bool fancy, uint8_t* out) {
   if (hmax % h || vmax % v) return kSampling;
   const int hx = hmax / h, vx = vmax / v;
   auto row = [&](int r) { return plane + (size_t)(r < 0 ? 0 : (r >= ch ? ch - 1 : r)) * ps; };
-  const bool fancy_h2 = hx == 2 && cw > 2;
+  const bool fancy_h2 = fancy && hx == 2 && cw > 2;
   if (fancy_h2 && vx == 1) {  // h2v1_fancy_upsample
     std::vector<uint8_t> line(2 * (size_t)cw);
     for (int y = 0; y < height; ++y) {
@@ -234,7 +297,7 @@ int upsample(const uint8_t* plane, int ps, int cw, int ch, int h, int v, int hma
       o[2 * cw - 1] = (uint8_t)((sum[cw - 1] * 4 + 7) >> 4);
       memcpy(out + (size_t)y * width, o, width);
     }
-  } else if (hx == 1 && vx == 2) {  // h1v2_fancy_upsample
+  } else if (fancy && hx == 1 && vx == 2) {  // h1v2_fancy_upsample
     for (int y = 0; y < height; ++y) {
       const int r = y / 2;
       const uint8_t* near = row(r);
@@ -243,7 +306,7 @@ int upsample(const uint8_t* plane, int ps, int cw, int ch, int h, int v, int hma
       uint8_t* o = out + (size_t)y * width;
       for (int c = 0; c < width; ++c) o[c] = (uint8_t)((near[c] * 3 + far[c] + bias) >> 2);
     }
-  } else {  // fullsize, h2v1 / h2v2 of narrow components, int_upsample
+  } else {  // fullsize, h2v1 / h2v2 (plain, or of narrow components), int_upsample
     for (int y = 0; y < height; ++y) {
       const uint8_t* in = row(y / vx);
       uint8_t* o = out + (size_t)y * width;
@@ -371,6 +434,12 @@ int reconstruct(const Frame& f, int color, const Smoothing* sm, uint8_t* out) {
   for (size_t ci = 0; ci < f.comps.size(); ++ci) {
     const Component& c = f.comps[ci];
     const int cw = ceil_div(W * c.h, f.hmax), ch = ceil_div(H * c.v, f.vmax);
+    if (f.lossless) {
+      const int err = upsample(c.samples.data(), cw, cw, ch, c.h, c.v, f.hmax, f.vmax, H, W,
+                               false, &full[ci * npx]);
+      if (err) return err;
+      continue;
+    }
     const int ps = c.bw * 8;
     std::vector<uint8_t> plane((size_t)c.bh * 8 * ps);
     for (int by = 0; by < c.bh; ++by) {
@@ -382,7 +451,7 @@ int reconstruct(const Frame& f, int color, const Smoothing* sm, uint8_t* out) {
         idct_islow(&c.coef[((size_t)by * c.stride_w + bx) * 64], c.qt,
                    &plane[(size_t)by * 8 * ps + bx * 8], ps);
     }
-    const int err = upsample(plane.data(), ps, cw, ch, c.h, c.v, f.hmax, f.vmax, H, W,
+    const int err = upsample(plane.data(), ps, cw, ch, c.h, c.v, f.hmax, f.vmax, H, W, true,
                              &full[ci * npx]);
     if (err) return err;
   }
@@ -560,12 +629,83 @@ struct BitReader {
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
+// jdarith.c's arithmetic decoder (T.81 D.2): reads entropy-coded bytes (FF 00
+// as FF) until it meets a marker, which it leaves in `unread`, and zero bytes
+// after it (a marker inside arithmetic-coded data is legal).
+struct ArithDecoder {
+  const Stream& s;
+  int64_t& pos;
+  int& unread;
+  int64_t c = 0, a = 0;  // the C and A registers
+  int ct = -16;          // bits left in C's input byte; -16 at a start, -1 after a bad code
+
+  ArithDecoder(const Stream& st, int64_t& p, int& u) : s(st), pos(p), unread(u) {}
+
+  void reset() {  // start_pass and process_restart: two bytes are read first
+    c = a = 0;
+    ct = -16;
+  }
+  int byte() {
+    if (unread) return 0;
+    int data = s[pos++];
+    if (data == 0xFF) {
+      do data = s[pos++]; while (data == 0xFF);
+      if (data == 0) {
+        data = 0xFF;
+      } else {
+        unread = data;
+        data = 0;
+      }
+    }
+    return data;
+  }
+  // One binary decision with the adaptive estimate *st (MPS << 7 | state).
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {  // renormalisation and input, D.2.6
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the second initial byte
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kAritab[sv & 0x7F];
+    const int nl = qe & 0xFF;
+    qe >>= 8;
+    const int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {  // conditional exchange: the LPS
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 // One scan's components and parameters.
 struct Scan {
   int ns = 0;
   Component* comps[4];
   const Huffman* dc[4];
   const Huffman* ac[4];
+  int td[4], ta[4];  // table numbers (0-3 Huffman, 0-15 arithmetic)
   int ss = 0, se = 63, ah = 0, al = 0;
 };
 
@@ -582,8 +722,16 @@ struct Parser {
   bool qdefined[4] = {false, false, false, false};
   int16_t qtables[4][64];
   Huffman dc[4], ac[4];
+  // Arithmetic coding: the DAC marker's conditioning (L, U per DC table, Kx
+  // per AC table; jdmarker.c's defaults at SOI) and the statistics bins.
+  uint8_t arith_l[16], arith_u[16], arith_k[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
 
-  Parser(const uint8_t* d, int64_t size) : s{d, size} {}
+  Parser(const uint8_t* d, int64_t size) : s{d, size} {
+    memset(arith_l, 0, sizeof(arith_l));
+    memset(arith_u, 1, sizeof(arith_u));
+    memset(arith_k, 5, sizeof(arith_k));
+  }
 
   // jdmarker.c's next_marker: skips to an FF, the FF fill bytes and FF 00 pairs.
   int next_marker() {
@@ -611,13 +759,15 @@ struct Parser {
   }
 
   int sof(int code, const uint8_t* b, int len) {
-    if (code == 0xC3) return kLossless;
-    if (code == 0xC5 || code == 0xC6 || code == 0xC7) return kHierarchical;
-    if (code >= 0xC9) return kArithmetic;
+    if ((code >= 0xC5 && code <= 0xC7) || code >= 0xCD) return kHierarchical;
+    if (code == 0xCB) return kArithLossless;
     if (have_frame) return kCorrupt;
     if (len < 6) return kCorrupt;
-    if (b[0] != 8) return kPrecision;
-    frame.progressive = code == 0xC2;
+    frame.lossless = code == 0xC3;
+    frame.arithmetic = code >= 0xC9;
+    frame.progressive = code == 0xC2 || code == 0xCA;
+    frame.precision = b[0];
+    if (frame.lossless ? b[0] < 2 || b[0] > 8 : b[0] != 8) return kPrecision;
     frame.height = b[1] << 8 | b[2];
     frame.width = b[3] << 8 | b[4];
     const int nc = b[5];
@@ -641,6 +791,12 @@ struct Parser {
       if (frame.hmax % c.h || frame.vmax % c.v) return kSampling;
       c.bw = ceil_div(ceil_div(frame.width * c.h, frame.hmax), 8);
       c.bh = ceil_div(ceil_div(frame.height * c.v, frame.vmax), 8);
+      if (frame.lossless) {  // a data unit is one sample
+        c.bw = ceil_div(frame.width * c.h, frame.hmax);
+        c.bh = ceil_div(frame.height * c.v, frame.vmax);
+        c.samples.assign((size_t)c.bw * c.bh, 0);
+        continue;
+      }
       c.stride_w = mcux * c.h;
       c.rows = mcuy * c.v;
       c.coef.assign((size_t)c.stride_w * c.rows * 64, 0);
@@ -681,12 +837,31 @@ struct Parser {
     return kOk;
   }
 
+  // jdmarker.c's get_dac: (Tc Tb, Cs) pairs, DC tables 0-15 take L (low 4
+  // bits) <= U (high 4 bits), AC tables 16-31 take Kx.
+  int dac(const uint8_t* b, int len) {
+    if (len % 2) return kCorrupt;
+    for (int i = 0; i < len; i += 2) {
+      const int index = b[i], val = b[i + 1];
+      if (index >= 32) return kCorrupt;
+      if (index >= 16) {
+        arith_k[index - 16] = (uint8_t)val;
+      } else {
+        arith_l[index] = (uint8_t)(val & 15);
+        arith_u[index] = (uint8_t)(val >> 4);
+        if (arith_l[index] > arith_u[index]) return kCorrupt;
+      }
+    }
+    return kOk;
+  }
+
   // A table the scan decodes with must exist, and a DC table's symbols are
-  // sizes up to 15 (jpeg_make_d_derived_tbl).
-  static bool usable(const Huffman& t, bool is_dc) {
+  // sizes up to 15, differences' up to 16 in a lossless file
+  // (jpeg_make_d_derived_tbl).
+  bool usable(const Huffman& t, bool is_dc) const {
     if (!t.defined) return false;
     for (int i = 0; is_dc && i < t.nvals; ++i)
-      if (t.vals[i] > 15) return false;
+      if (t.vals[i] > (frame.lossless ? 16 : 15)) return false;
     return true;
   }
 
@@ -703,9 +878,11 @@ struct Parser {
       for (int j = 0; j < i; ++j)
         if (sc.comps[j] == sc.comps[i]) return kCorrupt;
       const int td = b[2 + 2 * i] >> 4, ta = b[2 + 2 * i] & 15;
-      if (td > 3 || ta > 3) return kCorrupt;
-      sc.dc[i] = &dc[td];
-      sc.ac[i] = &ac[ta];
+      if (!frame.arithmetic && (td > 3 || (ta > 3 && !frame.lossless))) return kCorrupt;
+      sc.td[i] = td;
+      sc.ta[i] = ta;
+      sc.dc[i] = &dc[td & 3];
+      sc.ac[i] = &ac[ta & 3];
       blocks += sc.comps[i]->h * sc.comps[i]->v;
     }
     if (sc.ns > 1 && blocks > 10) return kCorrupt;  // D_MAX_BLOCKS_IN_MCU
@@ -716,6 +893,18 @@ struct Parser {
     sc.al = q[2] & 15;
     ++scans;
     if (color < 0) color = pick_color();
+    if (frame.lossless) {
+      // libjpeg-turbo converts no colour space for lossless data
+      if (color != kRGB && color != kCMYK) return kLosslessColor;
+      // jdlossls.c's start_pass_lossless and jddiffct.c's start_input_pass
+      if (sc.ss < 1 || sc.ss > 7 || sc.se != 0 || sc.ah != 0 || sc.al >= frame.precision)
+        return kCorrupt;
+      const int per_row = sc.ns > 1 ? ceil_div(frame.width, frame.hmax) : sc.comps[0]->bw;
+      if (restart % per_row) return kCorrupt;
+      for (int i = 0; i < sc.ns; ++i)
+        if (!usable(*sc.dc[i], true)) return kCorrupt;
+      return kOk;
+    }
     for (int i = 0; i < sc.ns; ++i) {  // latch_quant_tables
       Component& c = *sc.comps[i];
       if (c.latched) continue;
@@ -723,12 +912,12 @@ struct Parser {
       memcpy(c.qt, qtables[c.tq], sizeof(c.qt));
       c.latched = true;
     }
-    if (!frame.progressive) {  // jdhuff.c: Ss, Se, Ah/Al are not checked
-      for (int i = 0; i < sc.ns; ++i)
+    if (!frame.progressive) {  // jdhuff.c, jdarith.c: Ss, Se, Ah/Al are not checked
+      for (int i = 0; i < sc.ns && !frame.arithmetic; ++i)
         if (!usable(*sc.dc[i], true) || !usable(*sc.ac[i], false)) return kCorrupt;
       return kOk;
     }
-    // jdphuff.c's start_pass_phuff_decoder
+    // jdphuff.c's start_pass_phuff_decoder, jdarith.c's start_pass
     const bool dc_band = sc.ss == 0;
     bool bad = dc_band ? sc.se != 0 : (sc.ss > sc.se || sc.se > 63 || sc.ns != 1);
     if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
@@ -739,6 +928,7 @@ struct Parser {
       Component& c = *sc.comps[i];
       for (int k = lo; k <= hi; ++k) c.prev_bits[k] = scans > 1 ? c.bits[k] : 0;
       for (int k = sc.ss; k <= sc.se; ++k) c.bits[k] = sc.al;
+      if (frame.arithmetic) continue;
       if (dc_band ? (sc.ah == 0 && !usable(*sc.dc[i], true)) : !usable(*sc.ac[i], false))
         return kCorrupt;
     }
@@ -772,11 +962,9 @@ struct Parser {
     }
   }
 
-  // Decodes one scan's entropy-coded data into the components' coefficients.
-  void decode_scan(const Scan& sc) {
-    const bool prog = frame.progressive;
-    const bool dc_band = sc.ss == 0;
-    int mcux, mcuy;
+  // The scan's MCUs across and down: a single component's blocks, or the
+  // frame's MCUs of hmax x vmax blocks.
+  void mcu_grid(const Scan& sc, int& mcux, int& mcuy) const {
     if (sc.ns == 1) {
       mcux = sc.comps[0]->bw;
       mcuy = sc.comps[0]->bh;
@@ -784,6 +972,27 @@ struct Parser {
       mcux = ceil_div(frame.width, 8 * frame.hmax);
       mcuy = ceil_div(frame.height, 8 * frame.vmax);
     }
+  }
+
+  // process_restart's marker half: the expected RSTn, or libjpeg's resync.
+  void restart_marker(int& next_rst) {
+    if (!unread) unread = next_marker();
+    if (unread == 0xD0 + next_rst)
+      unread = 0;
+    else
+      resync(next_rst);
+    next_rst = (next_rst + 1) & 7;
+  }
+
+  // Decodes one scan's entropy-coded data into the components' coefficients
+  // (samples, lossless).
+  void decode_scan(const Scan& sc) {
+    if (frame.lossless) return decode_lossless(sc);
+    if (frame.arithmetic) return decode_arith(sc);
+    const bool prog = frame.progressive;
+    const bool dc_band = sc.ss == 0;
+    int mcux, mcuy;
+    mcu_grid(sc, mcux, mcuy);
     const int total = mcux * mcuy;
     BitReader br(s, pos, unread);
     int pred[4] = {0, 0, 0, 0};
@@ -793,12 +1002,7 @@ struct Parser {
     for (int m = 0; m < total; ++m) {
       if (restart && restarts_to_go == 0) {  // process_restart
         br.reset();
-        if (!unread) unread = next_marker();
-        if (unread == 0xD0 + next_rst)
-          unread = 0;
-        else
-          resync(next_rst);
-        next_rst = (next_rst + 1) & 7;
+        restart_marker(next_rst);
         pred[0] = pred[1] = pred[2] = pred[3] = 0;
         eobrun = 0;
         restarts_to_go = restart;
@@ -917,6 +1121,269 @@ struct Parser {
     }
   }
 
+  // jdarith.c's DC difference (F.19, F.21-F.24) into `last`, a 16-bit
+  // prediction, with the conditioning category in `ctx`; false after a bad
+  // code (the decoder's ct is then -1).
+  bool arith_dc(ArithDecoder& ad, int tbl, int& last, int& ctx) {
+    uint8_t* st = dc_stats[tbl] + ctx;
+    if (ad.decode(st) == 0) {
+      ctx = 0;
+      return true;
+    }
+    const int sign = ad.decode(st + 1);
+    st += 2 + sign;
+    int m = ad.decode(st);
+    if (m) {
+      st = dc_stats[tbl] + 20;  // X1
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ad.ct = -1;  // magnitude overflow
+          return false;
+        }
+        ++st;
+      }
+    }
+    if (m < (1 << arith_l[tbl]) >> 1)
+      ctx = 0;  // zero difference
+    else if (m > (1 << arith_u[tbl]) >> 1)
+      ctx = 12 + sign * 4;  // large
+    else
+      ctx = 4 + sign * 4;  // small
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last = (last + v) & 0xFFFF;
+    return true;
+  }
+
+  // jdarith.c's AC coefficients ss..se (F.20, G.1.3.2's first scans), each
+  // scaled by 2^al; false after a bad code.
+  bool arith_ac(ArithDecoder& ad, int tbl, int ss, int se, int al, uint8_t* fixed,
+                int16_t* blk) {
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (ad.decode(st)) break;  // EOB
+      while (ad.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {
+          ad.ct = -1;  // spectral overflow
+          return false;
+        }
+      }
+      const int sign = ad.decode(fixed);
+      st += 2;
+      int m = ad.decode(st);
+      if (m && ad.decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= arith_k[tbl] ? 189 : 217);
+        while (ad.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ad.ct = -1;  // magnitude overflow
+            return false;
+          }
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ad.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = (int16_t)(uint16_t)((unsigned)v << al);
+    }
+    return true;
+  }
+
+  // jdarith.c's decode_mcu_AC_refine for one block (G.1.3.3).
+  void arith_ac_refine(ArithDecoder& ad, int tbl, const Scan& sc, uint8_t* fixed,
+                       int16_t* blk) {
+    const int p1 = 1 << sc.al, m1 = -1 * (1 << sc.al);
+    int kex = sc.se;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = sc.ss; k <= sc.se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && ad.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t& coef = blk[kNatural[k]];
+        if (coef) {  // a coefficient nonzero before: one correction bit
+          if (ad.decode(st + 2)) coef = (int16_t)(coef + (coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ad.decode(st + 1)) {  // newly nonzero
+          coef = (int16_t)(ad.decode(fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > sc.se) {
+          ad.ct = -1;  // spectral overflow
+          return;
+        }
+      }
+    }
+  }
+
+  // An arithmetic-coded scan (jdarith.c): statistics and predictions reset
+  // at its start and at each restart marker; after a bad code the rest of the
+  // restart interval is skipped. The decoder never runs out of data (it
+  // reads zeros after a marker), so every MCU counts as decoded with data to
+  // spare for block smoothing.
+  void decode_arith(const Scan& sc) {
+    const bool prog = frame.progressive, dc_band = sc.ss == 0;
+    const bool dc_used = !prog || (dc_band && sc.ah == 0), ac_used = !prog || sc.ss != 0;
+    int mcux, mcuy;
+    mcu_grid(sc, mcux, mcuy);
+    const int total = mcux * mcuy;
+    ArithDecoder ad(s, pos, unread);
+    uint8_t fixed = 113;
+    int last[4] = {0, 0, 0, 0}, ctx[4] = {0, 0, 0, 0};
+    auto reset_stats = [&] {
+      for (int i = 0; i < sc.ns; ++i) {
+        if (dc_used) {
+          memset(dc_stats[sc.td[i]], 0, sizeof(dc_stats[0]));
+          last[i] = ctx[i] = 0;
+        }
+        if (ac_used) memset(ac_stats[sc.ta[i]], 0, sizeof(ac_stats[0]));
+      }
+    };
+    reset_stats();
+    int restarts_to_go = restart, next_rst = 0;
+    for (int m = 0; m < total; ++m) {
+      if (restart) {
+        if (restarts_to_go == 0) {  // process_restart
+          restart_marker(next_rst);
+          reset_stats();
+          ad.reset();
+          restarts_to_go = restart;
+        }
+        --restarts_to_go;
+      }
+      const int my = m / mcux, mx = m % mcux;
+      last_good = sc.ns == 1 ? my / sc.comps[0]->v : my;
+      if (ad.ct == -1) continue;
+      for (int i = 0; i < sc.ns; ++i) {
+        Component& c = *sc.comps[i];
+        const int bh = sc.ns == 1 ? 1 : c.v, bw = sc.ns == 1 ? 1 : c.h;
+        for (int v = 0; v < bh && ad.ct != -1; ++v)
+          for (int h = 0; h < bw && ad.ct != -1; ++h) {
+            int16_t* blk = &c.coef[((size_t)(my * bh + v) * c.stride_w + mx * bw + h) * 64];
+            if (!prog) {  // decode_mcu
+              if (!arith_dc(ad, sc.td[i], last[i], ctx[i])) break;
+              blk[0] = (int16_t)(uint16_t)last[i];
+              arith_ac(ad, sc.ta[i], 1, 63, 0, &fixed, blk);
+            } else if (dc_band && sc.ah == 0) {  // decode_mcu_DC_first
+              if (!arith_dc(ad, sc.td[i], last[i], ctx[i])) break;
+              blk[0] = (int16_t)(uint16_t)((unsigned)last[i] << sc.al);
+            } else if (dc_band) {  // decode_mcu_DC_refine
+              if (ad.decode(&fixed)) blk[0] = (int16_t)(blk[0] | (1 << sc.al));
+            } else if (sc.ah == 0) {  // decode_mcu_AC_first
+              arith_ac(ad, sc.ta[i], sc.ss, sc.se, sc.al, &fixed, blk);
+            } else {
+              arith_ac_refine(ad, sc.ta[i], sc, &fixed, blk);
+            }
+          }
+      }
+    }
+  }
+
+  // A lossless scan (jddiffct.c's decompress_data over jdlhuff.c and
+  // jdpred.c): each iMCU row's MCU rows are decoded into differences, then
+  // its rows undifferenced and scaled. A restart marker, or an MCU row
+  // begun after the data ran out (whose differences are then 0), resets
+  // every component's prediction to the first-row rule, which applies from
+  // the first row of the iMCU row undifferenced next.
+  void decode_lossless(const Scan& sc) {
+    const int imcu_rows = ceil_div(frame.height, frame.vmax);
+    const bool inter = sc.ns > 1;
+    const int per_row = inter ? ceil_div(frame.width, frame.hmax) : sc.comps[0]->bw;
+    const int restart_rows = restart / per_row;
+    const int initial = 1 << (frame.precision - sc.al - 1);
+    BitReader br(s, pos, unread);
+    std::vector<int32_t> diff[4], prev[4], cur[4];
+    bool first[4];
+    for (int i = 0; i < sc.ns; ++i) {
+      const Component& c = *sc.comps[i];
+      diff[i].assign((size_t)c.v * (inter ? per_row * c.h : c.bw), 0);
+      prev[i].assign(c.bw, 0);
+      cur[i].assign(c.bw, 0);
+      first[i] = true;
+    }
+    int rows_to_go = restart_rows, next_rst = 0;
+    bool insufficient = false;
+    for (int R = 0; R < imcu_rows; ++R) {
+      const Component& c0 = *sc.comps[0];
+      const int mcu_rows = inter ? 1 : (R < imcu_rows - 1 ? c0.v : c0.bh - R * c0.v);
+      for (int y = 0; y < mcu_rows; ++y) {
+        if (restart && rows_to_go == 0) {  // process_restart
+          br.reset();
+          restart_marker(next_rst);
+          for (int i = 0; i < sc.ns; ++i) first[i] = true;
+          if (!unread) insufficient = false;
+          rows_to_go = restart_rows;
+        }
+        if (insufficient) {  // decode_mcus: zero differences, the prediction reset
+          for (int i = 0; i < sc.ns; ++i) {
+            std::fill(diff[i].begin(), diff[i].end(), 0);
+            first[i] = true;
+          }
+        } else {
+          for (int mx = 0; mx < per_row; ++mx)
+            for (int i = 0; i < sc.ns; ++i) {
+              const Component& c = *sc.comps[i];
+              const int bh = inter ? c.v : 1, bw = inter ? c.h : 1;
+              const int w = inter ? per_row * c.h : c.bw;
+              for (int v = 0; v < bh; ++v)
+                for (int h = 0; h < bw; ++h) {
+                  const int t = br.decode(*sc.dc[i]);
+                  const int d = t == 0 ? 0 : t == 16 ? 32768 : extend(br.bits(t), t);
+                  diff[i][(size_t)(inter ? v : y) * w + mx * bw + h] = d;
+                }
+            }
+          if (br.overrun) insufficient = true;
+        }
+        if (restart) --rows_to_go;
+      }
+      for (int i = 0; i < sc.ns; ++i) {
+        Component& c = *sc.comps[i];
+        const int w = inter ? per_row * c.h : c.bw;
+        const int rows = inter ? (R < imcu_rows - 1 ? c.v : c.bh - R * c.v) : mcu_rows;
+        for (int r = 0; r < rows; ++r) {
+          const int32_t* d = &diff[i][(size_t)r * w];
+          int32_t* u = cur[i].data();
+          const int32_t* up = prev[i].data();
+          if (first[i]) {  // jpeg_undifference_first_row
+            u[0] = (d[0] + initial) & 0xFFFF;
+            for (int x = 1; x < c.bw; ++x) u[x] = (d[x] + u[x - 1]) & 0xFFFF;
+            first[i] = false;
+          } else {
+            u[0] = (d[0] + up[0]) & 0xFFFF;
+            for (int x = 1; x < c.bw; ++x) {
+              const int ra = u[x - 1], rb = up[x], rc = up[x - 1];
+              int p;
+              switch (sc.ss) {
+                case 1: p = ra; break;
+                case 2: p = rb; break;
+                case 3: p = rc; break;
+                case 4: p = ra + rb - rc; break;
+                case 5: p = ra + ((rb - rc) >> 1); break;
+                case 6: p = rb + ((ra - rc) >> 1); break;
+                default: p = (ra + rb) >> 1; break;
+              }
+              u[x] = (d[x] + p) & 0xFFFF;
+            }
+          }
+          uint8_t* out = &c.samples[(size_t)(R * c.v + r) * c.bw];
+          for (int x = 0; x < c.bw; ++x) out[x] = (uint8_t)(u[x] << sc.al);
+          std::swap(cur[i], prev[i]);
+        }
+      }
+    }
+  }
+
   void app(int code, const uint8_t* b, int len) {
     if (code == 0xE0 && len >= 14 && !memcmp(b, "JFIF\0", 5)) jfif = true;
     if (code == 0xEE && len >= 12 && !memcmp(b, "Adobe", 5)) {
@@ -925,7 +1392,8 @@ struct Parser {
     }
   }
 
-  // jdapimin.c's default_decompress_parms
+  // jdapimin.c's default_decompress_parms (3 components without a JFIF or
+  // Adobe marker: RGB by the ids 'R', 'G', 'B' or in a lossless file)
   int pick_color() const {
     const size_t nc = frame.comps.size();
     if (nc == 1) return kGrey;
@@ -933,7 +1401,7 @@ struct Parser {
     if (jfif) return kYCbCr;
     if (adobe) return adobe_transform == 0 ? kRGB : kYCbCr;
     const int a = frame.comps[0].id, b = frame.comps[1].id, c = frame.comps[2].id;
-    return (a == 82 && b == 71 && c == 66) ? kRGB : kYCbCr;
+    return (a == 82 && b == 71 && c == 66) || frame.lossless ? kRGB : kYCbCr;
   }
 
   // jdcoefct.c's smoothing_ok at the start of the output pass: true (and
@@ -982,7 +1450,7 @@ struct Parser {
       if (code == 0xC4) {
         err = dht(b, len);
       } else if (code == 0xCC) {
-        err = kArithmetic;  // DAC
+        err = dac(b, len);
       } else if (code == 0xC8) {
         err = kCorrupt;  // JPG
       } else if (code >= 0xC0 && code <= 0xCF) {

@@ -1,12 +1,14 @@
-"""COCO-protocol detection evaluation (numpy, no pycocotools dependency).
+"""COCO-protocol detection evaluation (no pycocotools dependency).
 
 The port's copy of `htd_tpu/data/coco_eval.py` (mmdet CocoDataset.evaluate
 -> pycocotools COCOeval): greedy score-ordered matching per (image,
 class), crowd regions matched as IoF and treated as ignore, 101-point
 interpolated precision averaged over IoU 0.50:0.95, area ranges
-(all/small/medium/large), maxDets=100. The matcher is the JAX package's
-numpy one; its optional C++ speed-up (`htd_tpu/native/coco_match.cpp`) is
-not carried over.
+(all/small/medium/large), maxDets=100. The matching runs in C++ on the
+host (`csrc/coco_match.cpp`, built into the host library by
+`ops._build.load_host`; a failed build raises), the accumulation in numpy.
+`_evaluate_img_cat_plain` is the matcher's numpy twin, for the tests and
+for `tools_torch/drill_production.py`'s timing of both.
 """
 
 from __future__ import annotations
@@ -55,7 +57,42 @@ def _evaluate_img_cat(
     area_rng: Tuple[float, float],
     iou_thrs: np.ndarray,
 ) -> Optional[List[_ImgCatEval]]:
-    """Match one image/category at every IoU threshold."""
+    """Match one image/category at every IoU threshold (`csrc/coco_match.cpp`)."""
+    if len(dt_boxes) == 0 and len(gt_boxes) == 0:
+        return None
+    from htd_tpu_torch.ops import _build
+
+    lib = _build.load_host()[0]
+    db = np.ascontiguousarray(dt_boxes, np.float64).reshape(-1, 4)
+    ds = np.ascontiguousarray(dt_scores, np.float64)
+    gb = np.ascontiguousarray(gt_boxes, np.float64).reshape(-1, 4)
+    gc = np.ascontiguousarray(gt_crowd, np.uint8)
+    thrs = np.ascontiguousarray(iou_thrs, np.float64)
+    t, d = len(thrs), len(db)
+    matched = np.empty((t, d), np.uint8)
+    ignored = np.empty((t, d), np.uint8)
+    order = np.empty(d, np.int64)
+    num_gt = lib.htd_coco_match(db.ctypes.data, ds.ctypes.data, d, gb.ctypes.data,
+                                gc.ctypes.data, len(gb), float(area_rng[0]), float(area_rng[1]),
+                                thrs.ctypes.data, t, matched.ctypes.data, ignored.ctypes.data,
+                                order.ctypes.data)
+    if num_gt < 0:
+        raise MemoryError("out of memory in the COCO matcher")
+    scores = dt_scores[order]
+    return [_ImgCatEval(dt_scores=scores, dt_matched=matched[ti].astype(bool),
+                        dt_ignore=ignored[ti].astype(bool), num_gt=int(num_gt))
+            for ti in range(t)]
+
+
+def _evaluate_img_cat_plain(
+    dt_boxes: np.ndarray,
+    dt_scores: np.ndarray,
+    gt_boxes: np.ndarray,
+    gt_crowd: np.ndarray,
+    area_rng: Tuple[float, float],
+    iou_thrs: np.ndarray,
+) -> Optional[List[_ImgCatEval]]:
+    """`_evaluate_img_cat` in numpy (the JAX package's matcher), its plain twin."""
     if len(dt_boxes) == 0 and len(gt_boxes) == 0:
         return None
 

@@ -3,22 +3,27 @@
 `read_jpeg` returns what OpenCV's `cv2.imread(path, cv2.IMREAD_COLOR)`
 returns for a JPEG file: (H, W, 3) uint8 in BGR order, grey replicated into
 the three channels, the EXIF orientation applied. It reads baseline,
-extended-sequential and progressive Huffman files with one, three or four
-components (CMYK, or YCCK by the Adobe marker, turned into BGR as OpenCV
-does), and files cut short as libjpeg's stdio source reads them: the data
-after the cut decodes as zero bits of an inserted EOI marker, and a
-progressive file's coefficients that are not fully known are estimated by
-libjpeg's block smoothing. The entropy decoding and the back end
-(dequantisation, the islow IDCT as libjpeg-turbo's SIMD computes it, fancy
-upsampling, the colour conversions) are the C++ of `csrc/jpeg_decode.cpp`,
-built for the host by `ops._build.load_host`; they follow libjpeg-turbo step
-for step in integer arithmetic, so the pixels are OpenCV's bit for bit.
-Arithmetic-coded, lossless, hierarchical and 12-bit files, 2-component
-files, files that end before their first scan (where `imread` returns
-nothing) and files of more than 2**30 pixels (which OpenCV refuses too)
-raise `ValueError` naming the file. `decode_jpeg` reads bytes as
-`read_jpeg` reads a file holding them (`cv2.imdecode` returns nothing on a
-cut-short buffer, where `imread` of the file decodes it).
+extended-sequential and progressive files, Huffman- or arithmetic-coded,
+with one, three or four components (CMYK, or YCCK by the Adobe marker,
+turned into BGR as OpenCV does); lossless files of 2- to 8-bit precision
+that are RGB or CMYK (libjpeg-turbo converts no colour space for lossless
+data, so imread returns None for grey, YCbCr and YCCK ones), their samples
+as the file holds them; and files cut short as libjpeg's stdio source reads
+them: the data after the cut decodes as zero bits (zero bytes, arithmetic)
+of an inserted EOI marker, and a progressive file's coefficients that are
+not fully known are estimated by libjpeg's block smoothing. The entropy
+decoding and the back end (dequantisation, the islow IDCT as libjpeg-turbo's
+SIMD computes it, fancy upsampling, the colour conversions) are the C++ of
+`csrc/jpeg_decode.cpp`, built for the host by `ops._build.load_host`; they
+follow libjpeg-turbo step for step in integer arithmetic, so the pixels are
+OpenCV's bit for bit. Hierarchical, 12-bit and lossless arithmetic-coded
+files, the lossless files above, 2-component files, files that end before
+their first scan (where `imread` returns nothing for each) and files of more
+than 2**30 pixels (which OpenCV refuses too) raise `ValueError` naming the
+file and the reason. `decode_jpeg` reads bytes as `read_jpeg` reads a file
+holding them (`cv2.imdecode` returns nothing on a cut-short buffer, where
+`imread` of the file decodes it). One code path: no file is handed to
+OpenCV or PIL.
 
 `compress_roundtrip` is PIL's `Image.save(format="JPEG", quality=q)`
 followed by `Image.open(...).convert("RGB")`, returned in BGR order: the
@@ -37,14 +42,17 @@ import numpy as np
 
 SIGNATURE = b"\xff\xd8\xff"
 
-# csrc/jpeg_decode.cpp's Error codes
+# csrc/jpeg_decode.cpp's Error codes; where imread returns None, the file names the reason
 _ERRORS = {
     1: "not a JPEG file",
     2: "the JPEG data ends before its first scan",
-    4: "lossless JPEG files are not read",
-    5: "hierarchical JPEG files are not read",
-    6: "arithmetic-coded JPEG files are not read",
-    7: "only 8-bit JPEG files are read",
+    4: "lossless JPEG files that need a colour conversion (grey, YCbCr, YCCK) are not read "
+       "(libjpeg-turbo converts no lossless data, so cv2.imread returns None)",
+    5: "hierarchical JPEG files are not read (libjpeg has no decoder for them)",
+    6: "lossless arithmetic-coded JPEG files are not read (libjpeg-turbo has no decoder for "
+       "them)",
+    7: "only 8-bit DCT and 2- to 8-bit lossless JPEG files are read (OpenCV reads through "
+       "libjpeg's 8-bit interface)",
     8: "only grey, 3- and 4-component JPEG files are read (not 2 components)",
     9: "JPEG sampling factors whose ratios are not whole are not read",
     10: "corrupt JPEG data",

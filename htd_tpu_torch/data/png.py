@@ -1,4 +1,4 @@
-"""PNG decoding with the standard library's zlib and numpy.
+"""PNG decoding and encoding with the standard library's zlib and numpy.
 
 `read_png` returns what OpenCV's `cv2.imread(path, cv2.IMREAD_COLOR)`
 returns for the 8-bit, non-interlaced PNG files it reads: (H, W, 3) uint8
@@ -6,7 +6,8 @@ in BGR order, grey replicated into the three channels, a palette looked
 up, an alpha channel (and any tRNS transparency) dropped. The port reads
 images with its own decoders, PNG here and JPEG in `data/jpeg.py`
 (`CocoDataset.load_image` picks one by the file's signature), never with
-OpenCV; any other PNG raises `ValueError`.
+OpenCV; any other PNG raises `ValueError`. `write_png` writes an 8-bit grey
+or BGR image as a PNG file, which the tools use in place of `cv2.imwrite`.
 """
 
 from __future__ import annotations
@@ -124,3 +125,32 @@ def read_png(path) -> np.ndarray:
     if ctype in (0, 4):
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., 2::-1])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """Write (H, W) grey or (H, W, 3) BGR uint8 `img` to `path` as an 8-bit
+    grey or RGB PNG file, zlib at level 1: row r filtered with type r % 5
+    (None, Sub, Up, Average, Paeth), so that reading it back goes through
+    every filter, as it does for the files libpng writes. `read_png` and
+    `cv2.imread` read it back as `img` (grey as three equal channels)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8, not {img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    x = img.reshape(h, w, -1)[..., ::-1].astype(np.int16)
+    left, up, upleft = (np.zeros_like(x) for _ in range(3))
+    left[:, 1:], up[1:], upleft[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(up - upleft), np.abs(left - upleft), np.abs(left + up - 2 * upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    types = np.arange(h) % 5
+    pred = np.choose(types[:, None, None], (np.zeros_like(x), left, up, (left + up) >> 1, paeth))
+    rows = np.concatenate([types[:, None], ((x - pred) & 255).reshape(h, -1)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if img.ndim == 2 else 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(SIGNATURE + _chunk(b"IHDR", header)
+                + _chunk(b"IDAT", zlib.compress(rows.astype(np.uint8).tobytes(), 1))
+                + _chunk(b"IEND", b""))

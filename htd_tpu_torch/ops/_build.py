@@ -8,7 +8,7 @@ hash of the sources and flags, so a checkout builds it at first use and
 reuses it afterwards.
 
 The host code in `csrc/*.cpp` (the JPEG decoder, OpenCV's float32 filters
-and warps) is built apart, by the host's C++ compiler (`$CXX`, else `c++`
+and warps, the COCO matcher) is built apart, by the host's C++ compiler (`$CXX`, else `c++`
 on `PATH`), into `_build/host-<hash>/`, with `-ffp-contract=off` so that
 no product and sum are fused where OpenCV keeps them apart; it needs no
 CUDA. Nothing here runs at import time.
@@ -195,6 +195,9 @@ def load_host() -> Tuple[ctypes.CDLL, BuildInfo]:
     for fn in (lib.htd_sep_filter_f32, lib.htd_filter2d_f32, lib.htd_warp_affine_f32,
                lib.htd_remap_f32, lib.htd_resize_linear_f32):
         fn.restype = ctypes.c_int
+    f64 = ctypes.c_double
+    lib.htd_coco_match.argtypes = [vp, vp, i64, vp, vp, i64, f64, f64, vp, i64, vp, vp, vp]
+    lib.htd_coco_match.restype = i64
     return lib, info
 
 

@@ -645,3 +645,55 @@ def test_fpn_gradients_through_k7(cuda):
     assert neck.lateral_convs[3].conv.weight.grad.abs().max() > 0
     for a, b in zip(got, run(False)):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_coco_matcher_on_the_drill_dump(cuda, tmp_path):
+    """The native COCO matcher equals its numpy twin on the production
+    drill's own detections (tools_torch/drill_production.py on the card, 12
+    images at 1333x800): every (image, category, area range) at the 10 IoU
+    thresholds."""
+    from htd_tpu_torch.data import coco_eval as E
+    from htd_tpu_torch.data.coco import CocoDataset
+    from tools_torch import drill_production as drill
+
+    drill.main(["--images", "12", "--mirror-images", "1", "--out", str(tmp_path)])
+    dets = drill.load_dump(str(tmp_path / "raw_dump.json"))
+    gts = CocoDataset(str(tmp_path / "ann.json"), str(tmp_path / "images"),
+                      test_mode=True).groundtruth()
+    compared = 0
+    for img, (db, ds, dl) in dets.items():
+        gb, gl, gc = gts[img]
+        for cat in range(80):
+            args = (db[dl == cat], ds[dl == cat], gb[gl == cat], gc[gl == cat].astype(bool))
+            for area in E.AREA_RANGES.values():
+                got = E._evaluate_img_cat(*args, area, E.IOU_THRS)
+                want = E._evaluate_img_cat_plain(*args, area, E.IOU_THRS)
+                assert (got is None) == (want is None)
+                for g, w in zip(got or [], want or []):
+                    compared += 1
+                    np.testing.assert_array_equal(g.dt_scores, w.dt_scores)
+                    np.testing.assert_array_equal(g.dt_matched, w.dt_matched)
+                    np.testing.assert_array_equal(g.dt_ignore, w.dt_ignore)
+                    assert g.num_gt == w.num_gt
+    assert compared > 0
+
+
+@pytest.mark.cuda
+def test_arithmetic_and_lossless_fixtures_on_the_host(cuda):
+    """The arithmetic-coded and lossless fixtures of tests/data/jpeg decode
+    on the card's host to cv2.imread's pixels (the manifest's SHA-256)."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from htd_tpu_torch.data.jpeg import read_jpeg
+
+    root = Path(__file__).resolve().parent / "data" / "jpeg"
+    manifest = json.loads((root / "manifest.json").read_text())
+    names = [n for n in manifest if "arith" in n or n.startswith("lossless")]
+    assert len(names) >= 10
+    for name in names:
+        img = read_jpeg(root / name)
+        assert [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()] == \
+            [manifest[name]["shape"], manifest[name]["sha256"]], name

@@ -155,6 +155,89 @@ def test_coco_map_and_curves_match(rng):
     assert peval.evaluate_coco_map(perfect, gts, 3)["mAP"] == 1.0
 
 
+def _matcher_case(case: str, seed: int):
+    """One (image, category)'s detections and gts for the matcher: boxes
+    of every COCO area range (sides 4-200), duplicates of gts among the
+    detections, crowd gts, scores with ties, or no detections / no gts."""
+    r = np.random.RandomState(seed)
+    n_gt, n_dt = (0 if case == "no-gts" else 6), (0 if case == "no-dets" else 9)
+    xy = r.uniform(0, 300, (n_gt, 2))
+    gb = np.concatenate([xy, xy + r.uniform(4, 200, (n_gt, 2))], 1)
+    gc = np.zeros(n_gt, bool)
+    if case == "crowd":
+        gc[[1, 4]] = True
+    if n_gt:
+        hits = gb[r.randint(0, n_gt, n_dt)] + r.normal(0, 3, (n_dt, 4))
+    else:
+        xy = r.uniform(0, 300, (n_dt, 2))
+        hits = np.concatenate([xy, xy + 40], 1)
+    db = np.concatenate([np.minimum(hits[:, :2], hits[:, 2:]), np.maximum(hits[:, :2],
+                                                                         hits[:, 2:])], 1)
+    ds = r.uniform(0.05, 1, n_dt)
+    if case == "ties":
+        ds = np.round(ds * 3) / 3
+    return db, ds, gb, gc
+
+
+@pytest.mark.parametrize("case", ["mixed", "crowd", "ties", "no-dets", "no-gts"])
+def test_native_matcher_equals_plain(case):
+    """The native matcher (`csrc/coco_match.cpp`) equals its numpy twin
+    `_evaluate_img_cat_plain` in every area range at the 10 IoU
+    thresholds: the sorted scores, matched and ignored flags and the gt
+    count, on seeded cases (empty detections or gts, crowd gts, score
+    ties)."""
+    for seed in range(20):
+        args = _matcher_case(case, seed)
+        for area in peval.AREA_RANGES.values():
+            got = peval._evaluate_img_cat(*args, area, peval.IOU_THRS)
+            want = peval._evaluate_img_cat_plain(*args, area, peval.IOU_THRS)
+            assert len(got) == len(want) == len(peval.IOU_THRS)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.dt_scores, w.dt_scores)
+                np.testing.assert_array_equal(g.dt_matched, w.dt_matched)
+                np.testing.assert_array_equal(g.dt_ignore, w.dt_ignore)
+                assert g.num_gt == w.num_gt
+    assert peval._evaluate_img_cat(np.zeros((0, 4)), np.zeros(0), np.zeros((0, 4)),
+                                   np.zeros(0, bool), (0, 1e10), peval.IOU_THRS) is None
+
+
+def test_matcher_has_no_fallback(monkeypatch):
+    """Where the host library cannot be built, evaluation raises: there is
+    no numpy fallback on the path."""
+    from htd_tpu_torch.ops import _build
+
+    def no_library():
+        raise RuntimeError("no host C++ compiler")
+
+    monkeypatch.setattr(_build, "load_host", no_library)
+    with pytest.raises(RuntimeError, match="no host C\\+\\+ compiler"):
+        peval._evaluate_img_cat(*_matcher_case("mixed", 0), (0, 1e10), peval.IOU_THRS)
+
+
+def test_coco_map_80_categories_matches_jax():
+    """`evaluate_coco_map` over 80 categories on a seeded set of 12 images
+    (several categories per image, crowd gts, detections of every area)
+    equals the JAX package's, metric for metric."""
+    rng = np.random.RandomState(7)
+    dets, gts = {}, {}
+    for i in range(12):
+        n = rng.randint(4, 12)
+        xy = rng.uniform(0, 500, (n, 2))
+        gb = np.concatenate([xy, xy + rng.uniform(6, 250, (n, 2))], 1)
+        gl = rng.randint(0, 80, n)
+        gc = rng.uniform(size=n) < 0.1
+        k = rng.randint(10, 40)
+        pick = rng.randint(0, n, k)
+        db = gb[pick] + rng.normal(0, 8, (k, 4))
+        dl = np.where(rng.uniform(size=k) < 0.8, gl[pick], rng.randint(0, 80, k))
+        dets[i + 1] = (db, rng.uniform(0.05, 1, k), dl)
+        gts[i + 1] = (gb, gl, gc)
+    p, j = peval.evaluate_coco_map(dets, gts, 80), jeval.evaluate_coco_map(dets, gts, 80)
+    assert set(p) == set(j) and 0.0 < p["mAP"] < 1.0
+    for key in j:
+        assert p[key] == j[key] or (np.isnan(p[key]) and np.isnan(j[key])), key
+
+
 def test_eval_map_and_recalls_match(rng):
     """VOC-style `eval_map` (area and 11-point modes, ignored boxes) and
     `eval_recalls` within 1e-12 of the JAX functions."""

@@ -6,8 +6,10 @@ optimised tables, grey, EXIF orientations 1-8 in both byte orders, files
 of one scan per component written here, progressive files (OpenCV's and
 PIL's), PIL's CMYK files, and baseline and progressive files cut short
 (`imread` of the file: libjpeg's inserted EOI, zero bits, block smoothing);
-the files it refuses; `CocoDataset.load_image` against the JAX package's;
-the two manifests of `tests/data/jpeg/` against cv2 and the JAX package."""
+arithmetic-coded and lossless files written here (`tests/jpeg_fixtures.py`'s
+coders), cut short too; the files it refuses, where imread returns None;
+`CocoDataset.load_image` against the JAX package's; the two manifests of
+`tests/data/jpeg/` against cv2 and the JAX package."""
 
 import json
 import re
@@ -207,14 +209,13 @@ def test_refuses_what_it_cannot_read(tmp_path):
 
 
 @pytest.mark.parametrize("case,message", [
-    ("SOF9", "arithmetic"), ("SOF3", "lossless"), ("SOF5", "hierarchical"),
-    ("12-bit", "only 8-bit"), ("2 components", "not 2 components"),
+    ("SOF5", "hierarchical"), ("12-bit", "only 8-bit"), ("2 components", "not 2 components"),
     ("65535x65535", "2\\*\\*30")])
 def test_refuses_other_kinds(case, message):
     """Each kind of file the decoder does not read has its own message:
-    baseline files whose frame header says otherwise (arithmetic, lossless,
-    hierarchical, 12-bit, 2 components), a frame over OpenCV's 2**30-pixel
-    limit (which cv2 refuses too)."""
+    baseline files whose frame header says otherwise (hierarchical, 12-bit,
+    2 components), a frame over OpenCV's 2**30-pixel limit (which cv2
+    refuses too)."""
     data = bytearray(F.cv2_jpeg(F.pattern(0, 16, 24), 80))
     sof = data.index(b"\xff\xc0")
     if case.startswith("SOF"):
@@ -228,6 +229,157 @@ def test_refuses_other_kinds(case, message):
         assert _cv2(bytes(data)) is None
     with pytest.raises(ValueError, match=message):
         decode_jpeg(bytes(data))
+
+
+DAC_OPTIONS = [{}, {"restart": 2}, {"dac": F.DAC}, {"restart": 1, "dac": F.DAC}]
+
+
+@pytest.mark.parametrize("options", DAC_OPTIONS, ids=["plain", "restart", "dac", "both"])
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("sampling", ["444", "422", "420", "440", "grey"])
+def test_arithmetic(sampling, progressive, options):
+    """Arithmetic-coded files (SOF9, SOF10 with libjpeg's standard scan
+    script) at every sampling and grey, odd sizes down to 1x1, with a
+    restart interval and non-default DAC conditioning, decode bit-equal to
+    cv2; and the test-side coder is right: imread of each file equals
+    imread of its Huffman twin of the same coefficients."""
+    for i, (h, w) in enumerate(SIZES):
+        img = F.pattern(60 + i, h, w)
+        frame = F.coefficients(img[..., 0] if sampling == "grey" else img, 40 + 10 * i,
+                               "420" if sampling == "grey" else sampling)
+        data = F.arithmetic_jpeg(frame, progressive, **options)
+        _assert_decodes_as_cv2(data)
+        np.testing.assert_array_equal(_cv2(data), _cv2(F.huffman_twin(frame)))
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+def test_arithmetic_cut(progressive, tmp_path):
+    """Arithmetic files cut short across their scans (and restart
+    intervals) read as imread reads them: after libjpeg's inserted EOI the
+    decoder reads zero bytes and decodes every later MCU from them; block
+    smoothing where a progressive file's coefficients are not fully known."""
+    data = F.arithmetic_jpeg(F.coefficients(F.pattern(70, 40, 56), 85, "420"), progressive,
+                             restart=0 if progressive else 4)
+    cuts = set()
+    for start, end in F.scans(data):
+        cuts.update(range(start + 1, end, max(1, (end - start) // 5)))
+    for cut in sorted(cuts):
+        path = tmp_path / f"a{cut}.jpg"
+        path.write_bytes(data[:cut])
+        _assert_reads_as_imread(path)
+
+
+JFIF = F._segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+
+
+@pytest.mark.parametrize("restart", [0, 2])
+@pytest.mark.parametrize("pt", [0, 2])
+@pytest.mark.parametrize("color", ["rgb", "rgb-no-marker", "cmyk", "rgb-420", "grey", "ycc"])
+def test_lossless(color, pt, restart, tmp_path):
+    """Lossless files (SOF3) at predictors 1-7, point transforms 0 and 2,
+    with and without a restart interval, read as imread reads them: RGB
+    (Adobe transform 0, or no marker), CMYK and subsampled RGB as the file's
+    samples (x << Pt; upsampled by replication), grey and YCbCr refused as
+    imread refuses them (libjpeg-turbo converts no colour space for lossless
+    data). With Pt 0, RGB reads as the source pixels."""
+    path = tmp_path / "l.jpg"
+    for i, (h, w) in enumerate(SIZES):
+        img = F.pattern(80 + i, h, w)
+        planes = F.lossless_planes(img, color.split("-")[0] if color != "cmyk" else "rgb")
+        kwargs = {"app": JFIF if color == "ycc" else b"" if color in ("grey", "rgb-no-marker")
+                  else F.ADOBE_RGB}
+        if color == "cmyk":
+            planes.append(img[..., 1] // 2 + 60)
+        elif color == "rgb-420":
+            planes = [np.repeat(np.repeat(planes[0], 2, 0), 2, 1), planes[1], planes[2]]
+            kwargs["hv"] = [(2, 2), (1, 1), (1, 1)]
+        for predictor in range(1, 8):
+            path.write_bytes(F.lossless_jpeg(planes, predictor, pt, restart, **kwargs))
+            _assert_reads_as_imread(path)
+            if color.startswith("rgb") and color != "rgb-420" and pt == 0:
+                np.testing.assert_array_equal(read_jpeg(path), img)
+    if color in ("grey", "ycc"):
+        with pytest.raises(ValueError, match="colour conversion"):
+            read_jpeg(path)
+
+
+def test_lossless_precision(tmp_path):
+    """RGB lossless files of 2- to 16-bit precision: imread reads 2-8 bits
+    (the samples as they are, no scaling to 8 bits) and refuses 9-16, as
+    the port does."""
+    planes = F.lossless_planes(F.pattern(90, 17, 33), "rgb")
+    for bits in range(2, 17):
+        path = tmp_path / f"p{bits}.jpg"
+        x = [(p.astype(np.int64) >> max(0, 8 - bits)) << max(0, bits - 8) for p in planes]
+        path.write_bytes(F.lossless_jpeg(x, 6, 1, precision=bits, app=F.ADOBE_RGB))
+        _assert_reads_as_imread(path)
+        if bits > 8:
+            with pytest.raises(ValueError, match="only 8-bit DCT and 2- to 8-bit lossless"):
+                read_jpeg(path)
+
+
+@pytest.mark.parametrize("case,message", [
+    ("12-bit", "only 8-bit"), ("SOF5", "hierarchical"), ("SOF6", "hierarchical"),
+    ("SOF7", "hierarchical"), ("SOF13", "hierarchical"), ("SOF14", "hierarchical"),
+    ("SOF15", "hierarchical"), ("SOF11", "lossless arithmetic"),
+    ("lossless restart", "corrupt"), ("lossless Pt >= P", "corrupt")])
+def test_refused_as_imread_refuses(case, message, tmp_path):
+    """The kinds imread returns None for raise ValueError naming the file
+    and the reason: 12-bit DCT files (OpenCV reads through libjpeg's 8-bit
+    interface), hierarchical files (no libjpeg decodes them), lossless
+    arithmetic files (libjpeg-turbo has no decoder for them), a lossless
+    restart interval that is not a whole number of MCU rows, a point
+    transform as large as the precision."""
+    if case.startswith("lossless") or case == "SOF11":
+        data = bytearray(F.lossless_jpeg(F.lossless_planes(F.pattern(1, 16, 24), "rgb"), 1,
+                                         restart_rows=2 * (case == "lossless restart"),
+                                         app=F.ADOBE_RGB))
+        if case == "SOF11":
+            data[data.index(b"\xff\xc3") + 1] = 0xCB
+        elif case == "lossless restart":
+            data[data.index(b"\xff\xdd") + 5] += 1
+        else:
+            sos = data.index(b"\xff\xda")
+            data[sos + 13] = 8      # marker, length, Ns, 3 x (id, tables), Ss, Se, then Ah Al
+    else:
+        data = bytearray(F.cv2_jpeg(F.pattern(0, 16, 24), 80))
+        sof = data.index(b"\xff\xc0")
+        if case == "12-bit":
+            data[sof + 1], data[sof + 4] = 0xC1, 12
+        else:
+            data[sof + 1] = 0xC0 + int(case[3:])
+    path = tmp_path / "r.jpg"
+    path.write_bytes(bytes(data))
+    assert cv2.imread(str(path), cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match=f"r\\.jpg: .*{message}"):
+        read_jpeg(path)
+
+
+@pytest.mark.parametrize("kind", ["arithmetic", "progressive arithmetic", "lossless"])
+def test_exif_on_new_kinds(kind, tmp_path):
+    """EXIF orientation 6 applies to arithmetic-coded and lossless files as
+    to the others (a transpose, then a horizontal flip)."""
+    img = F.pattern(95, 20, 36)
+    data = (F.lossless_jpeg(F.lossless_planes(img, "rgb"), 4, app=F.ADOBE_RGB)
+            if kind == "lossless" else
+            F.arithmetic_jpeg(F.coefficients(img, 80, "420"), kind.startswith("progressive")))
+    path = tmp_path / "o.jpg"
+    path.write_bytes(F.with_exif(data, 6))
+    assert read_jpeg(path).shape == (36, 20, 3)
+    _assert_reads_as_imread(path)
+
+
+@pytest.mark.parametrize("code", [0xC3, 0xC9, 0xCA])
+def test_patched_frame_reads_as_imread(code, tmp_path):
+    """A baseline Huffman file whose frame header is patched to lossless
+    (SOF3: its scan parameters are then invalid) or to arithmetic coding
+    (SOF9, SOF10: its Huffman data decoded as arithmetic-coded garbage)
+    reads as imread reads it."""
+    data = bytearray(F.cv2_jpeg(F.pattern(0, 16, 24), 80))
+    data[data.index(b"\xff\xc0") + 1] = code
+    path = tmp_path / "p.jpg"
+    path.write_bytes(bytes(data))
+    _assert_reads_as_imread(path)
 
 
 def _jpeg_coco(root):

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 
 from htd_tpu_torch.data import coco as pcoco
-from htd_tpu_torch.data.png import SIGNATURE, read_png
+from htd_tpu_torch.data.png import SIGNATURE, read_png, write_png as port_write_png
 
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
@@ -175,3 +175,21 @@ def test_load_image_without_cv2(tmp_path, rng, monkeypatch):
         np.testing.assert_array_equal(ds.load_image(rec), ref)
     with pytest.raises(ImportError, match=r"c\.bmp.*cv2"):
         ds.load_image(ds.records[2])
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_write_png(channels, tmp_path):
+    """`write_png` (grey and BGR, odd sizes down to 1x1, row r filtered with
+    type r % 5): read_png and cv2.imread give the image back, grey as three
+    equal channels; anything but (H, W) or (H, W, 3) uint8 raises."""
+    rng = np.random.RandomState(channels)
+    for h, w in [(1, 1), (2, 7), (17, 33), (64, 48)]:
+        img = rng.randint(0, 256, (h, w, 3)[:2 if channels == 1 else 3]).astype(np.uint8)
+        path = tmp_path / f"w{h}x{w}.png"
+        port_write_png(path, img)
+        want = img if channels == 3 else np.repeat(img[..., None], 3, axis=2)
+        np.testing.assert_array_equal(read_png(path), want)
+        np.testing.assert_array_equal(cv2.imread(str(path), cv2.IMREAD_COLOR), want)
+    for bad in (np.zeros((4, 4), np.float32), np.zeros((4, 4, 4), np.uint8)):
+        with pytest.raises(ValueError, match="uint8"):
+            port_write_png(tmp_path / "bad.png", bad)

@@ -1,10 +1,16 @@
 """The port's command-line tools (`tools_torch/`) against the JAX
 package's (`tools/`), run in process on the CPU: a PNG mini-COCO on disk,
 the tiny config put in place of the `htd_r50_1x` preset in both packages,
-one `.pth` that both load."""
+one `.pth` that both load; get_flops, the production drill, the fidelity
+ladder and the launchers at the tiny config."""
 
+import contextlib
+import io
 import json
+import os
+import subprocess
 import sys
+import time
 
 import cv2
 import numpy as np
@@ -21,10 +27,15 @@ from tests.test_e2e_parity import _assert_rows_match_or_tie
 from tests.torch_port import port_config, tiny_pair
 from tests.tiny import tiny_config
 from tools import coco_error_analysis as jerr
+from tools import drill_production as jdrill
+from tools import get_flops as jflops
 from tools import print_config as jprint
 from tools import test as jtest
+from tools_torch import ab_fidelity as pfidelity
 from tools_torch import analyze_logs as panalyze
 from tools_torch import coco_error_analysis as perr
+from tools_torch import drill_production as pdrill
+from tools_torch import get_flops as pflops
 from tools_torch import eval_metric as pmetric
 from tools_torch import print_config as pprint
 from tools_torch import test as ptest
@@ -218,3 +229,144 @@ def test_tools_need_a_device(mini_coco, tiny_presets, monkeypatch, tmp_path, too
     if tool == "train_smoke":
         records = psmoke.main(argv + ["--device", "cpu", "--log-every", "1"])
         assert [r["iter"] for r in records[:2]] == [0, 1] and np.isfinite(records[-1]["last"])
+
+
+# the tiny config's inference fields as command-line overrides, for the tools
+# that run test.py as a process of its own (weights: backbone.depth alone)
+TINY_SET = ["backbone.depth=10", "proposal_test.nms_pre=64", "proposal_test.nms_post=48",
+            "proposal_test.max_num=48", "rcnn_test.max_per_img=10"]
+
+
+def test_get_flops(tiny_presets, monkeypatch, capsys):
+    """get_flops.py at the tiny config on the CPU: params equal to
+    sum(p.numel()); FlopCounterMode's convolution and addmm FLOPs within 1%
+    of an analytic count of the model's convs and linears (forward hooks on
+    the same run); printed beside the JAX tool's XLA estimate on the CPU."""
+    from htd_tpu_torch.apis import init_detector
+
+    analytic = {"conv": 0, "linear": 0}
+
+    def hook(m, args, out):
+        if isinstance(m, torch.nn.Conv2d):
+            analytic["conv"] += 2 * out.numel() * m.in_channels // m.groups * \
+                m.kernel_size[0] * m.kernel_size[1]
+        else:
+            analytic["linear"] += 2 * out.numel() * m.in_features
+
+    handles = []
+    register = torch.nn.Module.register_forward_hook
+
+    def build(cfg, checkpoint=None, device=None, seed=0):
+        model = init_detector(cfg, checkpoint, device, seed)
+        handles.extend(register(m, hook) for m in model.modules()
+                       if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)))
+        return model
+
+    monkeypatch.setattr("htd_tpu_torch.apis.init_detector", build)
+    out = pflops.main(["--device", "cpu", "--height", "64", "--width", "96"])
+    model = build(PC.htd_r50_1x(), device="cpu")
+    assert out["params"] == sum(p.numel() for p in model.parameters())
+    # the hooks saw two calls: the warm one and the counted one
+    for op, kind in (("aten.convolution", "conv"), ("aten.addmm", "linear")):
+        assert abs(out["aten"][op] - analytic[kind] / 2) <= 0.01 * analytic[kind] / 2, op
+    assert out["calls"] == {"deform_conv": 0, "roi_align": 3} and out["roi_align"] > 0
+    line = _run_jax_tool(jflops, ["--height", "64", "--width", "96"], monkeypatch, capsys)
+    xla = float(line.split(":")[1].split()[0]) * 1e9
+    print(f"\nport {out['total'] / 1e9:.3f} GFLOPs (FlopCounterMode {out['aten_total'] / 1e9:.3f} "
+          f"+ K2 {out['roi_align'] / 1e9:.3f}), JAX tool's XLA estimate {xla / 1e9:.3f} GFLOPs, "
+          f"ratio {out['total'] / xla:.3f}")
+    assert np.isfinite(xla) and xla > 0
+
+
+def _in_process(cmd, env=None):
+    """drill_production's `_run` in this process: the tool that `cmd` names
+    run by its `main(argv)` (so that the patched presets reach it), its
+    standard output captured; returns (the output, wall seconds)."""
+    module = {"test.py": ptest, "coco_error_analysis.py": perr}[os.path.basename(cmd[1])]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        module.main(cmd[2:])
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def test_drill_production_small(tiny_presets, tmp_path, monkeypatch):
+    """drill_production.py --images 4 --mirror-images 1 at the tiny config
+    (16 proposals) and 192x128 on the CPU: its steps pass (test.py and
+    coco_error_analysis.py run in this process, the parity subset, the
+    matcher's two timings with equal metrics), and make_dataset's PNG
+    files decode equal to the JAX tool's cv2 images with the same
+    annotations."""
+    monkeypatch.setattr(PC, "htd_r50_1x", lambda: port_config(tiny_config(
+        proposal_test=JC.ProposalConfig(nms_pre=64, nms_post=16, max_num=16))))
+    monkeypatch.setattr(pdrill, "_run", _in_process)
+    out = pdrill.main(["--images", "4", "--mirror-images", "1", "--scale", "192x128",
+                       "--device", "cpu", "--out", str(tmp_path / "p"), "--cls-std", "0.3"])
+    assert out["matched"] >= 10 and out["box_mad_px"] <= 2.0 and out["score_mad"] <= 0.02
+    assert out["error_analysis_plots"] > 0 and out["matcher_s"] > 0 and out["matcher_plain_s"] > 0
+    ann_j, dir_j, _ = jdrill.make_dataset(str(tmp_path / "j"), 4, np.random.RandomState(0))
+    with open(tmp_path / "p" / "ann.json") as f, open(ann_j) as g:
+        assert json.load(f) == json.load(g)
+    for name in sorted(os.listdir(dir_j)):
+        np.testing.assert_array_equal(cv2.imread(str(tmp_path / "p" / "images" / name)),
+                                      cv2.imread(os.path.join(dir_j, name)), err_msg=name)
+
+
+# tools/ab_fidelity.py's JSON keys
+FIDELITY_KEYS = {"n_ref", "n_cur", "matched", "ref_only", "cur_only", "score_mad", "score_max",
+                 "box_mad_px", "box_max_px", "ms_per_img"}
+PRE_NMS_KEYS = {"score_mad", "score_p99", "score_max", "box_mad_px", "box_p99_px",
+                "box_max_px", "score_mad_elongated", "score_mad_square"}
+
+
+@pytest.mark.parametrize("pre_nms", [False, True])
+def test_ab_fidelity_two_rungs(pre_nms, tiny_presets, monkeypatch):
+    """ab_fidelity.py with two rungs at the tiny config on the CPU (one timed
+    call each, 100 pre-NMS rois, classifiers spread for detections) writes
+    the JAX tool's JSON keys (ms_per_img added to the pre-NMS rungs), the
+    highest rung as the reference, equal to itself."""
+    for name, value in (("LADDER", [(4, 1), (6, 2)]), ("PRE_NMS_LADDER", [(4, 1), (6, 2)]),
+                        ("PRE_NMS_ROIS", 100), ("CLS_STD", 0.3), ("WARMUP_CALLS", 0),
+                        ("TIMED_CALLS", 1)):
+        monkeypatch.setattr(pfidelity, name, value)
+    out = pfidelity.main(["--device", "cpu", "--height", "64", "--width", "96", "--dtype",
+                          "float32"] + (["--pre-nms"] if pre_nms else []))
+    assert out["reference_rung"] == [6, 2] and set(out["rungs"]) == {"4,1", "6,2"}
+    if pre_nms:
+        assert {k for k in out if k != "rungs"} == {"mode", "reference_rung", "dtype", "n_rois",
+                                                      "n_elongated_gt2"}
+        assert all(set(r) == PRE_NMS_KEYS | {"ms_per_img"} for r in out["rungs"].values())
+        assert out["rungs"]["6,2"]["score_max"] == 0.0 and out["n_rois"] == 100
+    else:
+        assert {k for k in out if k != "rungs"} == {"reference_rung", "dtype"}
+        assert all(set(r) == FIDELITY_KEYS for r in out["rungs"].values())
+        ref = out["rungs"]["6,2"]
+        assert ref["matched"] == ref["n_ref"] > 0 and ref["score_max"] == 0.0
+
+
+def test_dist_launchers(mini_coco, checkpoint, monkeypatch, tmp_path):
+    """tools_torch/dist_train.sh and dist_test.sh pass `bash -n`;
+    dist_test.sh with one chip on the CPU (gloo) writes the same raw
+    detections, bit for bit, and prints the same metrics as
+    tools_torch/test.py run as a process with the same arguments."""
+    for script in ("dist_train.sh", "dist_test.sh"):
+        subprocess.run(["bash", "-n", f"tools_torch/{script}"], check=True)
+    ann, root = mini_coco
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    args = ["--ann", ann, "--img-root", root, "--scale", "96x64", "--batch-size", "2",
+            "--max-images", "2", "--fast", "--device", "cpu", "--dist-backend", "gloo",
+            "--set", *TINY_SET]
+    printed, dumps = [], []
+    for i, cmd in enumerate((["bash", "tools_torch/dist_test.sh", "htd_r50_1x", checkpoint, "1"],
+                             [sys.executable, "tools_torch/test.py", "--checkpoint",
+                              checkpoint])):
+        dump = tmp_path / f"dump{i}.json"
+        done = subprocess.run(cmd + args + ["--dump", str(dump)],
+                              env=dict(os.environ, PYTHON=sys.executable),
+                              capture_output=True, text=True, timeout=600)
+        assert done.returncode == 0, done.stderr[-2000:]
+        printed.append(json.loads(done.stdout.strip().splitlines()[-1]))
+        dumps.append(dump.read_text())
+    assert dumps[0] == dumps[1] and printed[0] == printed[1]
+    dets = json.loads(dumps[0])
+    assert len(dets) == 2 and all(len(d["scores"]) for d in dets.values())

@@ -6,8 +6,9 @@ The PyTorch port's copy of tools/coco_error_analysis.py, over the port's
 evaluator (htd_tpu_torch.data.coco_eval.precision_curves, no pycocotools).
 Takes a standard COCO results json (tools_torch/test.py --coco-dump) plus the
 annotation json and writes one stacked-PR png per (category, area) and the
-allclass aggregate, with the same error decomposition (reference
-:52-153):
+allclass aggregate (drawn in numpy and written by `data.png.write_png`, so
+that it needs no plotting library; the legend's APs are printed), with the
+same error decomposition (reference :52-153):
 
   C75  — precision at IoU 0.75,
   C50  — precision at IoU 0.50,
@@ -134,32 +135,40 @@ def analyze_category(dets, gt, k, same_super, all_cats):
     return ps
 
 
-def makeplot(rec_thrs, ps, out_dir, class_name):
-    """Stacked PR plot per area range; ps is (7, R, A)."""
-    import matplotlib
+def render(rec_thrs, curves, height: int = 500, width: int = 600) -> np.ndarray:
+    """The stacked PR plot of (7, R) `curves` as (height, width, 3) uint8
+    BGR: the area under curve t over curve t - 1 in COLORS[t] (white under
+    C75 and C50), each curve as a black line, the axes box in black,
+    recall across [0, 1] and precision up [0, 1]."""
+    x0, y0, x1, y1 = 50, 20, width - 20, height - 40     # plot box
+    recall = np.linspace(0.0, 1.0, x1 - x0)
+    prec = np.linspace(1.0, 0.0, y1 - y0)
+    at = np.stack([np.interp(recall, rec_thrs, c) for c in curves])     # (7, pw)
+    # per pixel, the number of curves below its precision: its band's index
+    band = (prec[:, None, None] > at.T[None]).sum(-1)                   # (ph, pw)
+    palette = (np.array(COLORS + [(1.0, 1.0, 1.0)])[:, ::-1] * 255).round().astype(np.uint8)
+    img = np.full((height, width, 3), 255, np.uint8)
+    img[y0:y1, x0:x1] = palette[np.minimum(band, len(COLORS))]
+    edge = np.zeros_like(band, bool)
+    edge[1:] = band[1:] != band[:-1]
+    img[y0:y1, x0:x1][edge] = 0
+    img[y0:y1 + 1, [x0 - 1, x1]] = 0
+    img[[y0 - 1, y1], x0 - 1:x1 + 1] = 0
+    return img
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+
+def makeplot(rec_thrs, ps, out_dir, class_name):
+    """Stacked PR plot per area range (`render`, written by the port's
+    `write_png`, no plotting library); ps is (7, R, A). Prints each plot's
+    legend: the mean of each curve, as the reference's legend gives it."""
+    from htd_tpu_torch.data.png import write_png
 
     for ai, area in enumerate(AREA_NAMES):
         title = f"bbox-{class_name}-{area}"
-        curves = [np.zeros(len(rec_thrs))] + [ps[t, :, ai] for t in range(7)]
-        aps = [c.mean() for c in curves[1:]]
-        fig, ax = plt.subplots(figsize=(6, 5))
-        for t in range(7):
-            ax.plot(rec_thrs, curves[t + 1], color="k", linewidth=0.5)
-            ax.fill_between(
-                rec_thrs, curves[t], curves[t + 1], color=COLORS[t],
-                label=f"[{aps[t]:.3f}]{TYPES[t]}",
-            )
-        ax.set_xlabel("recall")
-        ax.set_ylabel("precision")
-        ax.set_xlim(0, 1)
-        ax.set_ylim(0, 1)
-        ax.set_title(title)
-        ax.legend(loc="lower left", fontsize=8)
-        fig.savefig(os.path.join(out_dir, f"{title}.png"), dpi=100)
-        plt.close(fig)
+        curves = [ps[t, :, ai] for t in range(7)]
+        write_png(os.path.join(out_dir, f"{title}.png"), render(rec_thrs, curves))
+        print(f"[error-analysis] {title}: " + " ".join(
+            f"[{c.mean():.3f}]{name}" for c, name in zip(curves, TYPES)))
 
 
 def analyze_results(res_file, ann_file, out_dir, max_cats=None):
