@@ -159,6 +159,23 @@ script exits non-zero without its final line:
      R-101-DCN at 768x1344 bf16; (e) tools_torch/dist_test.sh with one chip
      against test.py, and dist_train.sh under torchrun with one NCCL rank
      for 2 steps; each part's wall time.
+ 28. the picture path (`htd_tpu_torch.utils.visualize`, without OpenCV):
+     (a) the JPEG encoder on the card's host (csrc/jpeg_encode.cpp) on the
+     fixtures of tests/data/jpeg decoded by read_jpeg (the small ones and
+     photo0-3): its bytes against the SHA-256 of cv2.imencode's in
+     tests/data/visualize/manifest.json and read_jpeg of each file against
+     its decoded pixels, and its ms and MP/s on a photo-sized image beside
+     the forward half's numpy reference; (b)
+     draw_detections on photo0 with the committed detections
+     (tests/data/visualize/detections.json, COCO's names) against the JAX
+     package's pixel and .jpg hashes, then R-50 bf16's own detections from
+     the card on photo0 (K1 1, K2 3, K7 3 launches) drawn and written, the
+     .png read back equal to the returned pixels; ms per image; (c)
+     tools_torch/browse_dataset.py on phase 26's JPEG mini-COCO (default,
+     --raw, --corruption gaussian_noise --severity 3) and phase 24's PNG
+     mini-COCO, every written file against the manifest (JPEG by bytes, PNG
+     by pixels) made by tools/browse_dataset.py on the same annotations;
+     its wall time per image. The phase takes at most 60 s.
 Every forward launches K7 3 times (one per FPN top-down add), whatever its
 batch. It needs CUDA: with no GPU, or run outside the repository, it fails.
 """
@@ -227,6 +244,14 @@ ARITH_PHOTO = "photo5_arith.jpg"   # phase 27 (a): the photo-sized arithmetic fi
 DRILL_IMAGES = 100         # phase 27 (b): tools_torch/drill_production.py --images
 DRILL_MIRROR = 5           # its --mirror-images (each a float32 forward on the host's CPU)
 DRILL_SCALE = (1333, 800)
+VIS_DIR = "tests/data/visualize"   # phase 28's detections and manifest
+# phase 28 (c): (manifest key, image set, tools_torch/browse_dataset.py options)
+BROWSE_RUNS = [("jpeg_default", "jpeg", []), ("jpeg_raw", "jpeg", ["--raw"]),
+               ("jpeg_gaussian_noise_3", "jpeg",
+                ["--corruption", "gaussian_noise", "--severity", "3"]),
+               ("png_default", "png", [])]
+ENCODE_TIMED = 5           # phase 28 (a): timed encodes of the photo-sized image
+PICTURE_PHASE_S = 60.0     # phase 28's budget
 DEVICE_TIME_TRACES = 3      # traces `device_times` takes before it fails on a launch count
 SMALL_STEP_HW = (192, 288)  # phases 14, 18 and 25: the float32 reference step's batch
 TRAIN_IMG_SHAPES = [(800, 1333), (750, 1344)]
@@ -3242,6 +3267,161 @@ def drill_phase(card: str) -> None:
     print(f"phase 27: {time.perf_counter() - t_phase:.2f} s in all ({card})")
 
 
+def load_detections(vis_dir: str):
+    """detections.json of `vis_dir`: (image name, boxes (N, 4) float32,
+    scores float32, labels int64, class names)."""
+    with open(f"{vis_dir}/detections.json") as f:
+        d = json.load(f)
+    return (d["image"], np.asarray(d["boxes"], np.float32), np.asarray(d["scores"], np.float32),
+            np.asarray(d["labels"], np.int64), tuple(d["class_names"]))
+
+
+def browse_sets(root: str, photos) -> dict:
+    """The two mini-COCOs of phase 28 (c) in `root`: phase 26's over the
+    photo-sized JPEG fixtures and phase 24's PNG one, as {set: (annotation
+    file, image folder)}."""
+    jdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), JPEG_DIR)
+    jpeg_ann = jpeg_coco(root, photos)
+    png_dir = os.path.join(root, "png")
+    os.makedirs(png_dir)
+    _, val_ann, _ = png_coco(png_dir)
+    return {"jpeg": (jpeg_ann, jdir), "png": (val_ann, png_dir)}
+
+
+def file_hash(path: str) -> str:
+    """A written file's hash as phase 28's manifest keeps it: a `.png` by
+    the pixels read_png (= cv2.imread) reads, anything else by its bytes."""
+    from htd_tpu_torch.data.png import read_png
+
+    if path.endswith(".png"):
+        return sha256(read_png(path))
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def picture_phase(card: str) -> None:
+    """Phase 28: the JPEG encoder, draw_detections and browse_dataset.py."""
+    import tempfile
+
+    from htd_tpu_torch import htd_r50_1x, inference_detector, init_detector
+    from htd_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg, read_jpeg
+    from htd_tpu_torch.data.png import read_png
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+    from htd_tpu_torch.utils.visualize import draw_detections
+    from tests.jpeg_writers import forward_reference
+    from tools_torch import browse_dataset
+
+    phase("28 main path: the JPEG encoder, draw_detections and browse_dataset.py (host and card)")
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    jdir, vdir = os.path.join(here, JPEG_DIR), os.path.join(here, VIS_DIR)
+    with open(f"{vdir}/manifest.json") as f:
+        manifest = json.load(f)
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the encoder's bytes against cv2.imencode's (the manifest's hashes)
+        for name, want in manifest["encode"].items():
+            img = read_jpeg(f"{jdir}/{name}")
+            data = encode_jpeg(img)
+            path = f"{root}/encoded.jpg"
+            with open(path, "wb") as f:
+                f.write(data)
+            if list(img.shape) != want["shape"] or \
+                    hashlib.sha256(data).hexdigest() != want["sha256"] or \
+                    sha256(read_jpeg(path)) != want["decoded_sha256"]:
+                fail(f"{name}: the encoder's file is not cv2.imencode's {want}")
+        photo = read_jpeg(f"{jdir}/photo0.jpg")
+        big = np.ascontiguousarray(np.tile(photo, (2, 3, 1))[:800, :1333])
+        encode_jpeg(big)
+        t0 = time.perf_counter()
+        for _ in range(ENCODE_TIMED):
+            encode_jpeg(big)
+        dt = (time.perf_counter() - t0) / ENCODE_TIMED
+        t0 = time.perf_counter()
+        for _ in range(ENCODE_TIMED):
+            forward_reference(big, 95)
+        ref_dt = (time.perf_counter() - t0) / ENCODE_TIMED
+        print(f"[encode] {len(manifest['encode'])} fixtures' bytes equal to cv2.imencode's "
+              f"(SHA-256 of the manifest), each read back as cv2.imdecode reads cv2's; host "
+              f"encode of {big.shape[1]}x{big.shape[0]} (quality 95, 4:2:0): {1e3 * dt:.2f} ms, "
+              f"{big.shape[0] * big.shape[1] / dt / 1e6:.2f} MP/s; the forward half's numpy "
+              f"reference alone (tests/jpeg_writers.py) {1e3 * ref_dt:.2f} ms ({card})")
+
+        # (b) draw_detections on the committed detections, then on the model's own
+        name, boxes, scores, labels, classes = load_detections(vdir)
+        img = read_jpeg(f"{jdir}/{name}")
+        out = f"{root}/drawn.jpg"
+        t0 = time.perf_counter()
+        drawn = draw_detections(img, boxes, scores, labels, classes,
+                                manifest["draw"]["score_thr"], out)
+        draw_ms = 1e3 * (time.perf_counter() - t0)
+        if sha256(drawn) != manifest["draw"]["pixels_sha256"] or \
+                file_hash(out) != manifest["draw"]["jpg_sha256"]:
+            fail("draw_detections on the committed detections differs from the JAX package's")
+        kept = int((scores >= manifest["draw"]["score_thr"]).sum())
+        print(f"[draw] {kept} of {len(scores)} committed detections drawn on {name}: pixels and "
+              f".jpg bytes equal to the JAX package's (OpenCV 5.0.0); {draw_ms:.2f} ms with the "
+              f"write, on the host ({card})")
+        with torch.inference_mode():
+            cfg = htd_r50_1x(compute_dtype="bfloat16")
+            model = init_detector(cfg, seed=0)
+            scale_scores(model)
+            inference_detector(model, img)     # warm
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            dboxes, dscores, dlabels = inference_detector(model, img)
+            torch.cuda.synchronize()
+            infer_ms = 1e3 * (time.perf_counter() - t0)
+            counts = dict(launch_counts)
+        expect_launches("R-50 bf16 on photo0", counts,
+                        {"pyramid_pack": 1, "roi_align": 3, "upsample_add": 3})
+        check_detections(dboxes, dscores, dlabels, img, cfg)
+        times = []
+        for ext in (".png", ".jpg"):
+            t0 = time.perf_counter()
+            own = draw_detections(img, dboxes, dscores, dlabels, classes, 0.0,
+                                  f"{root}/own{ext}")
+            times.append(1e3 * (time.perf_counter() - t0))
+        if not np.array_equal(read_png(f"{root}/own.png"), own) or \
+                decode_jpeg(encode_jpeg(own)).shape != own.shape or \
+                file_hash(f"{root}/own.jpg") != hashlib.sha256(encode_jpeg(own)).hexdigest():
+            fail("the drawn detections' files do not hold the returned pixels")
+        print(f"[draw] R-50 bf16 on the card: {len(dscores)} detections on {name} "
+              f"({infer_ms:.2f} ms, K1 1, K2 3, K7 3 launches), drawn and written as .png "
+              f"({times[0]:.2f} ms, read back equal to the returned pixels) and .jpg "
+              f"({times[1]:.2f} ms) on the host ({card})")
+        del model
+
+        # (c) browse_dataset.py against tools/browse_dataset.py's files
+        jm_path = f"{jdir}/manifest.json"
+        with open(jm_path) as f:
+            jm = json.load(f)
+        photos = [(n, tuple(jm[n]["shape"][:2])) for n in sorted(jm) if n.startswith("photo")]
+        sets = browse_sets(root, photos)
+        for key, which, opts in BROWSE_RUNS:
+            ann, img_root = sets[which]
+            out_dir = f"{root}/browse_{key}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            written = browse_dataset.main(["--ann", ann, "--img-root", img_root,
+                                           "--output-dir", out_dir, *opts])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = {os.path.basename(p): file_hash(p) for p in written}
+            if got != manifest["browse"][key]:
+                bad = sorted(k for k in set(got) | set(manifest["browse"][key])
+                             if got.get(k) != manifest["browse"][key].get(k))
+                fail(f"browse_dataset.py {key}: files differ from tools/browse_dataset.py's: "
+                     f"{bad}")
+            print(f"[browse] {key}: {len(written)} files equal to tools/browse_dataset.py's "
+                  f"({'pixels' if which == 'png' else 'bytes'}); {1e3 * dt / len(written):.1f} "
+                  f"ms per image, wall ({card})")
+    total = time.perf_counter() - t_phase
+    print(f"phase 28: {total:.2f} s in all ({card})")
+    if total > PICTURE_PHASE_S:
+        fail(f"phase 28 took {total:.2f} s, more than its {PICTURE_PHASE_S:.0f} s")
+
+
 def tta_eval_phases(card, pairs, k7_launches, imgs):
     """Phases 20-23; returns the kernel records of K7 and K8, and phase
     23's metrics."""
@@ -3450,8 +3630,8 @@ def run() -> None:
     training phases 12-19 with autograd (models built in inference mode
     hold inference tensors, which autograd rejects), then phases 20-23
     (TTA and evaluation), 24 (the tools), 25 (data parallel), 26 (JPEG
-    and robustness) and 27 (production-scale evaluation and the last
-    tools), then the result."""
+    and robustness), 27 (production-scale evaluation and the last
+    tools) and 28 (the picture path), then the result."""
     with torch.inference_mode():
         card, kind, kernels, t_start, k7_launches, pairs = main()
     kernels.append(train_phases(card))
@@ -3463,6 +3643,7 @@ def run() -> None:
     parallel_phase(card, eval_metrics)
     robustness_phase(card)
     drill_phase(card)
+    picture_phase(card)
     print(f"kernel times are per image (K2: the sum of its 3 calls per request; K3: of its "
           f"30 launches per R-101-DCN request; K7: of its 3 launches per R-50 request; K8: one "
           f"launch on the largest fenced tensor) and per train step (K4: its 3 calls, R-50; K5, "

@@ -98,9 +98,10 @@ class CocoDataset:
 
     def load_image(self, rec: ImageRecord) -> np.ndarray:
         """The record's image, (H, W, 3) uint8 BGR, decoded by its file's
-        signature: PNG by `data.png.read_png`, JPEG by `data.jpeg.read_jpeg`
-        (whether or not OpenCV is installed); any other format by OpenCV,
-        which raises `ImportError` where it is not installed."""
+        signature: PNG by `data.png.read_png`, JPEG by `data.jpeg.read_jpeg`,
+        each as `cv2.imread` reads it. Other formats (which the JAX package
+        reads through OpenCV) raise `ValueError` naming the file: the port
+        reads no file through OpenCV, installed or not."""
         path = os.path.join(self.img_root, rec.file_name)
         with open(path, "rb") as f:
             signature = f.read(len(png.SIGNATURE))
@@ -108,15 +109,8 @@ class CocoDataset:
             return png.read_png(path)
         if signature.startswith(jpeg.SIGNATURE):
             return jpeg.read_jpeg(path)
-        try:
-            import cv2
-        except ImportError as e:
-            raise ImportError(f"{path} is neither a PNG nor a JPEG file; reading it needs "
-                              f"OpenCV (cv2), which is not installed") from e
-        img = cv2.imread(path, cv2.IMREAD_COLOR)
-        if img is None:
-            raise ValueError(f"OpenCV cannot read {path}")
-        return img
+        raise ValueError(f"{path} is neither a PNG nor a JPEG file, the two formats the port "
+                         f"reads")
 
 
 def grouped_batches(dataset: CocoDataset, batch_size: int, shuffle: bool, seed: int = 0,

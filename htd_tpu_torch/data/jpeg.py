@@ -25,13 +25,17 @@ holding them (`cv2.imdecode` returns nothing on a cut-short buffer, where
 `imread` of the file decodes it). One code path: no file is handed to
 OpenCV or PIL.
 
+`encode_jpeg` and `write_jpeg` write the bytes `cv2.imencode(".jpg")` and
+`cv2.imwrite` give at their defaults (quality 95, 4:2:0, libjpeg-turbo's
+baseline file with the standard Huffman tables), from the same forward half.
+
 `compress_roundtrip` is PIL's `Image.save(format="JPEG", quality=q)`
 followed by `Image.open(...).convert("RGB")`, returned in BGR order: the
 encoder's lossy half at PIL's settings (libjpeg-turbo's fixed-point RGB to
 YCbCr, 4:2:0 with jcsample.c's alternating bias, the islow forward DCT and
 its rounding quantisation on `jpeg_set_quality(q, force_baseline=TRUE)`'s
-tables) in numpy, then the decoder's back end on those coefficients. The
-entropy coder in between is lossless, so it is left out.
+tables; `csrc/jpeg_encode.cpp`), then the decoder's back end on those
+coefficients. The entropy coder in between is lossless, so it is left out.
 """
 
 from __future__ import annotations
@@ -174,93 +178,29 @@ def quant_tables(quality: int):
     return tuple(np.clip((t * scale + 50) // 100, 1, 255) for t in (_STD_LUMA, _STD_CHROMA))
 
 
-def _fix(x: float) -> int:
-    return int(x * 65536 + 0.5)
-
-
-def _rgb_to_ycc(rgb: np.ndarray):
-    """jccolor.c's rgb_ycc_convert (SCALEBITS 16, Cb and Cr rounded with
-    0.5 - epsilon)."""
-    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
-    half, offset = 1 << 15, 128 << 16
-    y = (_fix(0.29900) * r + _fix(0.58700) * g + _fix(0.11400) * b + half) >> 16
-    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.5) * b + offset + half - 1) >> 16
-    cr = (_fix(0.5) * r - _fix(0.41869) * g - _fix(0.08131) * b + offset + half - 1) >> 16
-    return y, cb, cr
-
-
-def _fdct_islow(blocks: np.ndarray) -> np.ndarray:
-    """jfdctint.c's jpeg_fdct_islow on (N, 8, 8) level-shifted samples
-    (int64); the result is 8x the DCT, as libjpeg leaves it."""
-    c_bits, p_bits = 13, 2
-
-    def descale(x, n):
-        return (x + (1 << (n - 1))) >> n
-
-    def one_pass(d, first):
-        # d: (..., 8) along the transformed axis, last
-        t0, t7 = d[..., 0] + d[..., 7], d[..., 0] - d[..., 7]
-        t1, t6 = d[..., 1] + d[..., 6], d[..., 1] - d[..., 6]
-        t2, t5 = d[..., 2] + d[..., 5], d[..., 2] - d[..., 5]
-        t3, t4 = d[..., 3] + d[..., 4], d[..., 3] - d[..., 4]
-        t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
-        out = np.empty_like(d)
-        sh = c_bits - p_bits if first else c_bits + p_bits
-        if first:
-            out[..., 0] = (t10 + t11) << p_bits
-            out[..., 4] = (t10 - t11) << p_bits
-        else:
-            out[..., 0] = descale(t10 + t11, p_bits)
-            out[..., 4] = descale(t10 - t11, p_bits)
-        z1 = (t12 + t13) * 4433
-        out[..., 2] = descale(z1 + t13 * 6270, sh)
-        out[..., 6] = descale(z1 - t12 * 15137, sh)
-        z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
-        z5 = (z3 + z4) * 9633
-        t4, t5, t6, t7 = t4 * 2446, t5 * 16819, t6 * 25172, t7 * 12299
-        z1, z2, z3, z4 = z1 * -7373, z2 * -20995, z3 * -16069 + z5, z4 * -3196 + z5
-        out[..., 7] = descale(t4 + z1 + z3, sh)
-        out[..., 5] = descale(t5 + z2 + z4, sh)
-        out[..., 3] = descale(t6 + z2 + z3, sh)
-        out[..., 1] = descale(t7 + z1 + z4, sh)
-        return out
-
-    rows = one_pass(blocks, True)
-    return one_pass(rows.transpose(0, 2, 1), False).transpose(0, 2, 1)
-
-
-def _blocks(plane: np.ndarray, bh: int, bw: int) -> np.ndarray:
-    """The (bh * 8, bw * 8) top-left of an edge-padded plane as (bh * bw, 8, 8)."""
-    return plane[:bh * 8, :bw * 8].reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
-
-
-def _quantize(blocks: np.ndarray, table: np.ndarray) -> np.ndarray:
-    """jcdctmgr.c: each coefficient over 8 x its step, rounded half away from 0."""
-    coef = _fdct_islow(blocks - 128).reshape(-1, 64)
-    d = table * 8
-    q = (np.abs(coef) + d // 2) // d
-    return (np.sign(coef) * q).astype(np.int16)
+def _forward(img: np.ndarray, quality: int):
+    """libjpeg-turbo's lossy half of a (H, W, 3) uint8 BGR image at `quality`
+    (4:2:0; `csrc/jpeg_encode.cpp::htd_jpeg_forward`): each component's
+    quantised blocks, (rows, cols, 64) int16 in natural order, over its plane
+    edge-replicated to whole blocks, and the luminance and chrominance
+    tables."""
+    img = np.ascontiguousarray(img)
+    h, w = img.shape[:2]
+    luma_q, chroma_q = quant_tables(quality)
+    qtab = np.concatenate([luma_q, chroma_q]).astype(np.uint16)
+    shapes = [(-(-h // 8), -(-w // 8))] + [(-(-((h + 1) // 2) // 8), -(-((w + 1) // 2) // 8))] * 2
+    coefs = [np.empty((bh, bw, 64), np.int16) for bh, bw in shapes]
+    if _lib().htd_jpeg_forward(img.ctypes.data, h, w, img.strides[0], qtab.ctypes.data,
+                               *[c.ctypes.data for c in coefs]):
+        raise ValueError(f"the JPEG forward half refused a {img.shape} image")
+    return coefs, luma_q, chroma_q
 
 
 def compress_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:
     """PIL's JPEG round trip of a (H, W, 3) uint8 BGR image at `quality`
     (4:2:0), in BGR order."""
     h, w = img.shape[:2]
-    luma_q, chroma_q = quant_tables(quality)
-    y, cb, cr = _rgb_to_ycc(img[..., ::-1])
-    ybh, ybw = -(-h // 8), -(-w // 8)
-    ch, cbh, cbw = (h + 1) // 2, -(-((h + 1) // 2) // 8), -(-((w + 1) // 2) // 8)
-    # Edge replication as jcprepct.c and jcsample.c do it: luma to whole
-    # blocks; chroma's input to whole blocks across and to an even row
-    # count, then its downsampled rows to whole blocks.
-    y = np.pad(y, ((0, ybh * 8 - h), (0, ybw * 8 - w)), mode="edge")
-    coefs = [_quantize(_blocks(y, ybh, ybw), luma_q)]
-    bias = np.tile([1, 2], cbw * 4)   # per output column: 1, 2, 1, 2, ...
-    for p in (cb, cr):
-        p = np.pad(p, ((0, 2 * ch - h), (0, cbw * 16 - w)), mode="edge")
-        down = (p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2] + bias) >> 2
-        down = np.pad(down, ((0, cbh * 8 - ch), (0, 0)), mode="edge")
-        coefs.append(_quantize(_blocks(down, cbh, cbw), chroma_q))
+    coefs, luma_q, chroma_q = _forward(img, quality)
     out = np.empty((h, w, 3), np.uint8)
     samp = np.array([2, 2, 1, 1, 1, 1], np.int32)
     qtab = np.concatenate([luma_q, chroma_q, chroma_q]).astype(np.uint16)
@@ -268,3 +208,37 @@ def compress_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:
     _check(_lib().htd_jpeg_reconstruct(3, samp.ctypes.data, qtab.ctypes.data, coef.ctypes.data,
                                        coef.size, h, w, 1, out.ctypes.data), "jpeg round trip")
     return out
+
+
+# ---------------------------------------------------------------- the encoder
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """The bytes `cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, quality])`
+    returns for a (H, W, 3) uint8 BGR image: libjpeg-turbo's baseline file
+    at 4:2:0 with the standard Huffman tables, its forward half in
+    `_forward` and its markers and entropy coding in `csrc/jpeg_encode.cpp`."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8, not {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    if not (1 <= h <= 65535 and 1 <= w <= 65535):
+        raise ValueError(f"JPEG sides are 1 to 65535 pixels, not {h}x{w}")
+    coefs, luma_q, chroma_q = _forward(img, quality)
+    qtab = np.concatenate([luma_q, chroma_q]).astype(np.uint16)
+    size = 1024 + sum(c.size for c in coefs)
+    while True:
+        out = np.empty(size, np.uint8)
+        need = _lib().htd_jpeg_encode(h, w, qtab.ctypes.data, *[c.ctypes.data for c in coefs],
+                                      out.ctypes.data, size)
+        if need < 0:
+            raise ValueError(f"the JPEG encoder refused a {h}x{w} image")
+        if need <= size:
+            return out[:need].tobytes()
+        size = need
+
+
+def write_jpeg(path, img: np.ndarray) -> None:
+    """Write `img` to `path` as `cv2.imwrite` writes a `.jpg` file."""
+    data = encode_jpeg(img)
+    with open(path, "wb") as f:
+        f.write(data)

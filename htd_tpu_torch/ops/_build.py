@@ -7,11 +7,12 @@ loads. The library lands in `htd_tpu_torch/_build/<hash>/`, keyed by a
 hash of the sources and flags, so a checkout builds it at first use and
 reuses it afterwards.
 
-The host code in `csrc/*.cpp` (the JPEG decoder, OpenCV's float32 filters
-and warps, the COCO matcher) is built apart, by the host's C++ compiler (`$CXX`, else `c++`
-on `PATH`), into `_build/host-<hash>/`, with `-ffp-contract=off` so that
-no product and sum are fused where OpenCV keeps them apart; it needs no
-CUDA. Nothing here runs at import time.
+The host code in `csrc/*.cpp` (the JPEG decoder and encoder, OpenCV's
+float32 filters and warps, the COCO matcher, the text rasteriser) is built
+apart, by the host's C++ compiler (`$CXX`, else `c++` on `PATH`), into
+`_build/host-<hash>/`, with `-ffp-contract=off` so that no product and sum
+are fused where OpenCV keeps them apart; it needs no CUDA. Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -198,6 +199,13 @@ def load_host() -> Tuple[ctypes.CDLL, BuildInfo]:
     f64 = ctypes.c_double
     lib.htd_coco_match.argtypes = [vp, vp, i64, vp, vp, i64, f64, f64, vp, i64, vp, vp, vp]
     lib.htd_coco_match.restype = i64
+    lib.htd_jpeg_forward.argtypes = [vp, i32, i32, i64, vp, vp, vp, vp]
+    lib.htd_jpeg_forward.restype = ctypes.c_int
+    lib.htd_jpeg_encode.argtypes = [i32, i32, vp, vp, vp, vp, vp, i64]
+    lib.htd_jpeg_encode.restype = i64
+    lib.htd_text_glyph.argtypes = [vp, i32, i32, i32, i64, vp, vp, i32, ctypes.c_float, i32,
+                                   i32, i32, i32, i32, i32, vp]
+    lib.htd_text_glyph.restype = ctypes.c_int
     return lib, info
 
 

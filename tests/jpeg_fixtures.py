@@ -34,6 +34,7 @@ from pathlib import Path
 
 import numpy as np
 
+from tests import jpeg_writers as W
 from tests.jpeg_writers import (ADOBE_RGB, _dht, _flat_table, _segment, lossless_jpeg,  # noqa: F401
                                 lossless_planes, photo)
 
@@ -138,7 +139,7 @@ def separate_scans(img: np.ndarray, quality: int = 75, subsampled: bool = True,
 
     h, w = img.shape[:2]
     luma_q, chroma_q = J.quant_tables(quality)
-    y, cb, cr = J._rgb_to_ycc(img[..., ::-1])
+    y, cb, cr = W.rgb_to_ycc(img[..., ::-1])
     if subsampled:
         ch, cw = (h + 1) // 2, (w + 1) // 2
         pad = lambda p: np.pad(p, ((0, 2 * ch - h), (0, 2 * cw - w)), mode="edge")  # noqa: E731
@@ -150,7 +151,7 @@ def separate_scans(img: np.ndarray, quality: int = 75, subsampled: bool = True,
         ph, pw = plane.shape
         bh, bw = -(-ph // 8), -(-pw // 8)
         plane = np.pad(plane, ((0, bh * 8 - ph), (0, bw * 8 - pw)), mode="edge")
-        return J._quantize(J._blocks(plane, bh, bw), table)
+        return W.quantize(W.to_blocks(plane, bh, bw), table)
 
     comps = [(1, luma_q, coefs(y, luma_q)), (2, chroma_q, coefs(cb, chroma_q)),
              (3, second_q if requant else chroma_q, coefs(cr, second_q if requant else chroma_q))]
@@ -242,7 +243,7 @@ def coefficients(img: np.ndarray, quality: int = 75, sampling: str = "420") -> d
         planes, comps = [img.astype(np.int64)], [(1, 1, 1, 0)]
     else:
         hx, vx = LUMA_HV[sampling]
-        y, cb, cr = J._rgb_to_ycc(img[..., ::-1])
+        y, cb, cr = W.rgb_to_ycc(img[..., ::-1])
 
         def down(p):
             ch, cw = -(-h // vx), -(-w // hx)
@@ -257,7 +258,7 @@ def coefficients(img: np.ndarray, quality: int = 75, sampling: str = "420") -> d
     for (_, ch, cv, tq), p in zip(comps, planes):
         rows, cols = mcuy * cv, mcux * ch
         p = np.pad(p, ((0, rows * 8 - p.shape[0]), (0, cols * 8 - p.shape[1])), mode="edge")
-        blocks.append(J._quantize(J._blocks(p, rows, cols), tables[tq]).reshape(rows, cols, 64))
+        blocks.append(W.quantize(W.to_blocks(p, rows, cols), tables[tq]).reshape(rows, cols, 64))
     return dict(height=h, width=w, comps=comps, tables=tables, blocks=blocks)
 
 
@@ -641,6 +642,40 @@ def cmyk_jpeg(img: np.ndarray, quality: int = 85, **kwargs) -> bytes:
     return buf.getvalue()
 
 
+ADOBE_YCCK = _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x02")  # transform 2: YCCK
+
+
+def ycck_jpeg(img: np.ndarray, k: np.ndarray, quality: int = 85, subsampled: bool = False) -> bytes:
+    """A baseline YCCK file (Adobe marker, transform 2), which no library
+    here writes: `img` (BGR) as C, M, Y = 255 - R, G, B with `k` as K,
+    turned into YCCK as jccolor.c's cmyk_ycck_convert does (Y, Cb, Cr of
+    255 - C, 255 - M, 255 - Y; K as it is), quantised by libjpeg-turbo's
+    forward half (Y and K on the luminance table, Cb and Cr on the
+    chrominance one; Cb and Cr 2x2-averaged when `subsampled`), one scan
+    per component with flat Huffman tables."""
+    from htd_tpu_torch.data import jpeg as J
+
+    h, w = img.shape[:2]
+    y, cb, cr = W.rgb_to_ycc(img[..., ::-1])
+    planes = [y, cb, cr, k.astype(np.int64)]
+    hx = 2 if subsampled else 1
+    comps = [(1, hx, hx, 0), (2, 1, 1, 1), (3, 1, 1, 1), (4, hx, hx, 0)]
+    if subsampled:
+        ch, cw = -(-h // 2), -(-w // 2)
+        for i in (1, 2):
+            p = np.pad(planes[i], ((0, 2 * ch - h), (0, 2 * cw - w)), mode="edge")
+            planes[i] = (p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2] + 2) // 4
+    tables = J.quant_tables(quality)
+    mcux, mcuy = -(-w // (8 * hx)), -(-h // (8 * hx))
+    blocks = []
+    for (_, ch_, cv, tq), p in zip(comps, planes):
+        rows, cols = mcuy * cv, mcux * ch_
+        p = np.pad(p, ((0, rows * 8 - p.shape[0]), (0, cols * 8 - p.shape[1])), mode="edge")
+        blocks.append(W.quantize(W.to_blocks(p, rows, cols), tables[tq]).reshape(rows, cols, 64))
+    data = huffman_twin(dict(height=h, width=w, comps=comps, tables=tables, blocks=blocks))
+    return data[:2] + ADOBE_YCCK + data[2:]
+
+
 def scans(data: bytes) -> list:
     """(start, end) of each scan's entropy-coded data: from just past its SOS
     segment to the next marker other than RSTn."""
@@ -679,6 +714,7 @@ def fixture_files() -> dict:
     files["pil_progressive_optimize_45x38_q80.jpg"] = pil_jpeg(
         pattern(14, 45, 38), quality=80, progressive=True, optimize=True)
     files["pil_cmyk_27x41_q85.jpg"] = cmyk_jpeg(pattern(15, 27, 41), 85)
+    files["ycck_27x41_q85.jpg"] = ycck_jpeg(pattern(18, 27, 41), pattern(19, 27, 41)[..., 2], 85)
     base = cv2_jpeg(pattern(16, 40, 56), 90, 420, restart=4)
     (start, end), = scans(base)
     for tag, cut in (("a", start + (end - start) // 3), ("b", end - 100)):

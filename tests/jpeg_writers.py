@@ -1,7 +1,9 @@
 """JPEG writers that need no image library and nothing of the JAX package:
-a photo-like seeded picture and a lossless (SOF3) Huffman file writer.
-`tests/jpeg_fixtures.py` writes its lossless fixtures with them, and
-`chip_smoke.py` its photo-sized lossless file."""
+a photo-like seeded picture, a lossless (SOF3) Huffman file writer, and
+libjpeg-turbo's forward half in numpy (colour conversion, islow DCT,
+quantisation), the reference the port's C++ forward half is held to.
+`tests/jpeg_fixtures.py` writes its lossless and coefficient-level fixtures
+with them, and `chip_smoke.py` its photo-sized lossless file."""
 
 from __future__ import annotations
 
@@ -49,6 +51,100 @@ def _dht(tc: int, th: int, table: dict) -> bytes:
 ADOBE_RGB = _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x00")   # transform 0: RGB
 
 
+def fix(x: float) -> int:
+    return int(x * 65536 + 0.5)
+
+
+def rgb_to_ycc(rgb: np.ndarray):
+    """jccolor.c's rgb_ycc_convert (SCALEBITS 16, Cb and Cr rounded with
+    0.5 - epsilon)."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    half, offset = 1 << 15, 128 << 16
+    y = (fix(0.29900) * r + fix(0.58700) * g + fix(0.11400) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + offset + half - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + offset + half - 1) >> 16
+    return y, cb, cr
+
+
+def fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """jfdctint.c's jpeg_fdct_islow on (N, 8, 8) level-shifted samples
+    (int64); the result is 8x the DCT, as libjpeg leaves it."""
+    c_bits, p_bits = 13, 2
+
+    def descale(x, n):
+        return (x + (1 << (n - 1))) >> n
+
+    def one_pass(d, first):
+        # d: (..., 8) along the transformed axis, last
+        t0, t7 = d[..., 0] + d[..., 7], d[..., 0] - d[..., 7]
+        t1, t6 = d[..., 1] + d[..., 6], d[..., 1] - d[..., 6]
+        t2, t5 = d[..., 2] + d[..., 5], d[..., 2] - d[..., 5]
+        t3, t4 = d[..., 3] + d[..., 4], d[..., 3] - d[..., 4]
+        t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+        out = np.empty_like(d)
+        sh = c_bits - p_bits if first else c_bits + p_bits
+        if first:
+            out[..., 0] = (t10 + t11) << p_bits
+            out[..., 4] = (t10 - t11) << p_bits
+        else:
+            out[..., 0] = descale(t10 + t11, p_bits)
+            out[..., 4] = descale(t10 - t11, p_bits)
+        z1 = (t12 + t13) * 4433
+        out[..., 2] = descale(z1 + t13 * 6270, sh)
+        out[..., 6] = descale(z1 - t12 * 15137, sh)
+        z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+        z5 = (z3 + z4) * 9633
+        t4, t5, t6, t7 = t4 * 2446, t5 * 16819, t6 * 25172, t7 * 12299
+        z1, z2, z3, z4 = z1 * -7373, z2 * -20995, z3 * -16069 + z5, z4 * -3196 + z5
+        out[..., 7] = descale(t4 + z1 + z3, sh)
+        out[..., 5] = descale(t5 + z2 + z4, sh)
+        out[..., 3] = descale(t6 + z2 + z3, sh)
+        out[..., 1] = descale(t7 + z1 + z4, sh)
+        return out
+
+    rows = one_pass(blocks, True)
+    return one_pass(rows.transpose(0, 2, 1), False).transpose(0, 2, 1)
+
+
+def to_blocks(plane: np.ndarray, bh: int, bw: int) -> np.ndarray:
+    """The (bh * 8, bw * 8) top-left of an edge-padded plane as (bh * bw, 8, 8)."""
+    return plane[:bh * 8, :bw * 8].reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
+
+
+def quantize(blocks: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """jcdctmgr.c: each coefficient over 8 x its step, rounded half away from 0."""
+    coef = fdct_islow(blocks - 128).reshape(-1, 64)
+    d = table * 8
+    q = (np.abs(coef) + d // 2) // d
+    return (np.sign(coef) * q).astype(np.int16)
+
+
+def forward_reference(img: np.ndarray, quality: int):
+    """The reference `htd_tpu_torch.data.jpeg._forward` is held to: libjpeg-turbo's lossy half of a (H, W, 3) uint8 BGR image at `quality`
+    (4:2:0): each component's quantised blocks, (rows, cols, 64) int16 in
+    natural order, over its plane edge-replicated to whole blocks, and the
+    luminance and chrominance tables."""
+    from htd_tpu_torch.data.jpeg import quant_tables
+
+    h, w = img.shape[:2]
+    luma_q, chroma_q = quant_tables(quality)
+    ybh, ybw = -(-h // 8), -(-w // 8)
+    y, cb, cr = rgb_to_ycc(img[..., ::-1])
+    ch, cbh, cbw = (h + 1) // 2, -(-((h + 1) // 2) // 8), -(-((w + 1) // 2) // 8)
+    # Edge replication as jcprepct.c and jcsample.c do it: luma to whole
+    # blocks; chroma's input to whole blocks across and to an even row
+    # count, then its downsampled rows to whole blocks.
+    y = np.pad(y, ((0, ybh * 8 - h), (0, ybw * 8 - w)), mode="edge")
+    coefs = [quantize(to_blocks(y, ybh, ybw), luma_q).reshape(ybh, ybw, 64)]
+    bias = np.tile([1, 2], cbw * 4)   # per output column: 1, 2, 1, 2, ...
+    for p in (cb, cr):
+        p = np.pad(p, ((0, 2 * ch - h), (0, cbw * 16 - w)), mode="edge")
+        down = (p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2] + bias) >> 2
+        down = np.pad(down, ((0, cbh * 8 - ch), (0, 0)), mode="edge")
+        coefs.append(quantize(to_blocks(down, cbh, cbw), chroma_q).reshape(cbh, cbw, 64))
+    return coefs, luma_q, chroma_q
+
+
 def lossless_planes(img: np.ndarray, color: str) -> list:
     """The sample planes a lossless file of `img` (BGR) holds: "grey" its
     first channel, "rgb" R, G, B, "ycc" jccolor.c's Y, Cb, Cr."""
@@ -56,9 +152,7 @@ def lossless_planes(img: np.ndarray, color: str) -> list:
         return [img[..., 0] if img.ndim == 3 else img]
     if color == "rgb":
         return [img[..., 2], img[..., 1], img[..., 0]]
-    from htd_tpu_torch.data import jpeg as J
-
-    return list(J._rgb_to_ycc(img[..., ::-1]))
+    return list(rgb_to_ycc(img[..., ::-1]))
 
 
 def _pack_bits(values: np.ndarray, nbits: np.ndarray) -> bytes:

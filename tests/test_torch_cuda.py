@@ -697,3 +697,50 @@ def test_arithmetic_and_lossless_fixtures_on_the_host(cuda):
         img = read_jpeg(root / name)
         assert [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()] == \
             [manifest[name]["shape"], manifest[name]["sha256"]], name
+
+
+def test_encoder_on_the_host(cuda):
+    """The JPEG encoder on the card's host: each fixture of tests/data/jpeg
+    (the small ones and photo0-3) decoded and encoded to the bytes of
+    cv2.imencode (tests/data/visualize/manifest.json's SHA-256), and read
+    back as cv2.imdecode reads them; the YCCK fixture decodes as imread."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from htd_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg, read_jpeg
+
+    data_dir = Path(__file__).resolve().parent / "data"
+    manifest = json.loads((data_dir / "visualize" / "manifest.json").read_text())["encode"]
+    assert len(manifest) >= 30
+    for name, want in manifest.items():
+        img = read_jpeg(data_dir / "jpeg" / name)
+        data = encode_jpeg(img)
+        assert [hashlib.sha256(data).hexdigest(),
+                hashlib.sha256(decode_jpeg(data).tobytes()).hexdigest()] == \
+            [want["sha256"], want["decoded_sha256"]], name
+    jm = json.loads((data_dir / "jpeg" / "manifest.json").read_text())
+    ycck = read_jpeg(data_dir / "jpeg" / "ycck_27x41_q85.jpg")
+    assert hashlib.sha256(ycck.tobytes()).hexdigest() == jm["ycck_27x41_q85.jpg"]["sha256"]
+
+
+def test_text_and_draw_on_the_host(cuda, tmp_path):
+    """draw_detections (boxes, OpenCV 5's text, the JPEG writer) on the
+    card's host: the committed detections on photo0 give the JAX package's
+    pixel and .jpg hashes (tests/data/visualize/manifest.json)."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from chip_smoke import load_detections
+    from htd_tpu_torch.data.jpeg import read_jpeg
+    from htd_tpu_torch.utils.visualize import draw_detections
+
+    data_dir = Path(__file__).resolve().parent / "data"
+    want = json.loads((data_dir / "visualize" / "manifest.json").read_text())["draw"]
+    name, boxes, scores, labels, classes = load_detections(str(data_dir / "visualize"))
+    out = tmp_path / "drawn.jpg"
+    drawn = draw_detections(read_jpeg(data_dir / "jpeg" / name), boxes, scores, labels, classes,
+                            want["score_thr"], str(out))
+    assert hashlib.sha256(drawn.tobytes()).hexdigest() == want["pixels_sha256"]
+    assert hashlib.sha256(out.read_bytes()).hexdigest() == want["jpg_sha256"]

@@ -173,6 +173,21 @@ def test_cmyk(progressive, tmp_path):
             _assert_reads_as_imread(path)
 
 
+@pytest.mark.parametrize("subsampled", [False, True])
+def test_ycck(subsampled, tmp_path):
+    """YCCK files (Adobe transform 2) written here from CMYK through
+    jccolor.c's cmyk_ycck_convert, which no library here writes: the port
+    turns them back as jdcolor.c's ycck_cmyk_convert does and then as CMYK,
+    equal to imread, at odd sizes down to 1x1 and several qualities."""
+    path = tmp_path / "y.jpg"
+    for i, ((h, w), q) in enumerate([((27, 41), 85), ((16, 24), 30), ((9, 17), 95),
+                                     ((1, 1), 60)]):
+        img, k = F.pattern(60 + i, h, w), F.pattern(70 + i, h, w)[..., 2]
+        path.write_bytes(F.ycck_jpeg(img, k, q, subsampled))
+        assert cv2.imread(str(path), cv2.IMREAD_COLOR) is not None
+        _assert_reads_as_imread(path)
+
+
 @pytest.mark.parametrize("kind", ["baseline", "restart", "progressive", "progressive-restart"])
 def test_truncated(kind, tmp_path):
     """Files cut short at offsets across their headers and every scan read

@@ -154,9 +154,10 @@ def test_read_png_raises(tmp_path, rng, case):
 
 
 def test_load_image_without_cv2(tmp_path, rng, monkeypatch):
-    """Where cv2 cannot be imported, `CocoDataset.load_image` reads a PNG
-    and a JPEG as cv2 reads them (each through the port's own decoder) and
-    raises ImportError, naming the file and cv2, on another format (BMP)."""
+    """`CocoDataset.load_image` reads a PNG and a JPEG as cv2 reads them,
+    each through the port's own decoder, whether or not cv2 can be
+    imported, and raises ValueError naming the file on another format
+    (BMP) either way: no file goes through cv2."""
     img = _samples(rng, 30, 40, 3)
     cv2.imwrite(str(tmp_path / "a.png"), img)
     cv2.imwrite(str(tmp_path / "b.jpg"), img)
@@ -168,13 +169,13 @@ def test_load_image_without_cv2(tmp_path, rng, monkeypatch):
                    '{"id": 3, "file_name": "c.bmp", "height": 30, "width": 40}], '
                    '"annotations": [], "categories": [{"id": 1, "name": "a"}]}')
     ds = pcoco.CocoDataset(str(ann), str(tmp_path), test_mode=True)
-    bmp = ds.load_image(ds.records[2])
-    assert bmp.shape == (30, 40, 3)
-    monkeypatch.setitem(sys.modules, "cv2", None)
-    for rec, ref in zip(ds.records, want):
-        np.testing.assert_array_equal(ds.load_image(rec), ref)
-    with pytest.raises(ImportError, match=r"c\.bmp.*cv2"):
-        ds.load_image(ds.records[2])
+    for without_cv2 in (False, True):
+        if without_cv2:
+            monkeypatch.setitem(sys.modules, "cv2", None)
+        for rec, ref in zip(ds.records, want):
+            np.testing.assert_array_equal(ds.load_image(rec), ref)
+        with pytest.raises(ValueError, match=r"c\.bmp.*neither a PNG nor a JPEG"):
+            ds.load_image(ds.records[2])
 
 
 @pytest.mark.parametrize("channels", [1, 3])

@@ -27,11 +27,13 @@ from tests.test_e2e_parity import _assert_rows_match_or_tie
 from tests.torch_port import port_config, tiny_pair
 from tests.tiny import tiny_config
 from tools import coco_error_analysis as jerr
+from tools import browse_dataset as jbrowse
 from tools import drill_production as jdrill
 from tools import get_flops as jflops
 from tools import print_config as jprint
 from tools import test as jtest
 from tools_torch import ab_fidelity as pfidelity
+from tools_torch import browse_dataset as pbrowse
 from tools_torch import analyze_logs as panalyze
 from tools_torch import coco_error_analysis as perr
 from tools_torch import drill_production as pdrill
@@ -370,3 +372,63 @@ def test_dist_launchers(mini_coco, checkpoint, monkeypatch, tmp_path):
     assert dumps[0] == dumps[1] and printed[0] == printed[1]
     dets = json.loads(dumps[0])
     assert len(dets) == 2 and all(len(d["scores"]) for d in dets.values())
+
+
+@pytest.fixture(scope="module")
+def browse_coco(tmp_path_factory):
+    """Two JPEG and two PNG images written by cv2 (60x90 landscape, 90x61
+    portrait), boxes over categories 1 and 3 that cross the image's edges,
+    the last image without annotations (which the training set leaves out)."""
+    root = tmp_path_factory.mktemp("browsecoco")
+    rng = np.random.RandomState(3)
+    images, anns = [], []
+    for i in range(4):
+        h, w = (60, 90) if i % 2 == 0 else (90, 61)
+        name = f"img{i}.{'jpg' if i < 2 else 'png'}"
+        cv2.imwrite(str(root / name), rng.randint(0, 255, (h, w, 3)).astype(np.uint8))
+        images.append(dict(id=i + 1, file_name=name, height=h, width=w))
+        for _ in range(0 if i == 3 else 3):
+            x, y = rng.uniform(-6, w / 2), rng.uniform(-6, h / 2)
+            bw, bh = rng.uniform(8, w / 1.5), rng.uniform(8, h / 1.5)
+            anns.append(dict(id=len(anns) + 1, image_id=i + 1, category_id=int(rng.choice([1, 3])),
+                             bbox=[float(x), float(y), float(bw), float(bh)],
+                             area=float(bw * bh), iscrowd=0))
+    ann = root / "ann.json"
+    ann.write_text(json.dumps(dict(images=images, annotations=anns, categories=[
+        dict(id=1, name="person"), dict(id=3, name="car")])))
+    return str(ann), str(root)
+
+
+@pytest.mark.parametrize("mode", [[], ["--raw"], ["--corruption", "gaussian_noise", "--severity",
+                                                 "2"],
+                                  ["--scale", "128x96", "--max-images", "2", "--seed", "5"]],
+                         ids=["pipeline", "raw", "corruption", "scale-max-images"])
+def test_browse_dataset_matches_jax(mode, browse_coco, monkeypatch, tmp_path):
+    """tools_torch/browse_dataset.py --device cpu writes the files that
+    tools/browse_dataset.py writes for the same options: .jpg byte for byte,
+    .png with the same pixels (the train pipeline at the config's scale,
+    the raw images, a corruption, another scale with --max-images)."""
+    ann, root = browse_coco
+    base = ["--ann", ann, "--img-root", root]
+    monkeypatch.setattr(sys, "argv", ["tool"] + base + ["--output-dir", str(tmp_path / "jax")]
+                        + mode)
+    jbrowse.main()
+    written = pbrowse.main(base + ["--output-dir", str(tmp_path / "port"), "--device", "cpu"]
+                           + mode)
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert sorted(os.path.basename(f) for f in written) == names
+    assert len(names) == (2 if "--max-images" in mode else 3)   # training drops img3
+    for name in names:
+        ours, theirs = tmp_path / "port" / name, tmp_path / "jax" / name
+        if name.endswith(".png"):
+            np.testing.assert_array_equal(cv2.imread(str(ours)), cv2.imread(str(theirs)))
+        else:
+            assert ours.read_bytes() == theirs.read_bytes(), name
+
+
+def test_browse_dataset_needs_a_device(browse_coco, tmp_path, monkeypatch):
+    """Without --device the tool runs on CUDA, and raises where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ann, root = browse_coco
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pbrowse.main(["--ann", ann, "--img-root", root, "--output-dir", str(tmp_path)])
