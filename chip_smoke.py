@@ -16,10 +16,9 @@ script exits non-zero without its final line:
   5. kernels: each kernel held to its plain version on the main path's own
      levels and proposals of the first request, in bfloat16 and float32
      (K2's stage calls at S=4, one also at S=2, the BA call at S=1);
-  6. timings: warm per-image latency, per-kernel times beside their bounds
-     (K1 and K2 also by device time; K2 per call and per image, and probed
-     with every sample outside the image), a device-time profile of one
-     request;
+  6. timings: per-kernel times beside their bounds (K1 and K2 also by
+     device time; K2 per call and per image, and probed with every sample
+     outside the image);
   7. main path: HTD R-101-DCN (full depth and width, bfloat16, seeded
      non-zero offset convs) on the same requests, with K3's launches per
      request (30, every one on the tensor-core path) and the offsets'
@@ -31,10 +30,9 @@ script exits non-zero without its final line:
   9. reference: R-101-DCN in float32 on the card against the CPU;
  10. HTD X-101-64x4d-DCN: one bfloat16 request at its test scale, with K3
      on grouped convs (the CUDA-core path) held to its plain version;
- 11. R-101-DCN timings: warm per-image latency, K3 per stage and per image
-     by device time and by events beside its bound, its plain version and
-     cuDNN's regular conv of the same shapes (context only), a device-time
-     profile of one request;
+ 11. R-101-DCN timings: K3 per stage and per image by device time and by
+     events beside its bound, its plain version and cuDNN's regular conv of
+     the same shapes (context only);
  12. main path: HTD R-50 training (full depth and width, bfloat16 under
      autocast, float32 parameters, random weights from a seed) through
      `create_train_state` / `train_step` on a batch of 2 synthetic images
@@ -201,7 +199,6 @@ FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 SCORE_SCALE = 4.0          # seeded fc_cls std 0.01 -> 0.04, see phase 3
 REQUEST_SHAPES = [(480, 640), (600, 800), (427, 640), (720, 1280)]
-TIMED_REQUESTS = 20
 # seeded offset convs give offsets of about this std (px) at each DCN
 # conv's input scale, so that samples leave their taps (phase 7)
 OFFSET_PX = 2.0
@@ -512,62 +509,6 @@ def card_vs_cpu(gpu32, cpu32) -> None:
         fail("the card disagrees with the CPU reference")
 
 
-def warm_latency(model, imgs, card):
-    """Prints the median and p90 (ms) of `inference_detector` over
-    TIMED_REQUESTS warm requests, host clock around work that ends in a
-    synchronize."""
-    from htd_tpu_torch import inference_detector
-
-    lat = []
-    for i in range(TIMED_REQUESTS + 2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        inference_detector(model, imgs[i % len(imgs)])
-        torch.cuda.synchronize()
-        if i >= 2:
-            lat.append((time.perf_counter() - t0) * 1e3)
-    lat.sort()
-    med, p90 = statistics.median(lat), lat[int(0.9 * len(lat)) - 1]
-    print(f"warm latency per image, inference_detector incl. preprocessing, "
-          f"{len(lat)} requests: median {med:.2f} ms, p90 {p90:.2f} ms, min {lat[0]:.2f} ms "
-          f"({card})")
-
-
-def profile_request(model, img) -> None:
-    """Device busy share, host and device time per `htd.*` layer span, and
-    the largest device entries of one profiled request."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from htd_tpu_torch import inference_detector
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        inference_detector(model, img)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # device activity: the device-side events (kernels, copies, sets); the
-    # htd.* spans appear as host ranges and as device ranges with idle gaps
-    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not e.key.startswith("htd.")]
-    dev_us = sum(e.self_device_time_total for e in on_device)
-    print(f"profiled request: wall {wall:.2f} ms, device busy {dev_us / 1e3:.2f} ms "
-          f"({100 * dev_us / 1e3 / wall:.1f}% of the wall time; profiling inflates the "
-          f"host side)")
-    spans = {}
-    for e in events:
-        if e.key.startswith("htd."):
-            host, dev = spans.get(e.key, (0.0, 0.0))
-            spans[e.key] = (host + e.cpu_time_total, dev + e.device_time_total)
-    for key, (host, dev) in spans.items():
-        print(f"  layer {key[4:]:<14s} host {host / 1e3:7.2f} ms, device range "
-              f"{dev / 1e3:7.2f} ms")
-    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:12]
-    for e in top:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
-
-
 def dcn_convs(model):
     """(name, module) of every deformable conv in forward order, named
     `layer{s}.{i}`."""
@@ -855,7 +796,6 @@ def dcn_phases(imgs, card):
     del xm, xcap
 
     phase("11 R-101-DCN timings")
-    warm_latency(model, imgs, card)
     k3 = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
     per_stage = {}
     for name, m, x, off in captured:
@@ -908,7 +848,6 @@ def dcn_phases(imgs, card):
           f"{k3['ops_ms']:.4f} ms, bytes at 3.35 TB/s {k3['bytes_ms']:.4f} ms); plain version "
           f"{k3['plain_ms']:.3f} ms; context: cuDNN regular conv of the same shapes "
           f"{k3['cudnn_ms']:.3f} ms ({card})")
-    profile_request(model, imgs[0])
     return {"name": "deform_conv", "route": "cuda", "source": "htd_tpu_torch/csrc/deform_conv.cu",
             "replaces": "htd_tpu/ops/dcn_pallas.py:131", "launches": counts["deform_conv"],
             "path": "tensor cores (mma.sync bf16)", "max_abs_err": k3_err, "ms": k3["ms"],
@@ -3546,7 +3485,6 @@ def main():
         torch.cuda.synchronize()
 
     phase("6 timings")
-    warm_latency(model, imgs, card)
 
     geom = pyr.geom
     k1_ms = cuda_ms(lambda: pack_pyramid(levels))
@@ -3602,7 +3540,6 @@ def main():
           f"{100 * max(k2['bytes_ms'], k2['ops_ms']) / k2['kernel_ms']:.1f}% of the bound; every "
           f"sample outside the image {k2['outside_ms'] * 1e3:.1f} us); bound "
           f"{max(k2['bytes_ms'], k2['ops_ms']) * 1e3:.1f} us ({card})")
-    profile_request(model, imgs[0])
     pairs = capture_laterals(model, imgs[0])    # for phase 20
     del model, levels, pyr, props, rois1
     k3 = dcn_phases(imgs, card)

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from htd_tpu_torch.config import HTDConfig
 from htd_tpu_torch.data.pipeline import bucket_shape, preprocess
@@ -69,12 +70,19 @@ def inference_detector(model: HTDDetector, img_bgr: np.ndarray,
     its orientation's static bucket."""
     scale = scale or model.cfg.test_scale
     landscape = img_bgr.shape[1] >= img_bgr.shape[0]
-    p = preprocess(img_bgr, scale=scale, bucket=bucket_shape(scale, landscape),
-                   device=model.device)
+    with record_function("htd.preprocess"):
+        p = preprocess(img_bgr, scale=scale, bucket=bucket_shape(scale, landscape),
+                       device=model.device)
     dets = model.simple_test(p.image[None], p.img_shape[None], p.scale_factor[None])
-    v = dets.valid[0].cpu().numpy()
-    return (dets.boxes[0].cpu().numpy()[v], dets.scores[0].cpu().numpy()[v],
-            dets.labels[0].cpu().numpy()[v])
+    v = _to_host(dets.valid[0])
+    return _to_host(dets.boxes[0])[v], _to_host(dets.scores[0])[v], _to_host(dets.labels[0])[v]
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """`t` as a numpy array: a copy to the host, which blocks until the
+    device is done (`htd.sync.to_host`)."""
+    with record_function("htd.sync.to_host"):
+        return t.cpu().numpy()
 
 
 @torch.inference_mode()
@@ -91,9 +99,10 @@ def aug_inference_detector(model: HTDDetector, img_bgr: np.ndarray,
     proposal pass and the cascade pass), as the JAX package does."""
     scales = scales or (model.cfg.test_scale,)
     landscape = img_bgr.shape[1] >= img_bgr.shape[0]
-    augs = [preprocess(img_bgr, scale=scale, bucket=bucket_shape(scale, landscape),
-                       device=model.device, flip=fl)
-            for scale in scales for fl in ([False, True] if flip else [False])]
+    with record_function("htd.preprocess"):
+        augs = [preprocess(img_bgr, scale=scale, bucket=bucket_shape(scale, landscape),
+                           device=model.device, flip=fl)
+                for scale in scales for fl in ([False, True] if flip else [False])]
 
     prop_b, prop_s, prop_v = [], [], []
     for p in augs:
@@ -101,8 +110,9 @@ def aug_inference_detector(model: HTDDetector, img_bgr: np.ndarray,
         prop_b.append(tta.map_back(boxes[0], p.img_shape, p.scale_factor, p.flipped))
         prop_s.append(scores[0])
         prop_v.append(valid[0])
-    merged, _, merged_valid = tta.merge_aug_proposals(prop_b, prop_s, prop_v,
-                                                      model.cfg.proposal_test)
+    with record_function("htd.rpn_proposals"):
+        merged, _, merged_valid = tta.merge_aug_proposals(prop_b, prop_s, prop_v,
+                                                          model.cfg.proposal_test)
 
     aug_boxes, aug_scores = [], []
     for p in augs:
@@ -111,10 +121,11 @@ def aug_inference_detector(model: HTDDetector, img_bgr: np.ndarray,
                                              merged_valid[None])
         aug_boxes.append(tta.map_back(boxes[0], p.img_shape, p.scale_factor, p.flipped))
         aug_scores.append(scores[0])
-    boxes, scores = tta.merge_aug_bboxes(aug_boxes, aug_scores)
-    db, ds, dl, dv = tta.final_nms(boxes, scores, merged_valid, model.cfg.rcnn_test)
-    v = dv.cpu().numpy()
-    return db.cpu().numpy()[v], ds.cpu().numpy()[v], dl.cpu().numpy()[v]
+    with record_function("htd.post"):
+        boxes, scores = tta.merge_aug_bboxes(aug_boxes, aug_scores)
+        db, ds, dl, dv = tta.final_nms(boxes, scores, merged_valid, model.cfg.rcnn_test)
+    v = _to_host(dv)
+    return _to_host(db)[v], _to_host(ds)[v], _to_host(dl)[v]
 
 
 @torch.inference_mode()

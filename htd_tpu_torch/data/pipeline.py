@@ -9,6 +9,10 @@ The resize is cv2's `INTER_LINEAR` for uint8 (the JAX package's
 11-bit fixed-point coefficients and its integer horizontal and vertical
 passes, in integer torch ops on the caller's device, so no cv2 or PIL is
 needed.
+
+Every host-to-device copy of `preprocess` runs in its own
+`htd.sync.upload` span: a copy from pageable host memory blocks the host
+until the device's queue has drained.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from htd_tpu_torch.ops.boxes import bbox_flip
 
@@ -45,6 +50,12 @@ def bucket_shape(scale: Tuple[int, int], landscape: bool) -> Tuple[int, int]:
 
 
 _COEF_SCALE = 2048  # cv2's INTER_RESIZE_COEF_SCALE (11 fractional bits)
+
+
+def _upload(x, device, dtype=None) -> torch.Tensor:
+    """`x` (an array, a list or a host tensor) copied to `device`."""
+    with record_function("htd.sync.upload"):
+        return torch.as_tensor(x, dtype=dtype).to(device)
 
 
 def _linear_taps(src: int, dst: int, clamp_frac: bool):
@@ -80,7 +91,7 @@ def resize_bilinear(img: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
     dev = img.device
 
     def table(src, dst, clamp):
-        return [torch.from_numpy(a).to(dev) for a in _linear_taps(src, dst, clamp)]
+        return [_upload(a, dev) for a in _linear_taps(src, dst, clamp)]
 
     x0, x1, a0, a1 = table(w, new_w, True)
     y0, y1, b0, b1 = table(h, new_h, False)
@@ -113,16 +124,16 @@ def preprocess(img_bgr, scale: Tuple[int, int] = (1333, 800),
     """
     if isinstance(img_bgr, np.ndarray):
         img_bgr = np.ascontiguousarray(img_bgr)  # e.g. a channel-flipped view
-    img = torch.as_tensor(img_bgr).to(device)
+    img = _upload(img_bgr, device)
     if img.dim() != 3 or img.shape[2] != 3 or img.dtype != torch.uint8:
         raise ValueError(f"expected an (H, W, 3) uint8 image, got {tuple(img.shape)} {img.dtype}")
     h, w = int(img.shape[0]), int(img.shape[1])
     new_h, new_w, _ = rescale_size(h, w, scale)
     x = resize_bilinear(img, new_h, new_w)
     ws, hs = new_w / w, new_h / h
-    scale_factor = torch.tensor([ws, hs, ws, hs], dtype=torch.float32, device=x.device)
+    scale_factor = _upload([ws, hs, ws, hs], x.device, torch.float32)
     if boxes is not None:
-        boxes = torch.as_tensor(boxes, dtype=torch.float32, device=x.device).reshape(-1, 4)
+        boxes = _upload(boxes, x.device, torch.float32).reshape(-1, 4)
         boxes = boxes * scale_factor
         boxes = torch.stack([boxes[:, 0].clamp(0, new_w), boxes[:, 1].clamp(0, new_h),
                              boxes[:, 2].clamp(0, new_w), boxes[:, 3].clamp(0, new_h)], -1)
@@ -131,10 +142,10 @@ def preprocess(img_bgr, scale: Tuple[int, int] = (1333, 800),
         if boxes is not None:
             boxes = bbox_flip(boxes, (new_h, new_w))
     if labels is not None:
-        labels = torch.as_tensor(labels, device=x.device)
+        labels = _upload(labels, x.device)
     x = x.flip(-1)                                        # BGR -> RGB
-    mean = torch.tensor(MEAN_RGB, dtype=torch.float32, device=x.device)
-    std = torch.tensor(STD_RGB, dtype=torch.float32, device=x.device)
+    mean = _upload(MEAN_RGB, x.device, torch.float32)
+    std = _upload(STD_RGB, x.device, torch.float32)
     x = (x - mean) / std
     if bucket is None:
         bucket = (ceil32(new_h), ceil32(new_w))
@@ -142,7 +153,7 @@ def preprocess(img_bgr, scale: Tuple[int, int] = (1333, 800),
     padded[:new_h, :new_w] = x
     return ProcessedImage(
         padded,
-        torch.tensor([new_h, new_w], dtype=torch.float32, device=x.device),
+        _upload([new_h, new_w], x.device, torch.float32),
         scale_factor, boxes, labels, flip,
     )
 

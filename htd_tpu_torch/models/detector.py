@@ -14,7 +14,8 @@ in training, K4 adds each of the three reads' gradients into it).
 In the DCN presets the backbone's deformable convs run kernel K3.
 Each layer of the forward runs inside a `record_function` span named
 `htd.<layer>`, which a `torch.profiler` trace reports with its host and
-device time.
+device time; each call inside it that blocks the host until the device
+has caught up runs in a nested `htd.sync.<site>` span.
 """
 
 from __future__ import annotations
@@ -210,7 +211,8 @@ class HTDDetector(nn.Module):
         img_shapes = img_shapes.to(device=dev, dtype=torch.float32)
         rois = rois.to(device=dev, dtype=torch.float32)
         roi_valid = roi_valid.to(dev)
-        feats = self._features(images)
+        with record_function("htd.backbone_fpn"):
+            feats = self._features(images)
         rois1, cls_score, s1_reg = self._cascade(feats, img_shapes, rois, roi_valid)
         coder = self.cfg.stage1_head.coder
         boxes = delta2bbox(rois1, s1_reg, coder.means, coder.stds,

@@ -12,12 +12,16 @@ import math
 from typing import Sequence
 
 import torch
+from torch.profiler import record_function
 
 _DEFAULT_WH_RATIO_CLIP = 16.0 / 1000.0
 
 
 def _coder_consts(vals: Sequence[float], like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(vals, dtype=like.dtype, device=like.device)
+    """The coder's means or stds on `like`'s device: a copy from the host,
+    which blocks until the device's queue has drained (`htd.sync.box_coder`)."""
+    with record_function("htd.sync.box_coder"):
+        return torch.tensor(vals, dtype=like.dtype, device=like.device)
 
 
 def bbox2delta(proposals, gt, means=(0.0, 0.0, 0.0, 0.0), stds=(1.0, 1.0, 1.0, 1.0)):

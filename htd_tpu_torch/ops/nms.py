@@ -13,7 +13,7 @@ the unique fixpoint of `keep = valid & ~any_j(sup[j, i] & keep[j])` (the
 value at i depends only on earlier boxes, so it is fixed once they are).
 Iterating from `keep = valid` reaches it in as many steps as the longest
 chain of suppressions; convergence is checked every few steps, which is
-the only host synchronisation.
+the only host synchronisation; each check runs in an `htd.sync.nms` span.
 
 `soft_nms` (linear decay, the R-101 and DCN test configs) runs its
 `max_out` rounds on the device with no host synchronisation: each round
@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.profiler import record_function
 
 NEG_INF = float("-inf")
 _STEPS_PER_CHECK = 8
@@ -65,7 +66,9 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         for _ in range(_STEPS_PER_CHECK):
             hit = (keep.to(torch.float32)[None, :] @ supf)[0] > 0
             keep = valid & ~hit
-        if torch.equal(keep, prev):
+        with record_function("htd.sync.nms"):
+            converged = torch.equal(keep, prev)
+        if converged:
             break
 
     # kept boxes in sorted order are the greedy output order: place each

@@ -1,0 +1,186 @@
+"""The port's host spans on the inference path.
+
+`apis.inference_detector` runs `htd.preprocess`, the detector's layer
+spans and four `htd.sync.to_host` copies; every call that blocks the host
+until the device catches up runs in an `htd.sync.<site>` span of its own.
+On the CPU the tests read the span tree of one request under
+`torch.profiler`; on the card (marked `cuda`, skipped elsewhere) they hold
+every runtime synchronisation of R-50 and R-101-DCN requests to those
+spans:
+
+    python -m pytest --noconftest -s tests/test_torch_tracing.py -k card
+
+This file imports neither JAX nor the JAX package.
+"""
+
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from htd_tpu_torch import config as C
+from htd_tpu_torch.apis import aug_inference_detector, inference_detector, init_detector
+
+LAYERS = ("htd.backbone_fpn", "htd.rpn_proposals", "htd.pyramid", "htd.global",
+          "htd.stage0", "htd.stage1", "htd.post")
+REQUEST = "test.request"
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cuStreamSynchronize", "cuCtxSynchronize", "cuEventSynchronize")
+
+
+def tiny(soft: bool = False) -> C.HTDConfig:
+    return C.HTDConfig(backbone=C.BackboneConfig(depth=10),
+                       proposal_test=C.ProposalConfig(nms_pre=64, nms_post=48, max_num=48),
+                       rcnn_test=C.RCNNTestConfig(max_per_img=10, use_soft_nms=soft))
+
+
+def image(seed: int, h: int = 60, w: int = 90) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+
+def host_events(prof):
+    """(name, start, end) in ns of every host event, by start (outer first
+    where two start together)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events() if e.device_type() != cuda]
+    return sorted(out, key=lambda s: (s[1], -s[2]))
+
+
+def inside(s, t) -> bool:
+    return s is not t and t[1] <= s[1] and s[2] <= t[2]
+
+
+def spans_of(prof):
+    return [s for s in host_events(prof) if s[0].startswith("htd.")]
+
+
+def top_level(spans):
+    return [s for s in spans if not any(inside(s, t) for t in spans)]
+
+
+def named(spans, prefix):
+    return [s for s in spans if s[0] == prefix or s[0].startswith(prefix + ".")]
+
+
+@pytest.fixture
+def equal_calls(monkeypatch):
+    """Counts the `torch.equal` calls (ops/nms.nms's convergence checks)."""
+    calls = []
+    real = torch.equal
+
+    def spy(a, b):
+        calls.append(1)
+        return real(a, b)
+
+    monkeypatch.setattr(torch, "equal", spy)
+    return calls
+
+
+def check_nms_spans(spans, equal_calls):
+    nms = named(spans, "htd.sync.nms")
+    holders = [t for t in spans if t[0] in ("htd.rpn_proposals", "htd.post")]
+    assert all(any(inside(s, t) for t in holders) for s in nms)
+    assert len(nms) == len(equal_calls) > 0
+    return nms
+
+
+def test_request_span_tree(equal_calls):
+    model = init_detector(tiny(), device="cpu", seed=0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        inference_detector(model, image(1), scale=(96, 64))
+    spans = spans_of(prof)
+    top = [s[0] for s in top_level(spans)]
+    assert top == ["htd.preprocess", *LAYERS] + ["htd.sync.to_host"] * 4
+    pre = named(spans, "htd.preprocess")[0]
+    uploads = named(spans, "htd.sync.upload")
+    # the image, the resize's two axes of four tables, scale factor, mean,
+    # std, image shape
+    assert len(uploads) == 1 + 8 + 4 and all(inside(s, pre) for s in uploads)
+    nms = check_nms_spans(spans, equal_calls)
+    post = named(spans, "htd.post")[0]
+    assert any(inside(s, post) for s in nms)
+    rpn = named(spans, "htd.rpn_proposals")[0]
+    assert any(inside(s, rpn) for s in nms)
+    # every sync but the copies to the host lies in preprocess or a layer
+    layers = [t for t in spans if t[0] in LAYERS or t is pre]
+    for s in named(spans, "htd.sync"):
+        assert (s[0] == "htd.sync.to_host") != any(inside(s, t) for t in layers), s[0]
+
+
+def test_soft_nms_post_has_no_nms_sync(equal_calls):
+    model = init_detector(tiny(soft=True), device="cpu", seed=0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        inference_detector(model, image(2, 90, 60), scale=(96, 64))
+    spans = spans_of(prof)
+    post = named(spans, "htd.post")[0]
+    in_post = [s[0] for s in named(spans, "htd.sync") if inside(s, post)]
+    # soft-NMS's rounds stay on the device; only the box decode's two
+    # coder constants are copied in
+    assert in_post == ["htd.sync.box_coder"] * 2
+    rpn = named(spans, "htd.rpn_proposals")[0]
+    assert all(inside(s, rpn) for s in check_nms_spans(spans, equal_calls))
+
+
+def test_tta_carries_the_same_spans(equal_calls):
+    model = init_detector(tiny(), device="cpu", seed=0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        aug_inference_detector(model, image(3), scales=((96, 64), (128, 96)), flip=True)
+    spans = spans_of(prof)
+    top = [s[0] for s in top_level(spans)]
+    assert top[0] == "htd.preprocess" and top[-4:] == ["htd.sync.to_host"] * 4
+    assert "htd.sync.to_host" not in top[:-4]
+    pre = named(spans, "htd.preprocess")[0]
+    uploads = named(spans, "htd.sync.upload")
+    assert len(uploads) == 4 * 13 and all(inside(s, pre) for s in uploads)
+    check_nms_spans(spans, equal_calls)
+    # four proposal passes and the merge; four cascade passes; one post
+    assert Counter(top)["htd.rpn_proposals"] == 5
+    assert Counter(top)["htd.backbone_fpn"] == 8 and Counter(top)["htd.post"] == 1
+
+
+# -- on the card -------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda")
+
+
+def is_sync(name: str) -> bool:
+    """A runtime call that blocks the host until the device has caught up."""
+    return name in SYNC_CALLS or (name.startswith(("cudaMemcpy", "cuMemcpy"))
+                                  and "Async" not in name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["htd_r50_1x", "htd_r101_dcn_2x"])
+def test_every_sync_on_the_card_is_in_a_sync_span(cuda, preset):
+    model = init_detector(getattr(C, preset)(compute_dtype="bfloat16"), seed=0)
+    imgs = [image(4, 480, 640), image(5, 640, 480)]
+    for img in imgs:                    # builds the kernels, caches the anchors
+        inference_detector(model, img)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for img in imgs:
+            with record_function(REQUEST):
+                inference_detector(model, img)
+    events = host_events(prof)
+    requests = [e for e in events if e[0] == REQUEST]
+    spans = [e for e in events if e[0].startswith("htd.")]
+    syncs = [e for e in events if is_sync(e[0]) and any(inside(e, r) for r in requests)]
+    sync_spans = named(spans, "htd.sync")
+    outside = [(e[0], next((t[0] for t in reversed(spans) if inside(e, t)), "entry"))
+               for e in syncs if not any(inside(e, s) for s in sync_spans)]
+    per_span = Counter(sum(1 for e in syncs if inside(e, s)) for s in sync_spans)
+    sites = Counter(s[0] for s in sync_spans)
+    print(f"\n{preset}: {len(syncs) / len(imgs)} runtime synchronisations per request, "
+          f"{len(sync_spans) / len(imgs)} htd.sync.* spans per request; per site: "
+          + ", ".join(f"{k} {v / len(imgs)}" for k, v in sorted(sites.items()))
+          + f"; {torch.cuda.get_device_name(0)}")
+    assert not outside, f"synchronisations outside every htd.sync.* span: {outside}"
+    assert per_span == Counter({1: len(sync_spans)}), f"syncs per span: {per_span}"
