@@ -21,18 +21,23 @@ script exits non-zero without its final line:
      outside the image);
   7. main path: HTD R-101-DCN (full depth and width, bfloat16, seeded
      non-zero offset convs) on the same requests, with K3's launches per
-     request (30, every one on the tensor-core path) and the offsets'
-     statistics;
+     request (30, every one on the tensor-core path), the soft-NMS
+     kernel's (1) and the offsets' statistics;
   8. K3 held to its plain version on the main path's own activations (one
      stride-2 and one stride-1 deformable conv of each DCN stage), in
      bfloat16 and float32, and with two deform groups (the offsets and
-     their negation; the offsets tiled, bit-equal to one group);
+     their negation; the offsets tiled, bit-equal to one group); the
+     soft-NMS kernel held to its plain version, bit for bit, on the
+     class-offset candidates `multiclass_nms` hands it in the first
+     request;
   9. reference: R-101-DCN in float32 on the card against the CPU;
  10. HTD X-101-64x4d-DCN: one bfloat16 request at its test scale, with K3
      on grouped convs (the CUDA-core path) held to its plain version;
  11. R-101-DCN timings: K3 per stage and per image by device time and by
      events beside its bound, its plain version and cuDNN's regular conv of
-     the same shapes (context only);
+     the same shapes (context only); the soft-NMS kernel on phase 8's
+     candidates by device time and by events beside its bound (its serial
+     rounds) and its plain version;
  12. main path: HTD R-50 training (full depth and width, bfloat16 under
      autocast, float32 parameters, random weights from a seed) through
      `create_train_state` / `train_step` on a batch of 2 synthetic images
@@ -197,6 +202,17 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+SM_CLOCK_HZ = 1.98e9       # boost clock
+SM_LANES = 128             # one SM issues 4 warp instructions a cycle
+# the soft-NMS kernel's bound a round (its one block runs on one SM): each
+# entry's update at the SM's issue rate, reckoned at 30 operations (6 loads
+# from shared memory, the IoU's 4 min / max, 2 differences, 2 clamps and
+# product, the overlap test, the decay's product and test, the emitted
+# entry's test, the store, the order key, the best's update), then the
+# dependent chain from the pick to the next (2 `redux` steps, a store, the
+# barrier, a load, 2 more `redux` steps and a ballot, the pick's load)
+SOFT_NMS_ENTRY_OPS = 30
+SOFT_NMS_CHAIN_CYCLES = 300
 SCORE_SCALE = 4.0          # seeded fc_cls std 0.01 -> 0.04, see phase 3
 REQUEST_SHAPES = [(480, 640), (600, 800), (427, 640), (720, 1280)]
 # seeded offset convs give offsets of about this std (px) at each DCN
@@ -692,8 +708,9 @@ def check_k3_deform_groups(captured, names):
 def run_requests(model, imgs, cfg, per_request_k3: int, k3_path: str = "tc"):
     """The main path: `inference_detector` on each image with the launch
     counts set to 0 just before and read just after; every request must
-    launch K1 and K2, K7 3 times and, with deformable convs, K3
-    `per_request_k3` times, each on `k3_path` ("tc": the tensor cores,
+    launch K1 and K2, K7 3 times, the soft-NMS kernel once where the
+    test config asks for soft-NMS (else never) and, with deformable convs,
+    K3 `per_request_k3` times, each on `k3_path` ("tc": the tensor cores,
     "cc": the CUDA cores)."""
     from htd_tpu_torch import inference_detector
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
@@ -707,7 +724,8 @@ def run_requests(model, imgs, cfg, per_request_k3: int, k3_path: str = "tc"):
         on_path = path_counts[f"deform_conv_{k3_path}"] - paths[f"deform_conv_{k3_path}"]
         check_detections(boxes, scores, labels, img, cfg)
         if counts["pyramid_pack"] <= 0 or counts["roi_align"] <= 0 \
-                or counts["deform_conv"] != per_request_k3 or counts["upsample_add"] != 3:
+                or counts["deform_conv"] != per_request_k3 or counts["upsample_add"] != 3 \
+                or counts["soft_nms"] != int(cfg.rcnn_test.use_soft_nms):
             fail(f"unexpected launches on request {img.shape}: {counts}")
         if on_path != per_request_k3:
             fail(f"{on_path} of {per_request_k3} K3 launches on request {img.shape} took the "
@@ -733,7 +751,8 @@ def k3_work(x, off, w, groups, stride):
 
 
 def dcn_phases(imgs, card):
-    """Phases 7-11 (R-101-DCN, X-101-DCN); returns K3's kernel record."""
+    """Phases 7-11 (R-101-DCN, X-101-DCN); returns the kernel records of K3
+    and the soft-NMS kernel."""
     import torch.nn.functional as F
 
     from htd_tpu_torch import htd_r101_dcn_2x, htd_x101_dcn_2x, init_detector
@@ -756,7 +775,7 @@ def dcn_phases(imgs, card):
     if st["far"] < 0.05 or st["outside"] <= 0.0:
         fail("the seeded offsets do not move samples off their taps and out of the image")
 
-    phase("8 K3 vs its plain version on the main path's own activations")
+    phase("8 K3 and the soft-NMS kernel vs their plain versions on the main path's own inputs")
     captured = capture_dcn(model, imgs[0])
     stages = [name.split(".")[0] for name, _, _, _ in captured]
     split = {st: stages.count(st) for st in dict.fromkeys(stages)}
@@ -768,6 +787,7 @@ def dcn_phases(imgs, card):
         fail("R-101-DCN's deformable convs are not 4 + 23 + 3 with 3 of stride 2")
     k3_err = check_k3(captured, DCN_CHECKED)
     check_k3_deform_groups(captured, DCN_CHECKED)
+    soft_args = check_soft_nms(model, imgs[0])
 
     phase("9 reference: R-101-DCN float32 on the card vs the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -848,12 +868,74 @@ def dcn_phases(imgs, card):
           f"{k3['ops_ms']:.4f} ms, bytes at 3.35 TB/s {k3['bytes_ms']:.4f} ms); plain version "
           f"{k3['plain_ms']:.3f} ms; context: cuDNN regular conv of the same shapes "
           f"{k3['cudnn_ms']:.3f} ms ({card})")
-    return {"name": "deform_conv", "route": "cuda", "source": "htd_tpu_torch/csrc/deform_conv.cu",
-            "replaces": "htd_tpu/ops/dcn_pallas.py:131", "launches": counts["deform_conv"],
-            "path": "tensor cores (mma.sync bf16)", "max_abs_err": k3_err, "ms": k3["ms"],
-            "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"], "bound_ms": bound,
-            "bound_by": "bytes" if k3["bytes_ms"] >= k3["ops_ms"] else "operations",
-            "library_ms": None}
+    return [{"name": "deform_conv", "route": "cuda",
+             "source": "htd_tpu_torch/csrc/deform_conv.cu",
+             "replaces": "htd_tpu/ops/dcn_pallas.py:131", "launches": counts["deform_conv"],
+             "path": "tensor cores (mma.sync bf16)", "max_abs_err": k3_err, "ms": k3["ms"],
+             "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"], "bound_ms": bound,
+             "bound_by": "bytes" if k3["bytes_ms"] >= k3["ops_ms"] else "operations",
+             "library_ms": None},
+            time_soft_nms(soft_args, counts["soft_nms"], card)]
+
+
+def check_soft_nms(model, img):
+    """The soft-NMS kernel held to its plain version on the main path's own
+    input: the class-offset candidates, scores and settings that
+    `multiclass_nms` hands to `soft_nms` in one request (captured by
+    wrapping it), both run on those CUDA tensors; indices, scores and
+    validity must be equal bit for bit. Returns the captured arguments."""
+    from htd_tpu_torch import inference_detector
+    from htd_tpu_torch.ops import nms
+    from htd_tpu_torch.ops.nms_cuda import launch_soft_nms
+
+    seen = []
+    soft_nms = nms.soft_nms
+    nms.soft_nms = lambda *args: (seen.append(args), soft_nms(*args))[1]
+    try:
+        inference_detector(model, img)
+    finally:
+        nms.soft_nms = soft_nms
+    if len(seen) != 1 or not seen[0][0].is_cuda:
+        fail(f"a R-101-DCN request called soft_nms {len(seen)} times, not once on the card")
+    args = seen[0]
+    got = launch_soft_nms(*args)
+    want = nms.soft_nms_plain(*args)
+    bits = [x.view(torch.int32) if x.dtype == torch.float32 else x for x in got + want]
+    if not all(torch.equal(a, b) for a, b in zip(bits[:3], bits[3:])):
+        fail("the soft-NMS kernel differs from its plain version on the request's candidates")
+    boxes, scores, thr, min_score, max_out = args
+    print(f"soft-NMS kernel vs plain on request {img.shape[1]}x{img.shape[0]}'s "
+          f"{boxes.shape[0]} class-offset candidates ({int(torch.isfinite(scores).sum())} "
+          f"finite scores; IoU threshold {thr}, min score {min_score}, max_out {max_out}): "
+          f"indices, scores and validity bit-equal; {int(want[2].sum())} valid")
+    return args
+
+
+def time_soft_nms(args, launches: int, card: str) -> dict:
+    """The soft-NMS kernel's times on the captured arguments (device time by
+    the profiler, and by events with its launcher's host work) beside its
+    plain version's and its bound, its `max_out` serial rounds (each the
+    entries' updates at one SM's issue rate plus the dependent chain:
+    SOFT_NMS_ENTRY_OPS, SOFT_NMS_CHAIN_CYCLES); returns its kernel
+    record."""
+    from htd_tpu_torch.ops.nms import soft_nms_plain
+    from htd_tpu_torch.ops.nms_cuda import launch_soft_nms
+
+    n, max_out = args[0].shape[0], args[4]
+    ms = cuda_ms(lambda: launch_soft_nms(*args), iters=50)
+    dev = device_times(lambda: launch_soft_nms(*args), {"soft_nms_kernel": 1})["soft_nms_kernel"]
+    plain = cuda_ms(lambda: soft_nms_plain(*args), iters=3, warmup=1)
+    cycles = n * SOFT_NMS_ENTRY_OPS / SM_LANES + SOFT_NMS_CHAIN_CYCLES
+    bound = max_out * cycles / SM_CLOCK_HZ * 1e3
+    print(f"soft-NMS per R-101-DCN image ({n} candidates, {max_out} rounds, one launch): "
+          f"device {dev * 1e3:.1f} us ({dev / max_out * 1e6:.0f} ns a round, "
+          f"{100 * bound / dev:.1f}% of its bound), by events {ms * 1e3:.1f} us; bound "
+          f"{bound * 1e3:.1f} us ({max_out} rounds x {cycles:.0f} cycles at "
+          f"{SM_CLOCK_HZ / 1e9:.2f} GHz); plain version {plain:.3f} ms ({card})")
+    return {"name": "soft_nms", "route": "cuda", "source": "htd_tpu_torch/csrc/soft_nms.cu",
+            "replaces": "none (XLA fori_loop, htd_tpu/ops/nms.py:204)", "launches": launches,
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": "serial rounds", "library_ms": None}
 
 
 def train_batch(cfg, seed: int = 0):
@@ -1398,7 +1480,7 @@ def step_launches(dcn: int) -> dict:
     K8 never (the fence switches are off)."""
     return {"pyramid_pack": 1, "roi_align": 3, "deform_conv": dcn, "roi_align_bwd": 3,
             "deform_conv_bwd_input": dcn, "deform_conv_bwd_offset_weight": dcn,
-            "upsample_add": 3, "layout_fence": 0}
+            "upsample_add": 3, "layout_fence": 0, "soft_nms": 0}
 
 
 def open_residuals(model) -> None:
@@ -3542,7 +3624,7 @@ def main():
           f"{max(k2['bytes_ms'], k2['ops_ms']) * 1e3:.1f} us ({card})")
     pairs = capture_laterals(model, imgs[0])    # for phase 20
     del model, levels, pyr, props, rois1
-    k3 = dcn_phases(imgs, card)
+    dcn_records = dcn_phases(imgs, card)
 
     kernels = [
         {"name": "pyramid_pack", "route": "cuda", "source": "htd_tpu_torch/csrc/pyramid_pack.cu",
@@ -3557,7 +3639,7 @@ def main():
          "bound_ms": max(k2["bytes_ms"], k2["ops_ms"]),
          "bound_by": "bytes" if k2["bytes_ms"] >= k2["ops_ms"] else "operations",
          "library_ms": None},
-        k3,
+        *dcn_records,
     ]
     return card, kind, kernels, t_start, main_counts["upsample_add"], pairs
 
@@ -3582,13 +3664,14 @@ def run() -> None:
     drill_phase(card)
     picture_phase(card)
     print(f"kernel times are per image (K2: the sum of its 3 calls per request; K3: of its "
-          f"30 launches per R-101-DCN request; K7: of its 3 launches per R-50 request; K8: one "
-          f"launch on the largest fenced tensor) and per train step (K4: its 3 calls, R-50; K5, "
-          f"K6: their 30 launches each, R-101-DCN); launches are over the {len(REQUEST_SHAPES)} "
-          f"main-path requests (K1, K2, K7: R-50; K3: R-101-DCN), the {TRAIN_STEPS} main-path "
-          f"train steps of each training path (K4: R-50; K5, K6: R-101-DCN) and the fenced "
-          f"request (K8: R-101-DCN); max_abs_err is bfloat16 vs the plain version; total "
-          f"{time.perf_counter() - t_start:.1f} s")
+          f"30 launches per R-101-DCN request; soft-NMS: its one launch per R-101-DCN request; "
+          f"K7: of its 3 launches per R-50 request; K8: one launch on the largest fenced "
+          f"tensor) and per train step (K4: its 3 calls, R-50; K5, K6: their 30 launches each, "
+          f"R-101-DCN); launches are over the {len(REQUEST_SHAPES)} main-path requests (K1, "
+          f"K2, K7: R-50; K3, soft-NMS: R-101-DCN), the {TRAIN_STEPS} main-path train steps of "
+          f"each training path (K4: R-50; K5, K6: R-101-DCN) and the fenced request (K8: "
+          f"R-101-DCN); max_abs_err is bfloat16 vs the plain version (soft-NMS: float32, "
+          f"checked bit for bit); total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

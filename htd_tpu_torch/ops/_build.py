@@ -129,6 +129,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.htd_upsample_add.restype = i32
     lib.htd_layout_fence.argtypes = [vp, vp, ctypes.c_longlong, vp]
     lib.htd_layout_fence.restype = i32
+    f32 = ctypes.c_float
+    lib.htd_soft_nms.argtypes = [vp, vp, i32, f32, f32, i32, vp, vp, vp, vp, vp]
+    lib.htd_soft_nms.restype = i32
 
 
 def _host_compiler() -> List[str]:

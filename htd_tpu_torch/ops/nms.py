@@ -15,9 +15,12 @@ Iterating from `keep = valid` reaches it in as many steps as the longest
 chain of suppressions; convergence is checked every few steps, which is
 the only host synchronisation; each check runs in an `htd.sync.nms` span.
 
-`soft_nms` (linear decay, the R-101 and DCN test configs) runs its
-`max_out` rounds on the device with no host synchronisation: each round
-is a fixed handful of tensor ops, so its cost is host dispatch.
+`soft_nms` (linear decay, the R-101 and DCN test configs) has no host
+synchronisation. On CUDA tensors it is one launch of the soft-NMS kernel
+(`csrc/soft_nms.cu`, through `ops.nms_cuda.launch_soft_nms`), which runs
+all `max_out` rounds in one thread block; on CPU tensors its plain twin,
+`soft_nms_plain`, runs the rounds as tensor ops, and the kernel equals it
+bit for bit on the same CUDA tensors.
 """
 
 from __future__ import annotations
@@ -91,7 +94,21 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     `max_out` rounds emits the highest live score (first index on ties),
     multiplies the scores of live boxes whose IoU with it exceeds
     `iou_threshold` by (1 - IoU), and kills those that fall below
-    `min_score`. Same return contract as `nms`, in emission order."""
+    `min_score`. Same return contract as `nms`, in emission order. One
+    kernel launch on CUDA tensors, `soft_nms_plain` on others."""
+    if boxes.device.type == "cuda":
+        from htd_tpu_torch.ops.nms_cuda import launch_soft_nms
+        return launch_soft_nms(boxes.to(torch.float32).contiguous(),
+                               scores.to(torch.float32).contiguous(), iou_threshold, min_score,
+                               max_out)
+    return soft_nms_plain(boxes, scores, iou_threshold, min_score, max_out)
+
+
+def soft_nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+                   min_score: float, max_out: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the soft-NMS kernel: `soft_nms`'s rounds as
+    about 25 tensor ops each, on any device."""
     boxes = boxes.to(torch.float32)
     live = scores.to(torch.float32)
     live = torch.where(live < min_score, torch.full_like(live, NEG_INF), live)

@@ -23,12 +23,12 @@ import torch
 from htd_tpu_torch.ops.pyramid import Pyramid, PyramidGeometry
 
 # kernel name -> launches since the last reset (the launchers of K3, K5
-# and K6, in `ops/dcn_cuda.py`, and of K7 and K8, in
-# `ops/elementwise_cuda.py`, count here too)
+# and K6, in `ops/dcn_cuda.py`, of K7 and K8, in `ops/elementwise_cuda.py`,
+# and of soft-NMS, in `ops/nms_cuda.py`, count here too)
 launch_counts: Dict[str, int] = {"pyramid_pack": 0, "roi_align": 0, "deform_conv": 0,
                                  "roi_align_bwd": 0, "deform_conv_bwd_input": 0,
                                  "deform_conv_bwd_offset_weight": 0, "upsample_add": 0,
-                                 "layout_fence": 0}
+                                 "layout_fence": 0, "soft_nms": 0}
 # which path each launch of K3, K5 and K6 took: `_tc` the tensor cores
 # (bfloat16, one weight group), `_cc` the CUDA cores (float32, or grouped
 # weights); reset with `launch_counts`

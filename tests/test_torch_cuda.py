@@ -95,7 +95,7 @@ def test_kernels_match_plain(cuda, dtype, case):
                              "deform_conv": 0,
                              "roi_align_bwd": 0, "deform_conv_bwd_input": 0,
                              "deform_conv_bwd_offset_weight": 0, "upsample_add": 0,
-                             "layout_fence": 0}
+                             "layout_fence": 0, "soft_nms": 0}
 
 
 @pytest.mark.cuda
@@ -481,7 +481,7 @@ def test_train_step_launches(cuda, preset):
     assert launch_counts == {"pyramid_pack": 1, "roi_align": 3, "deform_conv": dcn,
                              "roi_align_bwd": 3, "deform_conv_bwd_input": dcn,
                              "deform_conv_bwd_offset_weight": dcn, "upsample_add": 3,
-                             "layout_fence": 0}
+                             "layout_fence": 0, "soft_nms": 0}
     assert all(v.dtype == torch.float32 and torch.isfinite(v).item() for v in metrics.values())
     g = state.model.neck.lateral_convs[3].conv.weight.grad
     assert torch.isfinite(g).all() and g.abs().max() > 0
@@ -645,6 +645,109 @@ def test_fpn_gradients_through_k7(cuda):
     assert neck.lateral_convs[3].conv.weight.grad.abs().max() > 0
     for a, b in zip(got, run(False)):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def _float_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _soft_nms_inputs(dev, n, case):
+    """`multiclass_nms`'s arguments for `n` soft-NMS candidates: 1,000 rois in
+    a 1333x800 image, 80 classes, `candidate_cap` n, and (score_thr,
+    iou_threshold, soft_min_score, max_per_img) by case:
+    "spread": uniform scores, every candidate live;
+    "ties": scores on a 0.01 grid (ties), about half the candidates -inf
+        (not above score_thr), rois in identical pairs, IoU threshold 0.3;
+    "dead": every score between score_thr and soft_min_score;
+    "short": 40 live (roi, class) scores, max_per_img 300, more rounds than
+        live candidates."""
+    rng = np.random.RandomState(n)
+    r, c = 1000, 80
+    xy = rng.uniform(0, [1333, 800], (r, 2))
+    rois = np.concatenate([xy, np.minimum(xy + rng.uniform(8, 300, (r, 2)), [1333, 800])], 1)
+    scores = rng.uniform(0.05, 1.0, (r, c + 1))
+    settings = (0.05, 0.5, 0.05, 100)
+    if case == "ties":
+        rois[1::2] = rois[0::2]
+        live = rng.uniform(0, 1, (r, c + 1)) < n / (2.0 * r * c)
+        scores = np.where(live, np.round(rng.uniform(0.06, 0.3, (r, c + 1)), 2), 0.0)
+        settings = (0.05, 0.3, 0.05, 100)
+    elif case == "dead":
+        scores = rng.uniform(0.02, 0.049, (r, c + 1))
+        settings = (0.01, 0.5, 0.05, 100)
+    elif case == "short":
+        scores = np.full((r, c + 1), 0.03)
+        flat = scores.reshape(-1)
+        flat[rng.choice(r * c, 40, replace=False)] = rng.uniform(0.1, 0.9, 40)
+        settings = (0.01, 0.5, 0.05, 300)
+    return (torch.from_numpy(rois.astype(np.float32)).to(dev),
+            torch.from_numpy(scores.astype(np.float32)).to(dev), settings)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spread", "ties", "dead", "short"])
+@pytest.mark.parametrize("n", [1, 37, 1500, 2048, 5000, 9216, 12000])
+def test_soft_nms_kernel_equals_plain(cuda, monkeypatch, n, case):
+    """`multiclass_nms(use_soft_nms=True)` on CUDA tensors launches the
+    soft-NMS kernel once (hard NMS never), and the kernel's indices, scores
+    and validity on the class-offset candidates that `multiclass_nms` hands
+    over are `soft_nms_plain`'s on the same CUDA tensors, bit for bit, at
+    sizes that are and are not a multiple of the block, with the entries in
+    shared memory (up to 9,216) and in the device-memory workspace."""
+    from htd_tpu_torch.ops import nms
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+
+    boxes, scores, (thr, iou, min_score, max_out) = _soft_nms_inputs(cuda, n, case)
+    seen = []
+
+    def capture(*args):
+        seen.append(args)
+        return soft_nms(*args)
+
+    soft_nms = nms.soft_nms
+    monkeypatch.setattr(nms, "soft_nms", capture)
+    reset_launch_counts()
+    dets = nms.multiclass_nms(boxes, scores, thr, iou, max_out, candidate_cap=n,
+                              use_soft_nms=True, soft_min_score=min_score)
+    torch.cuda.synchronize()
+    assert launch_counts["soft_nms"] == 1 and len(seen) == 1
+    nms.multiclass_nms(boxes, scores, thr, iou, max_out, candidate_cap=n)
+    torch.cuda.synchronize()
+    assert launch_counts["soft_nms"] == 1
+    cand, cand_scores = seen[0][0], seen[0][1]
+    assert cand.shape == (n, 4) and cand.is_cuda
+    got = soft_nms(*seen[0])
+    want = nms.soft_nms_plain(*seen[0])
+    assert launch_counts["soft_nms"] == 2
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape == (max_out,)
+        assert torch.equal(_float_bits(a), _float_bits(b))
+    valid = int(dets[3].sum())
+    if case == "dead":
+        assert valid == 0 and not want[0].any() and torch.isneginf(want[1]).all()
+    elif case == "short":
+        assert 0 < valid <= min(n, 40) < max_out
+    elif case == "spread":
+        assert valid == min(n, max_out) if n >= 1500 else valid > 0
+    elif n >= 1500:
+        assert torch.isneginf(cand_scores).any() and valid > 0
+
+
+@pytest.mark.cuda
+def test_soft_nms_nan_as_plain(cuda):
+    """A dead box identical to the emitted one decays to -inf * 0 = NaN,
+    which `torch.argmax` ranks first: the kernel emits it in the next round
+    as the plain version does (an invalid slot with a NaN score), then goes
+    on; bit for bit, with the kernel's block of 32 threads."""
+    from htd_tpu_torch.ops.nms import soft_nms, soft_nms_plain
+
+    boxes = torch.tensor([[0, 0, 10, 10], [0, 0, 10, 10], [20, 20, 30, 30], [1, 1, 11, 11]],
+                         dtype=torch.float32, device=cuda)
+    scores = torch.tensor([0.9, 0.01, 0.5, 0.7], device=cuda)
+    got, want = soft_nms(boxes, scores, 0.5, 0.05, 6), soft_nms_plain(boxes, scores, 0.5, 0.05, 6)
+    assert torch.isnan(want[1][1]) and not want[2][1]
+    for a, b in zip(got, want):
+        assert torch.equal(_float_bits(a), _float_bits(b))
 
 
 @pytest.mark.cuda

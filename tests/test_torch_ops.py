@@ -136,22 +136,78 @@ def test_soft_nms_matches_with_ties(rng, n):
     np.testing.assert_allclose(ps.numpy(), np.asarray(js), rtol=0, atol=1e-6)
 
 
-def test_multiclass_soft_nms_matches(rng):
+@pytest.mark.parametrize("duplicated", [False, True], ids=["distinct", "duplicated"])
+def test_multiclass_soft_nms_matches(rng, duplicated):
     """multiclass_nms(use_soft_nms=True) with tied scores and the candidate
-    cap: the same labels, validity and boxes, scores within 1e-6."""
-    n, c = 60, 5
-    boxes = _boxes(rng, n, span=100)
-    scores = np.round(rng.uniform(0, 0.5, (n, c + 1)), 2).astype(np.float32)
+    cap, and with every box twice (a threshold float32 cannot hold): the
+    same labels, validity and boxes, scores within 1e-6. On CPU tensors it
+    runs `soft_nms_plain`: no kernel launch is counted."""
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+
+    n, c, iou, max_out = (40, 4, 0.3, 25) if duplicated else (60, 5, 0.5, 30)
+    boxes = _boxes(rng, n, span=90 if duplicated else 100)
+    if duplicated:
+        boxes[1::2] = boxes[0::2]
+    scores = np.round(rng.uniform(0, 0.4 if duplicated else 0.5, (n, c + 1)), 2)
+    scores = scores.astype(np.float32)
+    reset_launch_counts()
     for cap in (2048, 50):
-        p = pnms.multiclass_nms(t(boxes), t(scores), 0.05, 0.5, 30, candidate_cap=cap,
+        p = pnms.multiclass_nms(t(boxes), t(scores), 0.05, iou, max_out, candidate_cap=cap,
                                 use_soft_nms=True, soft_min_score=0.05)
-        j = jax.jit(lambda b, s: jnms.multiclass_nms(b, s, 0.05, 0.5, 30, candidate_cap=cap,
-                                                    use_soft_nms=True,
+        j = jax.jit(lambda b, s: jnms.multiclass_nms(b, s, 0.05, iou, max_out,
+                                                    candidate_cap=cap, use_soft_nms=True,
                                                     soft_min_score=0.05))(
             jnp.asarray(boxes), jnp.asarray(scores))
+        assert p[3].sum() > 0
         for k in (0, 2, 3):
             np.testing.assert_array_equal(p[k].numpy(), np.asarray(j[k]))
         np.testing.assert_allclose(p[1].numpy(), np.asarray(j[1]), rtol=0, atol=1e-6)
+    assert launch_counts["soft_nms"] == 0
+    if duplicated:
+        # a dead duplicate of an emitted box decays to -inf * 0 = NaN, which
+        # the next round emits as an invalid slot: compare the scores' bits
+        plain = pnms.soft_nms_plain(t(boxes), t(scores[:, 0]), iou, 0.05, max_out)
+        assert plain[1].isnan().any()
+        for a, b in zip(pnms.soft_nms(t(boxes), t(scores[:, 0]), iou, 0.05, max_out), plain):
+            assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                               b.view(torch.int32) if b.is_floating_point() else b)
+
+
+_F32 = torch.float32
+
+
+@pytest.mark.parametrize("case, match", [
+    ("cpu", "CUDA tensors"), ("float64", "float32"), ("bfloat16_scores", "float32"),
+    ("boxes_shape", r"boxes \(N, 4\)"), ("scores_shape", r"boxes \(N, 4\)"),
+    ("no_boxes", "1 to 2"), ("max_out", "max_out"), ("strided", "contiguous")])
+def test_soft_nms_launcher_rejects_before_loading(monkeypatch, case, match):
+    """`launch_soft_nms` raises ValueError on what its kernel does not take
+    (CPU tensors, another dtype, another shape, no boxes, max_out < 1,
+    strided tensors) before it loads the kernel library."""
+    from htd_tpu_torch.ops import _build
+    from htd_tpu_torch.ops.nms_cuda import launch_soft_nms
+
+    def load():
+        raise AssertionError("the launcher loaded the library")
+
+    monkeypatch.setattr(_build, "load", load)
+    boxes, scores, max_out = torch.zeros(6, 4, dtype=_F32), torch.zeros(6, dtype=_F32), 5
+    if case == "float64":
+        boxes = boxes.double()
+    elif case == "bfloat16_scores":
+        scores = scores.bfloat16()
+    elif case == "boxes_shape":
+        boxes = torch.zeros(6, 5, dtype=_F32)
+    elif case == "scores_shape":
+        scores = torch.zeros(6, 1, dtype=_F32)
+    elif case == "no_boxes":
+        boxes, scores = boxes[:0], scores[:0]
+    elif case == "max_out":
+        max_out = 0
+    elif case == "strided":
+        boxes = torch.zeros(4, 6, dtype=_F32).t()
+    with pytest.raises(ValueError, match=match):
+        launch_soft_nms(boxes, scores, 0.5, 0.05, max_out)
 
 
 def test_roi_extractor_impl_names(rng):
