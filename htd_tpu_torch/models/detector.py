@@ -11,7 +11,8 @@ padded `Detections`. Internally the convolutions run NCHW in
 The packed pyramid (kernel K1) is built once per forward and shared by
 stage 0, stage 1 and the BA extractor (kernel K2 reads it three times;
 in training, K4 adds each of the three reads' gradients into it).
-In the DCN presets the backbone's deformable convs run kernel K3.
+In the DCN presets the backbone's deformable convs run kernel K3, each
+inside an `htd.dcn` span nested in `htd.backbone_fpn`.
 Each layer of the forward runs inside a `record_function` span named
 `htd.<layer>`, which a `torch.profiler` trace reports with its host and
 device time; each call inside it that blocks the host until the device

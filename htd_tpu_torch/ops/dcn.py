@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from htd_tpu_torch.ops.fence import fenced
 
@@ -328,11 +329,14 @@ class DeformConv2d(nn.Module):
         return (w if dtype is None else w.to(dtype)).permute(2, 3, 1, 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # the offsets and the weight in x's dtype, as the JAX package casts
-        # its weight (under autocast the offset conv gives bfloat16 and the
-        # parameter is float32; the kernels take one dtype)
-        off = self.conv_offset(x).to(x.dtype)
-        out = deform_conv2d(x.permute(0, 2, 3, 1), off.permute(0, 2, 3, 1),
-                            self.hwio_weight(x.dtype), self.stride, 1, self.deform_groups,
-                            self.groups)
-        return out.permute(0, 3, 1, 2)
+        # one `htd.dcn` span holds the offset conv, the casts and K3, so that
+        # a trace gives the deformable conv's host and device time apart
+        with record_function("htd.dcn"):
+            # the offsets and the weight in x's dtype, as the JAX package
+            # casts its weight (under autocast the offset conv gives bfloat16
+            # and the parameter is float32; the kernels take one dtype)
+            off = self.conv_offset(x).to(x.dtype)
+            out = deform_conv2d(x.permute(0, 2, 3, 1), off.permute(0, 2, 3, 1),
+                                self.hwio_weight(x.dtype), self.stride, 1, self.deform_groups,
+                                self.groups)
+            return out.permute(0, 3, 1, 2)

@@ -383,6 +383,120 @@ def test_tensor_core_paths_at_r101_shapes(cuda, conv, n):
     assert err <= lim, f"K5 d_col: {err:.3g} (limit {lim:.3g})"
 
 
+@pytest.fixture(scope="module")
+def x101_request():
+    """X-101-64x4d-DCN in bfloat16 as the benchmark's `x101dcn.infer` cell
+    builds it (`bench_h100/configs/htd_x101_dcn_2x.json`: seeded weights,
+    offset convs seeded for about 2 px of offset), and two 480x640 images
+    in both orientations, each warmed up once (the kernels built, the
+    anchors cached). Needs the card."""
+    import json
+
+    from bench_h100.harness import BENCH, port_config
+    from bench_h100.program import build_detector
+    from bench_h100.weights import make_state_dict
+    from htd_tpu_torch.apis import inference_detector
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    doc = json.loads((BENCH / "configs" / "htd_x101_dcn_2x.json").read_text())
+    dev = torch.device("cuda")
+    model = build_detector(port_config(doc), make_state_dict(doc["config"], doc["assumed"],
+                                                             2**31 + 5, dev), dev)
+    rng = np.random.default_rng(7)
+    imgs = [rng.integers(0, 256, hw + (3,), dtype=np.uint8) for hw in ((480, 640), (640, 480))]
+    for img in imgs:
+        inference_detector(model, img)
+    torch.cuda.synchronize()
+    yield model, imgs
+    del model
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_x101_request_runs_k3_on_the_cuda_cores(cuda, x101_request):
+    """One X-101 request at its test scale (1600x800: the 800x1600 and
+    1600x800 buckets) launches K3 30 times, every launch on the grouped
+    CUDA-core path, and soft-NMS once; it returns detections."""
+    from htd_tpu_torch.apis import inference_detector
+    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
+
+    model, imgs = x101_request
+    for img in imgs:
+        reset_launch_counts()
+        boxes, _, _ = inference_detector(model, img)
+        torch.cuda.synchronize()
+        assert (launch_counts["deform_conv"], launch_counts["soft_nms"]) == (30, 1)
+        assert (path_counts["deform_conv_cc"], path_counts["deform_conv_tc"]) == (30, 0)
+        assert len(boxes) > 0
+
+
+@pytest.mark.cuda
+def test_x101_k3_launches_lie_in_dcn_spans(cuda, x101_request):
+    """Under the profiler each of a request's 30 K3 kernels was launched
+    inside an `htd.dcn` span, one launch to a span, and every `htd.dcn`
+    span lies inside `htd.backbone_fpn`. A trace that lost a K3 kernel's
+    record is taken again (3 traces at most)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench_h100.trace import from_profiler
+    from htd_tpu_torch.apis import inference_detector
+
+    model, imgs = x101_request
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            inference_detector(model, imgs[0])
+            torch.cuda.synchronize()
+        tr = from_profiler(prof)
+        k3 = [launch for name, _, _, launch in tr.device
+              if "deform_conv_fwd" in name and launch is not None]
+        if len(k3) == 30:
+            break
+    assert len(k3) == 30, f"{len(k3)} K3 kernels with their launch in 3 traces"
+    dcn = [(a, b) for n, a, b in tr.spans if n == "htd.dcn"]
+    backbone = [(a, b) for n, a, b in tr.spans if n == "htd.backbone_fpn"]
+    assert len(dcn) == 30 and len(backbone) == 1
+    assert all(backbone[0][0] <= a and b <= backbone[0][1] for a, b in dcn)
+    assert all(sum(a <= t < b for a, b in dcn) == 1 for t in k3)
+    assert all(sum(a <= t < b for t in k3) == 1 for a, b in dcn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv", ["layer2.0", "layer3.1", "layer4.1"])
+def test_x101_grouped_k3_matches_plain_at_request_inputs(cuda, x101_request, monkeypatch, conv):
+    """K3's grouped bfloat16 path (8, 16 and 32 channels a group) against
+    its plain twin on one conv of each stage, at the input and offsets a
+    request at 800x1600 gives it (layer2.0 with stride 2): within 1e-4 of
+    max |plain| plus one bfloat16 ulp (the same bfloat16 samples and
+    weights, float32 sums in another order, one rounding)."""
+    from htd_tpu_torch.apis import inference_detector
+    from htd_tpu_torch.ops import dcn
+    from htd_tpu_torch.ops.roi_align_cuda import path_counts, reset_launch_counts
+
+    model, imgs = x101_request
+    m = model.backbone.get_submodule(conv + ".conv2")
+    seen = []
+    real = dcn.deform_conv2d
+
+    def capture(x, off, w, *args):
+        out = real(x, off, w, *args)
+        if w.data_ptr() == m.weight.data_ptr():
+            seen.append((x, off, w, args, out))
+        return out
+
+    monkeypatch.setattr(dcn, "deform_conv2d", capture)
+    reset_launch_counts()
+    inference_detector(model, imgs[0])
+    torch.cuda.synchronize()
+    assert len(seen) == 1 and path_counts["deform_conv_cc"] == 30
+    x, off, w, args, k = seen[0]
+    assert x.dtype == torch.bfloat16 and args[0] == m.stride and args[3] == 64
+    assert float(off.float().abs().mean()) > 0.1           # offsets that move the samples
+    p = dcn.deform_conv2d_plain(x, off, w, *args)
+    err, lim = _ulp_limit(k, p, 1e-4)
+    assert err <= lim, f"K3 {conv}: {err:.3g} (limit {lim:.3g})"
+
+
 @pytest.mark.cuda
 def test_deform_conv_bwd_rejects_what_it_does_not_take(cuda):
     """K5 and K6 raise, rather than fall back or copy, on a cotangent that

@@ -5,8 +5,8 @@ spans and four `htd.sync.to_host` copies; every call that blocks the host
 until the device catches up runs in an `htd.sync.<site>` span of its own.
 On the CPU the tests read the span tree of one request under
 `torch.profiler`; on the card (marked `cuda`, skipped elsewhere) they hold
-every runtime synchronisation of R-50 and R-101-DCN requests to those
-spans:
+every runtime synchronisation of R-50, R-101-DCN and X-101-64x4d-DCN
+requests to those spans:
 
     python -m pytest --noconftest -s tests/test_torch_tracing.py -k card
 
@@ -141,6 +141,77 @@ def test_tta_carries_the_same_spans(equal_calls):
     assert Counter(top)["htd.backbone_fpn"] == 8 and Counter(top)["htd.post"] == 1
 
 
+@pytest.mark.parametrize("groups", [1, 64], ids=["r101dcn", "x101dcn"])
+def test_each_deformable_conv_is_one_dcn_span(monkeypatch, groups):
+    """Each `DeformConv2d` call of a request (R-101-DCN's one weight group
+    and X-101-64x4d-DCN's 64, at depth 10) runs its offset conv and its K3
+    call inside one `htd.dcn` span of its own, nested in
+    `htd.backbone_fpn`; the top-level spans are those of every request."""
+    from htd_tpu_torch.ops import dcn
+
+    cfg = tiny().replace(backbone=C.BackboneConfig(
+        depth=10, groups=groups, base_width=4, stage_with_dcn=(False, True, True, True)),
+        rcnn_test=C.RCNNTestConfig(max_per_img=10, use_soft_nms=True))
+    model = init_detector(cfg, device="cpu", seed=0)
+    convs = [m for m in model.modules() if isinstance(m, dcn.DeformConv2d)]
+    assert len(convs) == 3 and all(m.groups == groups for m in convs)
+    real_k3 = dcn.deform_conv2d
+
+    def k3(*args, **kw):
+        with record_function("test.k3"):
+            return real_k3(*args, **kw)
+
+    monkeypatch.setattr(dcn, "deform_conv2d", k3)
+    for m in convs:
+        def offset(x, real=m.conv_offset.forward):
+            with record_function("test.offset"):
+                return real(x)
+
+        monkeypatch.setattr(m.conv_offset, "forward", offset)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        inference_detector(model, image(6), scale=(96, 64))
+    events = host_events(prof)
+    spans = [e for e in events if e[0].startswith("htd.")]
+    assert [s[0] for s in top_level(spans)] == \
+        ["htd.preprocess", *LAYERS] + ["htd.sync.to_host"] * 4
+    dcn_spans = named(spans, "htd.dcn")
+    backbone = named(spans, "htd.backbone_fpn")
+    assert len(dcn_spans) == len(convs) and len(backbone) == 1
+    assert all(inside(s, backbone[0]) for s in dcn_spans)
+    for name in ("test.k3", "test.offset"):
+        calls = [e for e in events if e[0] == name]
+        assert len(calls) == len(convs), name
+        assert all(sum(inside(c, s) for s in dcn_spans) == 1 for c in calls), name
+        assert all(sum(inside(c, s) for c in calls) == 1 for s in dcn_spans), name
+
+
+def test_training_forward_carries_the_dcn_spans():
+    """A train step of the tiny R-101-DCN model on the CPU: its forward runs
+    each of the 3 deformable convs in an `htd.dcn` span inside the step's
+    one `htd.backbone_fpn`."""
+    from htd_tpu_torch.train.train_step import TrainBatch, create_train_state, train_step
+
+    cfg = tiny().replace(backbone=C.BackboneConfig(
+        depth=10, stage_with_dcn=(False, True, True, True)))
+    state = create_train_state(cfg, device="cpu", seed=0)
+    rng = np.random.RandomState(0)
+    boxes = np.zeros((1, 8, 4), np.float32)
+    boxes[0, :2] = [[4, 6, 40, 50], [30, 10, 90, 60]]
+    valid = np.zeros((1, 8), bool)
+    valid[0, :2] = True
+    batch = TrainBatch(torch.from_numpy(rng.normal(0, 1, (1, 64, 96, 3)).astype(np.float32)),
+                       torch.tensor([[64.0, 96.0]]), torch.from_numpy(boxes),
+                       torch.from_numpy(rng.randint(0, 80, (1, 8)).astype(np.int32)),
+                       torch.from_numpy(valid))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        train_step(state, batch, torch.Generator().manual_seed(0))
+    spans = spans_of(prof)
+    backbone = named(spans, "htd.backbone_fpn")
+    dcn_spans = named(spans, "htd.dcn")
+    assert len(backbone) == 1 and len(dcn_spans) == 3
+    assert all(inside(s, backbone[0]) for s in dcn_spans)
+
+
 # -- on the card -------------------------------------------------------------------
 
 
@@ -158,7 +229,7 @@ def is_sync(name: str) -> bool:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("preset", ["htd_r50_1x", "htd_r101_dcn_2x"])
+@pytest.mark.parametrize("preset", ["htd_r50_1x", "htd_r101_dcn_2x", "htd_x101_dcn_2x"])
 def test_every_sync_on_the_card_is_in_a_sync_span(cuda, preset):
     model = init_detector(getattr(C, preset)(compute_dtype="bfloat16"), seed=0)
     imgs = [image(4, 480, 640), image(5, 640, 480)]
