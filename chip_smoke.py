@@ -8,8 +8,10 @@ script exits non-zero without its final line:
   2. build: the CUDA kernels compiled from htd_tpu_torch/csrc with nvcc;
   3. main path: HTD R-50 (full depth and width, bfloat16, random weights
      from a seed) through `init_detector` / `inference_detector` on
-     synthetic images in the 800x1344 landscape bucket, with each kernel's
-     launch count for the run and per request;
+     synthetic images in the 800x1344 landscape bucket: a first request
+     at the bucket captures the backbone and FPN as a CUDA graph, then
+     each request replays it under the profiler, with each hand-written
+     kernel's count in its trace;
   4. reference: the same detector in float32 on the card (kernels, cuDNN
      with TF32 off) against the CPU (plain versions) on a small input, and
      one full-size float32 request;
@@ -20,9 +22,10 @@ script exits non-zero without its final line:
      device time; K2 per call and per image, and probed with every sample
      outside the image);
   7. main path: HTD R-101-DCN (full depth and width, bfloat16, seeded
-     non-zero offset convs) on the same requests, with K3's launches per
-     request (30, every one on the tensor-core path), the soft-NMS
-     kernel's (1) and the offsets' statistics;
+     non-zero offset convs) on the same requests, replayed as phase 3's,
+     with K3's kernels per request (30, every one on the tensor-core
+     path), the soft-NMS kernel's (1), and the offsets' statistics on
+     requests of their own (their hooks keep them eager);
   8. K3 held to its plain version on the main path's own activations (one
      stride-2 and one stride-1 deformable conv of each DCN stage), in
      bfloat16 and float32, and with two deform groups (the offsets and
@@ -85,13 +88,15 @@ script exits non-zero without its final line:
      beside its bound, its plain version and `lat + F.interpolate`;
  21. main path: one R-101-DCN bfloat16 request with HTD_FPN_FENCE,
      HTD_RPN_FENCE and HTD_DCN_FENCE set: detections bit-identical to the
-     unfenced request, K8 launched 3 + 5 + 30 times; K8's time on the
+     unfenced request, K8 run 3 + 5 + 30 times in a replayed request's
+     trace (the FPN's and the deformable convs' in its graph); K8's time on the
      largest fenced tensor and on the largest deformable-conv input beside
      its bound, its plain version and `clone()` (K8 and `clone()` timed in
      turns in one loop, L2 flushed before each call, medians of their
      device times);
  22. main path: `aug_inference_detector` on R-101-DCN bfloat16, two scales
-     with flip (4 augs, K7 6 times and K3 60 times per aug); one aug at the
+     with flip (4 augs, K7 6 times and K3 60 times per aug in a replayed
+     call's trace); one aug at the
      test scale against `inference_detector` in float32; warm latency;
  23. main path: `evaluate_dataset` and `evaluate_proposals` of R-50
      bfloat16 at batch 8 on a synthetic mini-COCO of 16 seeded images; the
@@ -179,8 +184,12 @@ script exits non-zero without its final line:
      mini-COCO, every written file against the manifest (JPEG by bytes, PNG
      by pixels) made by tools/browse_dataset.py on the same annotations;
      its wall time per image. The phase takes at most 60 s.
-Every forward launches K7 3 times (one per FPN top-down add), whatever its
-batch. It needs CUDA: with no GPU, or run outside the repository, it fails.
+Every forward runs K7 3 times (one per FPN top-down add), whatever its
+batch. On an inference call on the card the backbone and FPN replay a CUDA
+graph (`htd_tpu_torch/models/graphs.py`): the launch counters count the
+launchers' calls, so K3's and K7's count a capture's warm-up and capture
+once each and a replay never, and a replayed request's K3 and K7 are
+counted by name in a profiler trace. It needs CUDA: with no GPU, or run outside the repository, it fails.
 """
 
 from __future__ import annotations
@@ -615,6 +624,18 @@ class OffsetStats:
         return st
 
 
+def offset_stats(model, imgs) -> dict:
+    """`OffsetStats` over one request on each image. Its hooks keep these
+    requests eager (a graph's replay would call none), so they run apart
+    from the main path's requests, which replay."""
+    from htd_tpu_torch import inference_detector
+
+    stats = OffsetStats(model)
+    for img in imgs:
+        inference_detector(model, img)
+    return stats.report(len(dcn_convs(model)) * len(imgs))
+
+
 def capture_dcn(model, img):
     """(name, module, x, offsets) of every deformable conv on one request:
     the NHWC views the module hands K3."""
@@ -705,39 +726,103 @@ def check_k3_deform_groups(captured, names):
           f"ulp); tiled offsets bit-equal to one group; paths {dict(path_counts)}")
 
 
-def run_requests(model, imgs, cfg, per_request_k3: int, k3_path: str = "tc"):
-    """The main path: `inference_detector` on each image with the launch
-    counts set to 0 just before and read just after; every request must
-    launch K1 and K2, K7 3 times, the soft-NMS kernel once where the
-    test config asks for soft-NMS (else never) and, with deformable convs,
-    K3 `per_request_k3` times, each on `k3_path` ("tc": the tensor cores,
-    "cc": the CUDA cores)."""
-    from htd_tpu_torch import inference_detector
+# the launch counters' keys of the hand-written kernels that an inference
+# request runs, each with a name its trace records contain, and not the
+# others' (K3's CUDA-core path is `deform_conv_fwd_kernel`)
+REQUEST_KERNELS = {"pyramid_pack": "pyramid_pack_kernel", "roi_align": "roi_align_fwd_kernel",
+                   "deform_conv_tc": "deform_conv_fwd_tc_kernel",
+                   "deform_conv_cc": "deform_conv_fwd_kernel",
+                   "upsample_add": "upsample_add_kernel", "layout_fence": "layout_fence_kernel",
+                   "soft_nms": "soft_nms_kernel"}
+
+
+def graph_launches(per_pass: int, graph: dict) -> int:
+    """A backbone-and-FPN launcher's calls over passes whose graph counts
+    are `graph`: `per_pass` in each eager pass and in each capture's
+    warm-up and capture; none in a replay, which calls no launcher."""
+    return per_pass * (graph["eager"] + 2 * graph["capture"])
+
+
+def traced_request(fn, graph_kernels: dict, passes: int = 1):
+    """fn() (a request at keys whose graphs are captured) under the
+    profiler, the launch and graph counts reset just before. It must
+    replay a graph for each of its `passes` backbone passes and run none
+    eagerly or capture; the launchers of the backbone and FPN (K3, K7) must
+    not be called. Its trace must hold the kernels of `graph_kernels`
+    ({REQUEST_KERNELS key: n}) n times beyond the launches the launcher
+    counts give, and every other kernel of REQUEST_KERNELS as often as its
+    launcher was called. The profiler loses some kernels' records, so a
+    trace that holds other counts is taken again (a new request), and
+    after DEVICE_TIME_TRACES such traces the call fails. Returns fn()'s
+    result and the kernels of the last trace ({key: n}, K3's paths summed
+    under "deform_conv" besides)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from htd_tpu_torch.models import graphs
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
 
-    torch.cuda.synchronize()
-    reset_launch_counts()
+    for _ in range(DEVICE_TIME_TRACES):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        graphs.reset_graph_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        if graphs.graph_counts != {"capture": 0, "replay": passes, "eager": 0}:
+            fail(f"the request did not replay its {passes} backbone passes: "
+                 f"{graphs.graph_counts}")
+        if launch_counts["deform_conv"] or launch_counts["upsample_add"]:
+            fail(f"a replayed request called the backbone's launchers: {dict(launch_counts)}")
+        launched = {**launch_counts, **path_counts}
+        want = {k: launched.get(k, 0) + graph_kernels.get(k, 0) for k in REQUEST_KERNELS}
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        got = {k: sum(e.count for e in events if name in e.key)
+               for k, name in REQUEST_KERNELS.items()}
+        if got == want:
+            break
+        print(f"  traced_request: the trace holds kernels {got}, not {want}; traced again")
+    else:
+        fail(f"traced_request: {DEVICE_TIME_TRACES} traces gave kernels {got}, not {want}")
+    return out, {**got, "deform_conv": got["deform_conv_tc"] + got["deform_conv_cc"]}
+
+
+def run_requests(model, imgs, cfg, per_request_k3: int, k3_path: str = "tc"):
+    """The main path: `inference_detector` on each image once to capture
+    its bucket's graph of the backbone and FPN, then once more under
+    `traced_request`, which must replay it: each replayed request must run
+    K1 and K2, K7 3 times, the soft-NMS kernel once where the test config
+    asks for soft-NMS (else never) and, with deformable convs, K3
+    `per_request_k3` times, each on `k3_path` ("tc": the tensor cores,
+    "cc": the CUDA cores), by the kernels its trace holds. Returns those
+    kernels summed over the replayed requests."""
+    from htd_tpu_torch import inference_detector
+    from htd_tpu_torch.models import graphs
+
+    graphs.reset_graph_counts()
     for img in imgs:
-        before, paths = dict(launch_counts), dict(path_counts)
-        boxes, scores, labels = inference_detector(model, img)
-        counts = {k: launch_counts[k] - before[k] for k in launch_counts}
-        on_path = path_counts[f"deform_conv_{k3_path}"] - paths[f"deform_conv_{k3_path}"]
+        inference_detector(model, img)
+    torch.cuda.synchronize()
+    print(f"first requests: graphs {dict(graphs.graph_counts)}")
+    if graphs.graph_counts["eager"] or graphs.graph_counts["replay"] != len(imgs):
+        fail(f"the first requests did not replay their graphs: {graphs.graph_counts}")
+    total = {}
+    for img in imgs:
+        (boxes, scores, labels), counts = traced_request(
+            lambda: inference_detector(model, img),
+            {"upsample_add": 3, f"deform_conv_{k3_path}": per_request_k3})
         check_detections(boxes, scores, labels, img, cfg)
         if counts["pyramid_pack"] <= 0 or counts["roi_align"] <= 0 \
-                or counts["deform_conv"] != per_request_k3 or counts["upsample_add"] != 3 \
+                or counts["deform_conv"] != per_request_k3 \
                 or counts["soft_nms"] != int(cfg.rcnn_test.use_soft_nms):
-            fail(f"unexpected launches on request {img.shape}: {counts}")
-        if on_path != per_request_k3:
-            fail(f"{on_path} of {per_request_k3} K3 launches on request {img.shape} took the "
-                 f"{k3_path} path: {dict(path_counts)}")
-        print(f"request {img.shape[1]}x{img.shape[0]}: {len(scores)} detections, "
+            fail(f"unexpected kernels on request {img.shape}: {counts}")
+        print(f"request {img.shape[1]}x{img.shape[0]} (replayed): {len(scores)} detections, "
               f"top scores {np.round(scores[:3], 4).tolist()}, labels "
               f"{labels[:3].tolist()}, first box {np.round(boxes[0], 1).tolist()}, "
-              f"launches {counts}")
-    torch.cuda.synchronize()
-    counts = dict(launch_counts)
-    print(f"main path launches over {len(imgs)} requests: {counts}; K3 paths {dict(path_counts)}")
-    return counts
+              f"kernels {counts}")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    print(f"main path kernels over {len(imgs)} replayed requests, by their traces: {total}")
+    return total
 
 
 def k3_work(x, off, w, groups, stride):
@@ -769,11 +854,10 @@ def dcn_phases(imgs, card):
           f"{SCORE_SCALE}; {n_dcn} deformable convs; conv_offset weights seeded normal with "
           f"std {min(stds):.2e}-{max(stds):.2e} (zero bias), for offsets of about "
           f"{OFFSET_PX} px std; soft-NMS {cfg.rcnn_test.use_soft_nms}")
-    stats = OffsetStats(model)
-    counts = run_requests(model, imgs, cfg, per_request_k3=30)
-    st = stats.report(n_dcn * len(imgs))
+    st = offset_stats(model, imgs)
     if st["far"] < 0.05 or st["outside"] <= 0.0:
         fail("the seeded offsets do not move samples off their taps and out of the image")
+    counts = run_requests(model, imgs, cfg, per_request_k3=30)
 
     phase("8 K3 and the soft-NMS kernel vs their plain versions on the main path's own inputs")
     captured = capture_dcn(model, imgs[0])
@@ -808,9 +892,8 @@ def dcn_phases(imgs, card):
     set_offsets(xm, offset_stds(xm, imgs[0]), seed=0)
     print(f"init_detector(htd_x101_dcn_2x(compute_dtype='bfloat16'), seed=0), test scale "
           f"{xcfg.test_scale}, groups {xcfg.backbone.groups}")
-    xstats = OffsetStats(xm)
+    offset_stats(xm, imgs[:1])
     run_requests(xm, imgs[:1], xcfg, per_request_k3=30, k3_path="cc")
-    xstats.report(len(dcn_convs(xm)))
     xcap = capture_dcn(xm, imgs[0])
     check_k3(xcap, ("layer2.0", "layer3.1", "layer4.1"))
     del xm, xcap
@@ -1911,9 +1994,15 @@ def capture_laterals(model, img):
     from htd_tpu_torch.ops import elementwise_cuda
 
     pairs = []
-    with recording(elementwise_cuda, "launch_upsample_add",
-                   lambda low, lat: pairs.append((low.clone(), lat.clone()))):
-        inference_detector(model, img)
+    # a hooked neck keeps the backbone and FPN eager: a graph's replay
+    # would call no launcher
+    hook = model.neck.register_forward_pre_hook(lambda mod, args: None)
+    try:
+        with recording(elementwise_cuda, "launch_upsample_add",
+                       lambda low, lat: pairs.append((low.clone(), lat.clone()))):
+            inference_detector(model, img)
+    finally:
+        hook.remove()
     if len(pairs) != 3:
         fail(f"expected 3 K7 calls per request, got {len(pairs)}")
     return pairs
@@ -1988,12 +2077,13 @@ def k7_phase(pairs, card):
 
 
 def fence_phase(model, img, cfg, card):
-    """Phase 21; returns K8's launches on the fenced request and its
-    timings."""
+    """Phase 21; returns K8's kernels in the replayed fenced request's
+    trace and its timings."""
     import os
 
     from htd_tpu_torch import inference_detector
     from htd_tpu_torch.ops import elementwise_cuda
+    from htd_tpu_torch.models import graphs
     from htd_tpu_torch.ops.fence import layout_fence, layout_fence_plain
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
@@ -2002,28 +2092,42 @@ def fence_phase(model, img, cfg, card):
     base = inference_detector(model, img)
     fenced = []
     saved = {k: os.environ.get(k) for k in switches}
+    n_dcn = len(dcn_convs(model))
+    n_rpn = len(cfg.rpn.anchor.strides)
+    want = 3 + n_rpn + n_dcn
     try:
+        # the switches make another key: the first fenced request captures
+        # its graph (each launcher of the backbone and FPN called in the
+        # warm-up, whose fenced inputs come first, and in the capture),
+        # the second replays it under the profiler
         os.environ.update({k: "1" for k in switches})
         torch.cuda.synchronize()
         reset_launch_counts()
+        graphs.reset_graph_counts()
         with recording(elementwise_cuda, "launch_layout_fence", fenced.append):
-            dets = inference_detector(model, img)
+            inference_detector(model, img)
         torch.cuda.synchronize()
-        counts = dict(launch_counts)
+        captured = dict(launch_counts)
+        if graphs.graph_counts != {"capture": 1, "replay": 1, "eager": 0} \
+                or captured["layout_fence"] != n_rpn + graph_launches(3 + n_dcn, graphs.graph_counts):
+            fail(f"unexpected launches on the first fenced request: {captured}, graphs "
+                 f"{graphs.graph_counts}")
+        dets, counts = traced_request(lambda: inference_detector(model, img),
+                                      {"upsample_add": 3, "deform_conv_tc": n_dcn,
+                                       "layout_fence": 3 + n_dcn})
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    n_dcn = len(dcn_convs(model))
-    want = 3 + len(cfg.rpn.anchor.strides) + n_dcn
-    print(f"{', '.join(switches)} = 1 for one request {img.shape[1]}x{img.shape[0]}, then "
-          f"restored: launches {counts}; K8 {counts['layout_fence']} (expected 3 FPN sums + "
-          f"{len(cfg.rpn.anchor.strides)} RPN levels + {n_dcn} deformable-conv inputs = {want})")
+    print(f"{', '.join(switches)} = 1 for two requests {img.shape[1]}x{img.shape[0]}, then "
+          f"restored: the first captured its graph (launches {captured}); the replayed one's "
+          f"kernels by its trace {counts}; K8 {counts['layout_fence']} (expected 3 FPN sums + "
+          f"{n_rpn} RPN levels + {n_dcn} deformable-conv inputs = {want})")
     if counts["layout_fence"] != want or counts["upsample_add"] != 3 \
             or counts["deform_conv"] != n_dcn:
-        fail(f"unexpected launches on the fenced request: {counts}")
+        fail(f"unexpected kernels on the fenced request: {counts}")
     same = all(np.array_equal(a, b) for a, b in zip(base, dets))
     print(f"detections of the fenced request bit-identical to the unfenced one: {same} "
           f"({len(dets[1])} detections)")
@@ -2074,26 +2178,29 @@ def tta_phase(model, stds, imgs, card):
     """Phase 22."""
     from htd_tpu_torch import (aug_inference_detector, htd_r101_dcn_2x, inference_detector,
                                init_detector)
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+    from htd_tpu_torch.models import graphs
 
     phase("22 main path: aug_inference_detector, R-101-DCN bfloat16, 2 scales x flip")
     cfg = model.cfg
     img = imgs[0]
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    boxes, scores, labels = aug_inference_detector(model, img, scales=TTA_SCALES, flip=True)
-    torch.cuda.synchronize()
-    counts = dict(launch_counts)
     n_augs = 2 * len(TTA_SCALES)
+    n_dcn = len(dcn_convs(model))
+    # the first call captures a graph per key; the second replays them all
+    graphs.reset_graph_counts()
+    aug_inference_detector(model, img, scales=TTA_SCALES, flip=True)
+    first = dict(graphs.graph_counts)
+    (boxes, scores, labels), counts = traced_request(
+        lambda: aug_inference_detector(model, img, scales=TTA_SCALES, flip=True),
+        {"upsample_add": 6 * n_augs, "deform_conv_tc": 2 * n_dcn * n_augs}, passes=2 * n_augs)
     check_detections(boxes, scores, labels, img, cfg)
-    want = {"upsample_add": 6 * n_augs, "deform_conv": 2 * len(dcn_convs(model)) * n_augs,
+    want = {"upsample_add": 6 * n_augs, "deform_conv": 2 * n_dcn * n_augs,
             "pyramid_pack": n_augs, "roi_align": 3 * n_augs}
     print(f"scales {TTA_SCALES} x [no flip, flip] = {n_augs} augs on {img.shape[1]}x"
           f"{img.shape[0]}: {len(scores)} detections (max_per_img {cfg.rcnn_test.max_per_img}), "
           f"top scores {np.round(scores[:3], 4).tolist()}, labels {labels[:3].tolist()}; "
-          f"launches {counts}")
-    if any(counts[k] != v for k, v in want.items()):
-        fail(f"expected launches {want} (K7 6 per aug: the proposal and cascade passes)")
+          f"graphs of the first call {first}; the replayed call's kernels by its trace {counts}")
+    if first["eager"] or first["capture"] < 1 or any(counts[k] != v for k, v in want.items()):
+        fail(f"expected kernels {want} (K7 6 per aug: the proposal and cascade passes)")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2170,6 +2277,7 @@ def eval_phase(card):
 
     from htd_tpu_torch import evaluate_dataset, evaluate_proposals, htd_r50_1x, init_detector
     from htd_tpu_torch.data.coco_eval import evaluate_coco_map
+    from htd_tpu_torch.models import graphs
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
     phase("23 main path: evaluate_dataset and evaluate_proposals, R-50 bfloat16, batch 8")
@@ -2193,16 +2301,22 @@ def eval_phase(card):
     for run in ("first", "warm"):
         torch.cuda.synchronize()
         reset_launch_counts()
+        graphs.reset_graph_counts()
         t0 = time.perf_counter()
         metrics = evaluate_dataset(model, ds, batch_size=8, log_every=0)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = dict(launch_counts)
         print(f"evaluate_dataset ({run}): {len(ds) / dt:.2f} images/s ({dt:.2f} s, {n_batches} "
-              f"batches of 8); launches {counts}; " + ", ".join(
-                  f"{k} {v:.4f}" for k, v in metrics.items()) + f" ({card})")
-        if counts["upsample_add"] != 3 * n_batches or counts["pyramid_pack"] != n_batches:
-            fail(f"expected K7 3 and K1 1 launches per batch, got {counts}")
+              f"batches of 8); launches {counts}; graphs {dict(graphs.graph_counts)}; " +
+              ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()) + f" ({card})")
+        # each batch replays its key's graph, captured in the first run
+        if graphs.graph_counts["replay"] != n_batches or graphs.graph_counts["eager"] \
+                or (graphs.graph_counts["capture"] > 0) != (run == "first") \
+                or counts["upsample_add"] != graph_launches(3, graphs.graph_counts) \
+                or counts["pyramid_pack"] != n_batches:
+            fail(f"expected a replayed graph and K1 1 launch per batch, K7 3 launches per "
+                 f"capture's warm-up and capture, got {counts}, graphs {graphs.graph_counts}")
         finite_metrics(f"evaluate_dataset ({run})", metrics)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2245,18 +2359,38 @@ def png_coco(root: str):
     return paths[0], paths[1], pixels
 
 
+def graph_count_keys(graph: dict) -> dict:
+    """`graphs.graph_counts` under the keys `tool_run` gives them."""
+    return {f"graph_{k}": v for k, v in graph.items()}
+
+
+def replayed(passes: int, counts: dict, per_pass: dict) -> dict:
+    """What `expect_launches` wants of a run of `passes` backbone passes
+    that each replay a graph (some captured in the run, as `counts`'
+    graph_capture says): the replays, no eager pass, and of each launcher
+    of the backbone and FPN ({launch counter key: calls per pass}) the
+    calls of the captures' warm-ups and captures."""
+    graph = {"capture": counts.get("graph_capture", 0), "eager": 0}
+    return {"graph_replay": passes, "graph_eager": 0,
+            **{k: graph_launches(n, graph) for k, n in per_pass.items()}}
+
+
 def tool_run(label: str, fn, card: str):
-    """Run one tool in process with the launch counts set to 0 just
-    before; returns (its result, the counts). Prints the wall time."""
+    """Run one tool in process with the launch and graph counts set to 0
+    just before; returns (its result, the counts, graph counts as
+    `graph_count_keys` names them). Prints the wall time."""
+    from htd_tpu_torch.models import graphs
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
 
     torch.cuda.synchronize()
     reset_launch_counts()
+    graphs.reset_graph_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {k: v for k, v in {**launch_counts, **path_counts}.items() if v}
+    counts = {k: v for k, v in {**launch_counts, **path_counts,
+                                **graph_count_keys(graphs.graph_counts)}.items() if v}
     print(f"[{label}] {dt:.2f} s; launches {counts} ({card})")
     return out, counts
 
@@ -2352,7 +2486,7 @@ def tools_phase(card):
             test_args + ["--dump", f"{root}/dets.json", "--coco-dump", f"{root}/coco.json"]), card)
         finite_metrics("test.py", metrics)
         expect_launches("test.py", counts, {"pyramid_pack": n_batches, "roi_align": 3 * n_batches,
-                                            "upsample_add": 3 * n_batches})
+                                            **replayed(n_batches, counts, {"upsample_add": 3})})
         offline, _ = tool_run("eval_metric.py", lambda: eval_metric.main(
             [f"{root}/dets.json", "--ann", val_ann]), card)
         with open(f"{root}/coco.json") as f:
@@ -2364,22 +2498,23 @@ def tools_phase(card):
             fail("eval_metric.py does not reproduce test.py's metrics")
         recall, counts = tool_run("test.py --eval proposal", lambda: test_tool.main(
             test_args + ["--eval", "proposal"]), card)
-        expect_launches("test.py --eval proposal", counts, {"pyramid_pack": 0, "roi_align": 0,
-                                                            "upsample_add": 3 * n_batches})
+        expect_launches("test.py --eval proposal", counts, {
+            "pyramid_pack": 0, "roi_align": 0, **replayed(n_batches, counts, {"upsample_add": 3})})
         if not all(0.0 <= v <= 1.0 for v in recall.values()):
             fail(f"proposal recall outside [0, 1]: {recall}")
         aug, counts = tool_run("test.py --aug --max-images 2", lambda: test_tool.main(
             test_args + ["--aug", "--max-images", "2"]), card)
         finite_metrics("test.py --aug", aug)
         expect_launches("test.py --aug", counts, {"pyramid_pack": 4, "roi_align": 12,
-                                                  "upsample_add": 24})
+                                                  **replayed(8, counts, {"upsample_add": 3})})
         print(f"proposal recall {recall}; TTA (test scale x flip) on 2 images {aug}")
 
         dcn, counts = tool_run("test.py --config htd_r101_dcn_2x", lambda: test_tool.main(
             ["--config", "htd_r101_dcn_2x", "--bf16", "--max-images", "2", "--batch-size", "2",
              "--ann", val_ann, "--img-root", root]), card)
         finite_metrics("R-101-DCN test.py", dcn)
-        expect_launches("R-101-DCN test.py", counts, {"deform_conv": 30, "deform_conv_tc": 30})
+        expect_launches("R-101-DCN test.py", counts, {
+            **replayed(1, counts, {"deform_conv": 30, "deform_conv_tc": 30}), "graph_capture": 1})
         print(f"R-101-DCN bf16, random weights, 2 images: {dcn}")
 
         published, _ = tool_run("publish_model.py", lambda: publish_model.main(
@@ -2717,6 +2852,7 @@ def spawned_evaluation(root: str, tag: str, group=None) -> None:
     to deterministic algorithms, over `group` (None: this process alone),
     saved to {root}/gloo_eval{tag}.pt."""
     from htd_tpu_torch import evaluate_dataset, htd_r50_1x, init_detector
+    from htd_tpu_torch.models import graphs
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
     torch.backends.cudnn.benchmark = False
@@ -2727,10 +2863,12 @@ def spawned_evaluation(root: str, tag: str, group=None) -> None:
     ds = SeededCoco(f"{root}/coco{tag}").dataset
     torch.cuda.synchronize()
     reset_launch_counts()
+    graphs.reset_graph_counts()
     metrics, dets = evaluate_dataset(model, ds, batch_size=8, log_every=0,
                                      return_detections=True, group=group)
     torch.cuda.synchronize()
-    torch.save({"metrics": metrics, "dets": dets, "launches": dict(launch_counts)},
+    torch.save({"metrics": metrics, "dets": dets,
+                "launches": {**launch_counts, **graph_count_keys(graphs.graph_counts)}},
                f"{root}/gloo_eval{tag}.pt")
 
 
@@ -2773,8 +2911,9 @@ def gloo_eval_phase(card: str, root: str, eval_metrics: dict) -> None:
               f"(same batches, cuDNN's heuristics in both): {same}")
         if json.dumps(out["metrics"]) != json.dumps(ref) or not same:
             fail(f"rank {r}'s evaluation differs from one process's")
-        expect_launches(f"rank {r}", out["launches"], {"pyramid_pack": 1, "roi_align": 3,
-                                                       "upsample_add": 3})
+        expect_launches(f"rank {r}", out["launches"], {
+            "pyramid_pack": 1, "roi_align": 3,
+            **replayed(1, out["launches"], {"upsample_add": 3})})
     diff = max(abs(ref[k] - eval_metrics[k]) for k in ref
                if math.isfinite(ref[k]) and math.isfinite(eval_metrics[k]))
     print(f"one fresh process with cuDNN's heuristics {ref}; phase 23 (autotuned) {eval_metrics}: "
@@ -2915,15 +3054,18 @@ class RecordedEvaluations:
         self.apis, self.original, self.calls = apis, apis.evaluate_dataset, []
 
     def __enter__(self):
+        from htd_tpu_torch.models import graphs
         from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
         def recorded(model, dataset, **kwargs):
             torch.cuda.synchronize()
             reset_launch_counts()
+            graphs.reset_graph_counts()
             t0 = time.perf_counter()
             metrics, dets = self.original(model, dataset, return_detections=True, **kwargs)
             torch.cuda.synchronize()
-            self.calls.append((model, dataset, dets, dict(launch_counts),
+            self.calls.append((model, dataset, dets,
+                               {**launch_counts, **graph_count_keys(graphs.graph_counts)},
                                time.perf_counter() - t0))
             return metrics
 
@@ -2995,7 +3137,7 @@ def robustness_phase(card: str) -> None:
         finite_metrics("test.py on JPEG files", metrics)
         expect_launches("test.py on JPEG files", counts, {
             "pyramid_pack": n_batches, "roi_align": 3 * n_batches,
-            "upsample_add": 3 * n_batches})
+            **replayed(n_batches, counts, {"upsample_add": 3})})
         print(f"test.py, R-50 bf16, {len(photos)} JPEG files in {n_batches} batches: {metrics}")
 
         # (c) test_robustness.py on phase 24's PNG mini-COCO
@@ -3015,11 +3157,11 @@ def robustness_phase(card: str) -> None:
         model, clean, clean_dets, _, clean_s = rec.calls[0]
         n_land = sum(r.landscape for r in clean.records)
         n_batches = -(-n_land // 8) + -(-(len(clean) - n_land) // 8)
-        want = {"pyramid_pack": n_batches, "roi_align": 3 * n_batches,
-                "upsample_add": 3 * n_batches}
         for i, (_, ds, _, c, _) in enumerate(rec.calls):
             expect_launches(f"test_robustness.py cell {i} ({getattr(ds, 'corruption', 'clean')}"
-                            f" {getattr(ds, 'severity', 0)})", c, want)
+                            f" {getattr(ds, 'severity', 0)})", c, {
+                                "pyramid_pack": n_batches, "roi_align": 3 * n_batches,
+                                **replayed(n_batches, c, {"upsample_add": 3})})
         n_cells = 1 + len(corr.ALL_CORRUPTIONS) * (len(ROBUST_SEVERITIES) - 1)
         if len(rec.calls) != n_cells:
             fail(f"test_robustness.py evaluated {len(rec.calls)} cells, not {n_cells}")
@@ -3032,7 +3174,8 @@ def robustness_phase(card: str) -> None:
             fail("severity 0's detections differ from evaluate_dataset's on the clean set")
         print(f"{n_cells} cells ({len(corr.ALL_CORRUPTIONS)} corruptions x severities "
               f"{ROBUST_SEVERITIES[1:]}, severity 0 once), {len(clean)} PNG images at batch 8, "
-              f"K1 {n_batches}, K2 {3 * n_batches}, K7 {3 * n_batches} launches per cell; "
+              f"K1 {n_batches}, K2 {3 * n_batches} launches and {n_batches} graph replays "
+              f"(K7 3 each) per cell; "
               f"severity 0: {n_dets} detections bit-identical to evaluate_dataset's on the "
               f"clean set with the same model")
         t0 = time.perf_counter()
@@ -3156,12 +3299,14 @@ def drill_run(card: str, root: str) -> str:
         images = json.load(f)["images"]
     land = sum(im["width"] >= im["height"] for im in images)
     n_batches = -(-land // 4) + -(-(len(images) - land) // 4)
+    # the mirror's DRILL_MIRROR requests run on the host's CPU, eagerly
     expect_launches("drill_production.py's test.py", counts, {
-        "pyramid_pack": n_batches, "roi_align": 3 * n_batches, "upsample_add": 3 * n_batches})
+        "pyramid_pack": n_batches, "roi_align": 3 * n_batches,
+        **replayed(n_batches, counts, {"upsample_add": 3}), "graph_eager": DRILL_MIRROR})
     finite_metrics("the drill's test.py", summary["full_set_metrics"])
     print(f"test.py (R-50 float32, TF32 off, exact grid, {DRILL_SCALE[0]}x{DRILL_SCALE[1]}, "
           f"batch 4, {len(images)} PNG images in {n_batches} batches; K1 {n_batches}, K2 "
-          f"{3 * n_batches}, K7 {3 * n_batches} launches): {summary['test_images_per_s']} "
+          f"{3 * n_batches} launches, {n_batches} graph replays): {summary['test_images_per_s']} "
           f"images/s as test.py logs it (model build and cuDNN's first calls in the first "
           f"batches), {summary['test_wall_s']} s in all; evaluate_coco_map on its dump over 80 "
           f"categories (host clock): native matcher {summary['matcher_s']} s of "
@@ -3329,6 +3474,7 @@ def picture_phase(card: str) -> None:
     from htd_tpu_torch import htd_r50_1x, inference_detector, init_detector
     from htd_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg, read_jpeg
     from htd_tpu_torch.data.png import read_png
+    from htd_tpu_torch.models import graphs
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
     from htd_tpu_torch.utils.visualize import draw_detections
     from tests.jpeg_writers import forward_reference
@@ -3388,16 +3534,18 @@ def picture_phase(card: str) -> None:
             cfg = htd_r50_1x(compute_dtype="bfloat16")
             model = init_detector(cfg, seed=0)
             scale_scores(model)
-            inference_detector(model, img)     # warm
+            inference_detector(model, img)     # warm: captures the bucket's graph
             torch.cuda.synchronize()
             reset_launch_counts()
+            graphs.reset_graph_counts()
             t0 = time.perf_counter()
             dboxes, dscores, dlabels = inference_detector(model, img)
             torch.cuda.synchronize()
             infer_ms = 1e3 * (time.perf_counter() - t0)
-            counts = dict(launch_counts)
+            counts = {**launch_counts, **graph_count_keys(graphs.graph_counts)}
         expect_launches("R-50 bf16 on photo0", counts,
-                        {"pyramid_pack": 1, "roi_align": 3, "upsample_add": 3})
+                        {"pyramid_pack": 1, "roi_align": 3, "graph_capture": 0,
+                         **replayed(1, counts, {"upsample_add": 3})})
         check_detections(dboxes, dscores, dlabels, img, cfg)
         times = []
         for ext in (".png", ".jpg"):
@@ -3410,7 +3558,8 @@ def picture_phase(card: str) -> None:
                 file_hash(f"{root}/own.jpg") != hashlib.sha256(encode_jpeg(own)).hexdigest():
             fail("the drawn detections' files do not hold the returned pixels")
         print(f"[draw] R-50 bf16 on the card: {len(dscores)} detections on {name} "
-              f"({infer_ms:.2f} ms, K1 1, K2 3, K7 3 launches), drawn and written as .png "
+              f"({infer_ms:.2f} ms, K1 1, K2 3 launches, one graph replay), drawn and written "
+              f"as .png "
               f"({times[0]:.2f} ms, read back equal to the returned pixels) and .jpg "
               f"({times[1]:.2f} ms) on the host ({card})")
         del model
@@ -3484,6 +3633,7 @@ def main():
     from htd_tpu_torch.ops.roi_align import (roi_align_levels, roi_align_plain,
                                              roi_align_pyramid)
     from htd_tpu_torch.ops.boxes import map_roi_levels
+    from htd_tpu_torch.models import graphs
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
     t_start = time.perf_counter()
@@ -3523,13 +3673,19 @@ def main():
     scale_scores(cpu32)
     card_vs_cpu(gpu32, cpu32)
     before = dict(launch_counts)
+    graphs.reset_graph_counts()
     boxes, scores, labels = inference_detector(gpu32, imgs[0])
     check_detections(boxes, scores, labels, imgs[0], ref_cfg)
     counts = {k: launch_counts[k] - before[k] for k in launch_counts}
-    if counts["pyramid_pack"] <= 0 or counts["roi_align"] <= 0 or counts["upsample_add"] != 3:
-        fail(f"a kernel was not launched on the float32 request: {counts}")
+    # the model's first request at this bucket: it captures the graph
+    # (K7's launcher called in the warm-up and in the capture), then replays it
+    if counts["pyramid_pack"] <= 0 or counts["roi_align"] <= 0 \
+            or graphs.graph_counts != {"capture": 1, "replay": 1, "eager": 0} \
+            or counts["upsample_add"] != graph_launches(3, graphs.graph_counts):
+        fail(f"a kernel was not launched on the float32 request: {counts}, graphs "
+             f"{graphs.graph_counts}")
     print(f"float32 request {imgs[0].shape[1]}x{imgs[0].shape[0]} at full size: "
-          f"{len(scores)} detections, launches {counts}")
+          f"{len(scores)} detections, launches {counts}, graphs {dict(graphs.graph_counts)}")
     del gpu32, cpu32
 
     phase("5 kernels vs plain versions on the main path's first request")
@@ -3669,9 +3825,10 @@ def run() -> None:
           f"30 launches per R-101-DCN request; soft-NMS: its one launch per R-101-DCN request; "
           f"K7: of its 3 launches per R-50 request; K8: one launch on the largest fenced "
           f"tensor) and per train step (K4: its 3 calls, R-50; K5, K6: their 30 launches each, "
-          f"R-101-DCN); launches are over the {len(REQUEST_SHAPES)} main-path requests (K1, "
-          f"K2, K7: R-50; K3, soft-NMS: R-101-DCN), the {TRAIN_STEPS} main-path train steps of "
-          f"each training path (K4: R-50; K5, K6: R-101-DCN) and the fenced request (K8: "
+          f"R-101-DCN); launches are the kernels in the traces of the {len(REQUEST_SHAPES)} "
+          f"replayed main-path requests (K1, K2, K7: R-50; K3, soft-NMS: R-101-DCN) and of the "
+          f"replayed fenced request (K8: R-101-DCN), and the launcher calls of the "
+          f"{TRAIN_STEPS} main-path train steps of each training path (K4: R-50; K5, K6: "
           f"R-101-DCN); max_abs_err is bfloat16 vs the plain version (soft-NMS: float32, "
           f"checked bit for bit); total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

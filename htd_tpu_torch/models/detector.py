@@ -13,6 +13,11 @@ stage 0, stage 1 and the BA extractor (kernel K2 reads it three times;
 in training, K4 adds each of the three reads' gradients into it).
 In the DCN presets the backbone's deformable convs run kernel K3, each
 inside an `htd.dcn` span nested in `htd.backbone_fpn`.
+On an inference call on CUDA (no autograd, eval mode, no autocast, no
+forward hook on the backbone or neck) `simple_test`, `rpn_proposals` and
+`stages_forward` replay the backbone and FPN as one CUDA graph per input
+key (`models/graphs.py`), captured at the key's first call; every other
+call runs them eagerly.
 Each layer of the forward runs inside a `record_function` span named
 `htd.<layer>`, which a `torch.profiler` trace reports with its host and
 device time; each call inside it that blocks the host until the device
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from htd_tpu_torch.config import BoxCoderConfig, HTDConfig, StageTrainConfig
+from htd_tpu_torch.models import graphs
 from htd_tpu_torch.models.fpn import FPN
 from htd_tpu_torch.models.heads import GlobalContextHead, HTDBBoxHead, Shared2FCBBoxHead
 from htd_tpu_torch.models.resnet import ResNet
@@ -84,6 +90,28 @@ class HTDDetector(nn.Module):
         self.rpn_head = RPNHead(cfg.rpn.in_channels, cfg.rpn.feat_channels,
                                 self.anchor_gen.num_base_anchors)
         self.roi_head = HTDRoIHead(cfg)
+        # graphs.graph_key -> graphs.FeatureGraph of `_features`; the
+        # modules whose hooks a replay would skip, listed at first use
+        self._graphs: Dict[tuple, graphs.FeatureGraph] = {}
+        self._graphed_modules: Optional[Tuple[nn.Module, ...]] = None
+
+    # a graph reads the parameters and buffers it was captured with: every
+    # call that can change their identity, or the mode, drops the graphs
+    def _drop_graphs(self) -> None:
+        self._graphs.clear()
+        self._graphed_modules = None
+
+    def _apply(self, *args, **kwargs):
+        self._drop_graphs()
+        return super()._apply(*args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        self._drop_graphs()
+        return super().load_state_dict(*args, **kwargs)
+
+    def train(self, mode: bool = True):
+        self._drop_graphs()
+        return super().train(mode)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -102,6 +130,43 @@ class HTDDetector(nn.Module):
         x = images.to(device=self.device, dtype=self.compute_dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
         return self.neck(self.backbone(x))
+
+    def _eager_reason(self, images: torch.Tensor) -> Optional[str]:
+        """Why `_levels` must run `_features` eagerly on `images`, or None
+        where a graph may replay it: autograd is on, the model trains,
+        autocast is on, a forward hook or pre-hook would not fire on a
+        replay, or `images` is not on the model's CUDA device."""
+        if torch.is_grad_enabled():
+            return "autograd"
+        if self.training:
+            return "training"
+        if torch.is_autocast_enabled():
+            return "autocast"
+        if self._graphed_modules is None:
+            self._graphed_modules = (*self.backbone.modules(), *self.neck.modules())
+        hooked = nn.modules.module._global_forward_hooks or \
+            nn.modules.module._global_forward_pre_hooks or \
+            any(m._forward_hooks or m._forward_pre_hooks for m in self._graphed_modules)
+        if hooked:
+            return "hook"
+        if images.device.type != "cuda" or images.device != self.device:
+            return "device"
+        return None
+
+    def _levels(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """`_features(images)` for a call that is done with the levels when
+        it returns: replayed from the CUDA graph of `images`' key (captured
+        at the key's first call) where `_eager_reason` allows, else eager.
+        A replay's levels are the graph's own, which its next replay
+        overwrites."""
+        if self._eager_reason(images) is not None:
+            graphs.graph_counts["eager"] += 1
+            return self._features(images)
+        key = graphs.graph_key(images, self.compute_dtype)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = graphs.FeatureGraph(self._features, images)
+        return graph.replay(images)
 
     def extract_feats(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """(B, H, W, 3) normalized images -> FPN levels (B, H, W, C)."""
@@ -176,7 +241,7 @@ class HTDDetector(nn.Module):
         img_shapes = img_shapes.to(device=dev, dtype=torch.float32)
         scale_factors = scale_factors.to(device=dev, dtype=torch.float32)
         with record_function("htd.backbone_fpn"):
-            feats = self._features(images)
+            feats = self._levels(images)
         with record_function("htd.rpn_proposals"):
             props, _, prop_valid = self._proposals(feats, img_shapes)
         rois1, cls_score, s1_reg = self._cascade(feats, img_shapes, props, prop_valid)
@@ -200,7 +265,7 @@ class HTDDetector(nn.Module):
         scores (B, P), valid (B, P), P = `proposal_test.nms_post`."""
         img_shapes = img_shapes.to(device=self.device, dtype=torch.float32)
         with record_function("htd.backbone_fpn"):
-            feats = self._features(images)
+            feats = self._levels(images)
         with record_function("htd.rpn_proposals"):
             return self._proposals(feats, img_shapes)
 
@@ -213,7 +278,7 @@ class HTDDetector(nn.Module):
         rois = rois.to(device=dev, dtype=torch.float32)
         roi_valid = roi_valid.to(dev)
         with record_function("htd.backbone_fpn"):
-            feats = self._features(images)
+            feats = self._levels(images)
         rois1, cls_score, s1_reg = self._cascade(feats, img_shapes, rois, roi_valid)
         coder = self.cfg.stage1_head.coder
         boxes = delta2bbox(rois1, s1_reg, coder.means, coder.stds,

@@ -32,10 +32,15 @@ def layout_fence(x: torch.Tensor) -> torch.Tensor:
     return _LayoutFence.apply(x)
 
 
+def switched_on(switch: str) -> bool:
+    """Whether the environment variable `switch` is "1" (the JAX package's
+    opt-in switches)."""
+    return os.environ.get(switch, "0") == "1"
+
+
 def fenced(x: torch.Tensor, switch: str) -> torch.Tensor:
-    """`layout_fence(x)` when the environment variable `switch` is "1"
-    (the JAX package's opt-in switches), else x itself."""
-    return layout_fence(x) if os.environ.get(switch, "0") == "1" else x
+    """`layout_fence(x)` when `switch` is on, else x itself."""
+    return layout_fence(x) if switched_on(switch) else x
 
 
 class _LayoutFence(torch.autograd.Function):

@@ -24,7 +24,8 @@ from htd_tpu_torch.ops.pyramid import Pyramid, PyramidGeometry
 
 # kernel name -> launches since the last reset (the launchers of K3, K5
 # and K6, in `ops/dcn_cuda.py`, of K7 and K8, in `ops/elementwise_cuda.py`,
-# and of soft-NMS, in `ops/nms_cuda.py`, count here too)
+# and of soft-NMS, in `ops/nms_cuda.py`, count here too; a CUDA graph's
+# capture counts the calls it records, its replay none: `models/graphs.py`)
 launch_counts: Dict[str, int] = {"pyramid_pack": 0, "roi_align": 0, "deform_conv": 0,
                                  "roi_align_bwd": 0, "deform_conv_bwd_input": 0,
                                  "deform_conv_bwd_offset_weight": 0, "upsample_add": 0,

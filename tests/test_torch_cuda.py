@@ -416,27 +416,59 @@ def x101_request():
 @pytest.mark.cuda
 def test_x101_request_runs_k3_on_the_cuda_cores(cuda, x101_request):
     """One X-101 request at its test scale (1600x800: the 800x1600 and
-    1600x800 buckets) launches K3 30 times, every launch on the grouped
-    CUDA-core path, and soft-NMS once; it returns detections."""
+    1600x800 buckets) runs K3 30 times, every kernel on the grouped
+    CUDA-core path, and soft-NMS once; it returns detections. The first
+    request at a bucket captures the backbone's graph: its warm-up and its
+    capture call the K3 launcher 30 times each, on that path. The next
+    replays it and calls no K3 launcher: its trace holds the graph's 30
+    CUDA-core K3 kernels and no tensor-core one (a trace that lost a K3
+    kernel's record is taken again, 3 traces at most)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from htd_tpu_torch.apis import inference_detector
+    from htd_tpu_torch.models import graphs
     from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
 
     model, imgs = x101_request
     for img in imgs:
+        model._drop_graphs()
         reset_launch_counts()
+        graphs.reset_graph_counts()
         boxes, _, _ = inference_detector(model, img)
         torch.cuda.synchronize()
-        assert (launch_counts["deform_conv"], launch_counts["soft_nms"]) == (30, 1)
-        assert (path_counts["deform_conv_cc"], path_counts["deform_conv_tc"]) == (30, 0)
+        assert graphs.graph_counts == {"capture": 1, "replay": 1, "eager": 0}
+        assert (launch_counts["deform_conv"], launch_counts["soft_nms"]) == (60, 1)
+        assert (path_counts["deform_conv_cc"], path_counts["deform_conv_tc"]) == (60, 0)
+        assert len(boxes) > 0
+        for _ in range(3):
+            reset_launch_counts()
+            graphs.reset_graph_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                boxes, _, _ = inference_detector(model, img)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            cc = sum("deform_conv_fwd_kernel" in n for n in names)
+            tc = sum("deform_conv_fwd_tc_kernel" in n for n in names)
+            if cc == 30:
+                break
+        assert (cc, tc) == (30, 0), f"{cc} CUDA-core and {tc} tensor-core K3 kernels"
+        assert graphs.graph_counts == {"capture": 0, "replay": 1, "eager": 0}
+        assert (launch_counts["deform_conv"], launch_counts["soft_nms"]) == (0, 1)
+        assert (path_counts["deform_conv_cc"], path_counts["deform_conv_tc"]) == (0, 0)
         assert len(boxes) > 0
 
 
 @pytest.mark.cuda
 def test_x101_k3_launches_lie_in_dcn_spans(cuda, x101_request):
-    """Under the profiler each of a request's 30 K3 kernels was launched
-    inside an `htd.dcn` span, one launch to a span, and every `htd.dcn`
-    span lies inside `htd.backbone_fpn`. A trace that lost a K3 kernel's
-    record is taken again (3 traces at most)."""
+    """Under the profiler, on a request that captures the backbone's graph:
+    the eager warm-up launches each of its 30 K3 kernels inside an
+    `htd.dcn` span, one launch to a span; the capture then opens 30 more
+    `htd.dcn` spans, whose K3 calls go into the graph and launch nothing;
+    all 60 lie inside the request's one `htd.graph.capture` span inside
+    `htd.backbone_fpn`, and the replay that follows runs the graph's 30 K3
+    kernels. A trace that lost a K3 kernel's record is taken again (3
+    traces at most)."""
     from torch.profiler import ProfilerActivity, profile
 
     from bench_h100.trace import from_profiler
@@ -444,21 +476,27 @@ def test_x101_k3_launches_lie_in_dcn_spans(cuda, x101_request):
 
     model, imgs = x101_request
     for _ in range(3):
+        model._drop_graphs()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             inference_detector(model, imgs[0])
             torch.cuda.synchronize()
         tr = from_profiler(prof)
         k3 = [launch for name, _, _, launch in tr.device
               if "deform_conv_fwd" in name and launch is not None]
-        if len(k3) == 30:
+        replayed = [name for name, _, _, launch in tr.device
+                    if "deform_conv_fwd" in name and launch is None]
+        if len(k3) == 30 and len(replayed) == 30:
             break
     assert len(k3) == 30, f"{len(k3)} K3 kernels with their launch in 3 traces"
+    assert len(replayed) == 30, f"{len(replayed)} K3 kernels of the replay in 3 traces"
     dcn = [(a, b) for n, a, b in tr.spans if n == "htd.dcn"]
     backbone = [(a, b) for n, a, b in tr.spans if n == "htd.backbone_fpn"]
-    assert len(dcn) == 30 and len(backbone) == 1
-    assert all(backbone[0][0] <= a and b <= backbone[0][1] for a, b in dcn)
+    capture = [(a, b) for n, a, b in tr.spans if n == "htd.graph.capture"]
+    assert len(dcn) == 60 and len(backbone) == 1 and len(capture) == 1
+    assert backbone[0][0] <= capture[0][0] and capture[0][1] <= backbone[0][1]
+    assert all(capture[0][0] <= a and b <= capture[0][1] for a, b in dcn)
     assert all(sum(a <= t < b for a, b in dcn) == 1 for t in k3)
-    assert all(sum(a <= t < b for t in k3) == 1 for a, b in dcn)
+    assert [sum(a <= t < b for t in k3) for a, b in dcn] == [1] * 30 + [0] * 30
 
 
 @pytest.mark.cuda
@@ -470,6 +508,7 @@ def test_x101_grouped_k3_matches_plain_at_request_inputs(cuda, x101_request, mon
     max |plain| plus one bfloat16 ulp (the same bfloat16 samples and
     weights, float32 sums in another order, one rounding)."""
     from htd_tpu_torch.apis import inference_detector
+    from htd_tpu_torch.models import graphs
     from htd_tpu_torch.ops import dcn
     from htd_tpu_torch.ops.roi_align_cuda import path_counts, reset_launch_counts
 
@@ -486,8 +525,16 @@ def test_x101_grouped_k3_matches_plain_at_request_inputs(cuda, x101_request, mon
 
     monkeypatch.setattr(dcn, "deform_conv2d", capture)
     reset_launch_counts()
-    inference_detector(model, imgs[0])
+    graphs.reset_graph_counts()
+    # a hooked module keeps the backbone eager, so that the request calls
+    # the wrapper (a graph's replay would call no Python)
+    hook = m.register_forward_pre_hook(lambda mod, args: None)
+    try:
+        inference_detector(model, imgs[0])
+    finally:
+        hook.remove()
     torch.cuda.synchronize()
+    assert graphs.graph_counts["eager"] == 1
     assert len(seen) == 1 and path_counts["deform_conv_cc"] == 30
     x, off, w, args, k = seen[0]
     assert x.dtype == torch.bfloat16 and args[0] == m.stride and args[3] == 64

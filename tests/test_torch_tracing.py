@@ -231,13 +231,19 @@ def is_sync(name: str) -> bool:
 @pytest.mark.cuda
 @pytest.mark.parametrize("preset", ["htd_r50_1x", "htd_r101_dcn_2x", "htd_x101_dcn_2x"])
 def test_every_sync_on_the_card_is_in_a_sync_span(cuda, preset):
+    """Two requests that capture the backbone's graphs (one per bucket),
+    then two that replay them: every runtime synchronisation lies in an
+    `htd.sync.*` span, one to a span; each capture's own lies in the one
+    `htd.sync.capture` span of its capturing request, inside its
+    `htd.graph.capture` span."""
     model = init_detector(getattr(C, preset)(compute_dtype="bfloat16"), seed=0)
     imgs = [image(4, 480, 640), image(5, 640, 480)]
     for img in imgs:                    # builds the kernels, caches the anchors
         inference_detector(model, img)
     torch.cuda.synchronize()
+    model._drop_graphs()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for img in imgs:
+        for img in imgs + imgs:
             with record_function(REQUEST):
                 inference_detector(model, img)
     events = host_events(prof)
@@ -248,10 +254,18 @@ def test_every_sync_on_the_card_is_in_a_sync_span(cuda, preset):
     outside = [(e[0], next((t[0] for t in reversed(spans) if inside(e, t)), "entry"))
                for e in syncs if not any(inside(e, s) for s in sync_spans)]
     per_span = Counter(sum(1 for e in syncs if inside(e, s)) for s in sync_spans)
-    sites = Counter(s[0] for s in sync_spans)
-    print(f"\n{preset}: {len(syncs) / len(imgs)} runtime synchronisations per request, "
-          f"{len(sync_spans) / len(imgs)} htd.sync.* spans per request; per site: "
-          + ", ".join(f"{k} {v / len(imgs)}" for k, v in sorted(sites.items()))
-          + f"; {torch.cuda.get_device_name(0)}")
+    for kind, reqs in (("capturing", requests[:2]), ("replayed", requests[2:])):
+        mine = [s for s in sync_spans if any(inside(s, r) for r in reqs)]
+        n = sum(1 for e in syncs if any(inside(e, r) for r in reqs))
+        sites = Counter(s[0] for s in mine)
+        print(f"\n{preset}, {kind} requests: {n / 2} runtime synchronisations per request, "
+              f"{len(mine) / 2} htd.sync.* spans per request; per site: "
+              + ", ".join(f"{k} {v / 2}" for k, v in sorted(sites.items()))
+              + f"; {torch.cuda.get_device_name(0)}")
+    assert len(requests) == 4
     assert not outside, f"synchronisations outside every htd.sync.* span: {outside}"
     assert per_span == Counter({1: len(sync_spans)}), f"syncs per span: {per_span}"
+    captures = named(spans, "htd.graph.capture")
+    held = named(spans, "htd.sync.capture")
+    assert len(captures) == len(held) == 2
+    assert all(inside(s, c) and inside(c, r) for s, c, r in zip(held, captures, requests))
