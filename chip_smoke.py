@@ -186,10 +186,11 @@ script exits non-zero without its final line:
      its wall time per image. The phase takes at most 60 s.
 Every forward runs K7 3 times (one per FPN top-down add), whatever its
 batch. On an inference call on the card the backbone and FPN replay a CUDA
-graph (`htd_tpu_torch/models/graphs.py`): the launch counters count the
-launchers' calls, so K3's and K7's count a capture's warm-up and capture
-once each and a replay never, and a replayed request's K3 and K7 are
-counted by name in a profiler trace. It needs CUDA: with no GPU, or run outside the repository, it fails.
+graph (`htd_tpu_torch/models/graphs.py`), which runs no Python: every
+phase counts the hand-written kernels a call runs by name in its profiler
+trace (`htd_tpu_torch.utils.profiling.kernel_counts`), where a capturing
+call shows its eager warm-up's kernels and its replay's. It needs CUDA:
+with no GPU, or run outside the repository, it fails.
 """
 
 from __future__ import annotations
@@ -258,6 +259,9 @@ GLOO_STEPS = 4             # phase 25 (b): train steps per rank, the first cold
 # phase 25: the tools print metrics to 4 places; two runs agree within one unit
 METRIC_LIMIT = 1e-4
 RANK_JOIN_S = 600          # phase 25: the longest a group of spawned ranks may take
+# phase 25 (c): the kernels of a rank's one batch (a capture's warm-up, then its replay)
+GLOO_EVAL_KERNELS = {"pyramid_pack_kernel": 1, "roi_align_fwd_kernel": 3,
+                     "upsample_add_kernel": 6}
 TRAIN_BUCKET = (800, 1344)
 JPEG_DIR = "tests/data/jpeg"     # phase 26's fixtures and manifests
 PHOTO_DECODES = 5          # phase 26 (a): timed decodes of each photo-sized fixture
@@ -701,10 +705,8 @@ def check_k3_deform_groups(captured, names):
     offsets tiled over both groups, which must give K3's one-group output
     bit for bit (the same samples, contracted in the same order)."""
     from htd_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_plain
-    from htd_tpu_torch.ops.roi_align_cuda import path_counts, reset_launch_counts
 
     worst = 0.0
-    reset_launch_counts()
     for name, m, x, off in captured:
         if name not in names:
             continue
@@ -723,79 +725,73 @@ def check_k3_deform_groups(captured, names):
     torch.cuda.synchronize()
     print(f"bfloat16: K3 with two deform groups (offsets and their negation) vs plain over "
           f"{', '.join(names)}: max err {worst:.3g} of max |plain| (limit 1e-4 + one bfloat16 "
-          f"ulp); tiled offsets bit-equal to one group; paths {dict(path_counts)}")
+          f"ulp); tiled offsets bit-equal to one group")
 
 
-# the launch counters' keys of the hand-written kernels that an inference
-# request runs, each with a name its trace records contain, and not the
-# others' (K3's CUDA-core path is `deform_conv_fwd_kernel`)
-REQUEST_KERNELS = {"pyramid_pack": "pyramid_pack_kernel", "roi_align": "roi_align_fwd_kernel",
-                   "deform_conv_tc": "deform_conv_fwd_tc_kernel",
-                   "deform_conv_cc": "deform_conv_fwd_kernel",
-                   "upsample_add": "upsample_add_kernel", "layout_fence": "layout_fence_kernel",
-                   "soft_nms": "soft_nms_kernel"}
+K3_TC, K3_CC = "deform_conv_fwd_tc_kernel", "deform_conv_fwd_kernel"
 
 
-def graph_launches(per_pass: int, graph: dict) -> int:
-    """A backbone-and-FPN launcher's calls over passes whose graph counts
-    are `graph`: `per_pass` in each eager pass and in each capture's
-    warm-up and capture; none in a replay, which calls no launcher."""
-    return per_pass * (graph["eager"] + 2 * graph["capture"])
+def request_kernels(requests: int, passes: int, k3: int = 0, k3_kernel: str = K3_TC,
+                    soft: int = 0, k8: int = 0) -> dict:
+    """The hand-written kernels that the trace of `requests` inference
+    requests (an image or a batch each) holds when they make `passes`
+    backbone-and-FPN passes (each replay, eager pass or capture's warm-up):
+    K1 once and K2 three times a request, K7 three times and K3 (the
+    kernel `k3_kernel`) `k3` times a pass, `soft` soft-NMS and `k8` K8
+    kernels, and no other K3, K8 or soft-NMS kernel."""
+    want = {"pyramid_pack_kernel": requests, "roi_align_fwd_kernel": 3 * requests,
+            "upsample_add_kernel": 3 * passes, K3_TC: 0, K3_CC: 0,
+            "layout_fence_kernel": k8, "soft_nms_kernel": soft}
+    want[k3_kernel] = k3 * passes
+    return want
 
 
-def traced_request(fn, graph_kernels: dict, passes: int = 1):
-    """fn() (a request at keys whose graphs are captured) under the
-    profiler, the launch and graph counts reset just before. It must
-    replay a graph for each of its `passes` backbone passes and run none
-    eagerly or capture; the launchers of the backbone and FPN (K3, K7) must
-    not be called. Its trace must hold the kernels of `graph_kernels`
-    ({REQUEST_KERNELS key: n}) n times beyond the launches the launcher
-    counts give, and every other kernel of REQUEST_KERNELS as often as its
-    launcher was called. The profiler loses some kernels' records, so a
-    trace that holds other counts is taken again (a new request), and
-    after DEVICE_TIME_TRACES such traces the call fails. Returns fn()'s
-    result and the kernels of the last trace ({key: n}, K3's paths summed
-    under "deform_conv" besides)."""
-    from torch.profiler import ProfilerActivity, profile
+def evaluation_kernels(n_land: int, n_port: int, batch: int, fresh: bool):
+    """(kernels, graph counts) of `evaluate_dataset` (or test.py) on
+    n_land landscape and n_port portrait images at `batch` a batch, short
+    batches padded: K1 once and K2 three times a batch, each batch a
+    replay, and on a `fresh` model (no graph yet) one capture a bucket
+    whose warm-up runs K7 too."""
+    batches = -(-n_land // batch) + -(-n_port // batch)
+    captures = (n_land > 0) + (n_port > 0) if fresh else 0
+    return ({"pyramid_pack_kernel": batches, "roi_align_fwd_kernel": 3 * batches,
+             "upsample_add_kernel": 3 * (batches + captures)},
+            {"capture": captures, "replay": batches, "eager": 0})
 
+
+def traced(label: str, fn, kernels: dict, graph: dict = None):
+    """fn() under `kernel_counts`, which takes the trace again while it
+    holds fewer of a kernel than `kernels` ({kernel name: n}) says, the
+    graph counts reset at the start of each trace. Fails unless the last
+    trace holds each kernel of `kernels` n times (0: none) and, where
+    `graph` is given, the graph counts are `graph`. Returns fn()'s result,
+    the trace's kernels and the last run's wall seconds (under the
+    profiler)."""
     from htd_tpu_torch.models import graphs
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
+    from htd_tpu_torch.utils.profiling import kernel_counts
 
-    for _ in range(DEVICE_TIME_TRACES):
-        torch.cuda.synchronize()
-        reset_launch_counts()
+    def run():
         graphs.reset_graph_counts()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        if graphs.graph_counts != {"capture": 0, "replay": passes, "eager": 0}:
-            fail(f"the request did not replay its {passes} backbone passes: "
-                 f"{graphs.graph_counts}")
-        if launch_counts["deform_conv"] or launch_counts["upsample_add"]:
-            fail(f"a replayed request called the backbone's launchers: {dict(launch_counts)}")
-        launched = {**launch_counts, **path_counts}
-        want = {k: launched.get(k, 0) + graph_kernels.get(k, 0) for k in REQUEST_KERNELS}
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        got = {k: sum(e.count for e in events if name in e.key)
-               for k, name in REQUEST_KERNELS.items()}
-        if got == want:
-            break
-        print(f"  traced_request: the trace holds kernels {got}, not {want}; traced again")
-    else:
-        fail(f"traced_request: {DEVICE_TIME_TRACES} traces gave kernels {got}, not {want}")
-    return out, {**got, "deform_conv": got["deform_conv_tc"] + got["deform_conv_cc"]}
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (out, seconds), got = kernel_counts(run, kernels)
+    if graph is not None and graphs.graph_counts != graph:
+        fail(f"{label}: graph counts {graphs.graph_counts}, not {graph}")
+    if any(got.get(k, 0) != n for k, n in kernels.items()):
+        fail(f"{label}: the trace holds kernels {got}, not {kernels}")
+    return out, got, seconds
 
 
-def run_requests(model, imgs, cfg, per_request_k3: int, k3_path: str = "tc"):
+def run_requests(model, imgs, cfg, per_request_k3: int, k3_kernel: str = K3_TC):
     """The main path: `inference_detector` on each image once to capture
     its bucket's graph of the backbone and FPN, then once more under
-    `traced_request`, which must replay it: each replayed request must run
-    K1 and K2, K7 3 times, the soft-NMS kernel once where the test config
-    asks for soft-NMS (else never) and, with deformable convs, K3
-    `per_request_k3` times, each on `k3_path` ("tc": the tensor cores,
-    "cc": the CUDA cores), by the kernels its trace holds. Returns those
-    kernels summed over the replayed requests."""
+    `traced`, which must replay it and run `request_kernels` (K3
+    `per_request_k3` times, by `k3_kernel`; soft-NMS once where the test
+    config asks for it). Returns the kernels summed over the replayed
+    requests."""
     from htd_tpu_torch import inference_detector
     from htd_tpu_torch.models import graphs
 
@@ -806,16 +802,13 @@ def run_requests(model, imgs, cfg, per_request_k3: int, k3_path: str = "tc"):
     print(f"first requests: graphs {dict(graphs.graph_counts)}")
     if graphs.graph_counts["eager"] or graphs.graph_counts["replay"] != len(imgs):
         fail(f"the first requests did not replay their graphs: {graphs.graph_counts}")
+    want = request_kernels(1, 1, per_request_k3, k3_kernel, int(cfg.rcnn_test.use_soft_nms))
     total = {}
     for img in imgs:
-        (boxes, scores, labels), counts = traced_request(
-            lambda: inference_detector(model, img),
-            {"upsample_add": 3, f"deform_conv_{k3_path}": per_request_k3})
+        (boxes, scores, labels), counts, _ = traced(
+            f"request {img.shape}", lambda: inference_detector(model, img), want,
+            {"capture": 0, "replay": 1, "eager": 0})
         check_detections(boxes, scores, labels, img, cfg)
-        if counts["pyramid_pack"] <= 0 or counts["roi_align"] <= 0 \
-                or counts["deform_conv"] != per_request_k3 \
-                or counts["soft_nms"] != int(cfg.rcnn_test.use_soft_nms):
-            fail(f"unexpected kernels on request {img.shape}: {counts}")
         print(f"request {img.shape[1]}x{img.shape[0]} (replayed): {len(scores)} detections, "
               f"top scores {np.round(scores[:3], 4).tolist()}, labels "
               f"{labels[:3].tolist()}, first box {np.round(boxes[0], 1).tolist()}, "
@@ -893,7 +886,7 @@ def dcn_phases(imgs, card):
     print(f"init_detector(htd_x101_dcn_2x(compute_dtype='bfloat16'), seed=0), test scale "
           f"{xcfg.test_scale}, groups {xcfg.backbone.groups}")
     offset_stats(xm, imgs[:1])
-    run_requests(xm, imgs[:1], xcfg, per_request_k3=30, k3_path="cc")
+    run_requests(xm, imgs[:1], xcfg, per_request_k3=30, k3_kernel=K3_CC)
     xcap = capture_dcn(xm, imgs[0])
     check_k3(xcap, ("layer2.0", "layer3.1", "layer4.1"))
     del xm, xcap
@@ -953,12 +946,12 @@ def dcn_phases(imgs, card):
           f"{k3['cudnn_ms']:.3f} ms ({card})")
     return [{"name": "deform_conv", "route": "cuda",
              "source": "htd_tpu_torch/csrc/deform_conv.cu",
-             "replaces": "htd_tpu/ops/dcn_pallas.py:131", "launches": counts["deform_conv"],
+             "replaces": "htd_tpu/ops/dcn_pallas.py:131", "launches": counts[K3_TC],
              "path": "tensor cores (mma.sync bf16)", "max_abs_err": k3_err, "ms": k3["ms"],
              "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"], "bound_ms": bound,
              "bound_by": "bytes" if k3["bytes_ms"] >= k3["ops_ms"] else "operations",
              "library_ms": None},
-            time_soft_nms(soft_args, counts["soft_nms"], card)]
+            time_soft_nms(soft_args, counts["soft_nms_kernel"], card)]
 
 
 def check_soft_nms(model, img):
@@ -1366,38 +1359,25 @@ def profile_step(state, batch, gen) -> None:
 
 def counted_steps(state, batch, gen, n_dcn: int, group=None) -> dict:
     """A training path's main path: TRAIN_STEPS train steps (over the
-    process `group` when given) with the launch counts set to 0 just
-    before and read just after; every step must give finite losses and
-    launch each kernel as `step_launches(n_dcn)` says. Returns the counts
-    over the steps."""
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
+    process `group` when given), each under `traced`: every step must give
+    finite losses and run the kernels `step_kernels(n_dcn)` says (a trace
+    that lost records is taken again, over another step). Returns the
+    kernels summed over the steps."""
     from htd_tpu_torch.train.train_step import train_step
 
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    # bfloat16 autocast, one weight group: every K3, K5 and K6 launch on the tensor cores
-    want_paths = {"deform_conv_tc": n_dcn, "deform_conv_cc": 0, "deform_conv_bwd_input_tc": n_dcn,
-                  "deform_conv_bwd_input_cc": 0, "deform_conv_bwd_offset_weight_tc": n_dcn,
-                  "deform_conv_bwd_offset_weight_cc": 0}
+    total = {}
     for i in range(TRAIN_STEPS):
-        start, start_paths = dict(launch_counts), dict(path_counts)
-        metrics = train_step(state, batch, gen, group=group)
-        torch.cuda.synchronize()
-        counts = {k: launch_counts[k] - start[k] for k in launch_counts}
-        paths = {k: path_counts[k] - start_paths[k] for k in path_counts}
+        metrics, counts, _ = traced(f"train step {i}",
+                                    lambda: train_step(state, batch, gen, group=group),
+                                    step_kernels(n_dcn))
         vals = {k: float(v) for k, v in metrics.items()}
         if not all(math.isfinite(v) for v in vals.values()):
             fail(f"non-finite losses at step {i}: {vals}")
-        if counts != step_launches(n_dcn):
-            fail(f"unexpected launches at step {i}: {counts}")
-        if paths != want_paths:
-            fail(f"unexpected K3 / K5 / K6 paths at step {i}: {paths}")
         print(f"step {i} (lr {state.optimizer.param_groups[0]['lr']:.5f}): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()) + f"; launches {counts}")
-    train_counts = dict(launch_counts)
-    print(f"main path launches over {TRAIN_STEPS} train steps: {train_counts}; K3 / K5 / K6 "
-          f"paths {dict(path_counts)}")
-    return train_counts
+              + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()) + f"; kernels {counts}")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    print(f"main path kernels over {TRAIN_STEPS} train steps, by their traces: {total}")
+    return total
 
 
 def check_updates(before, after, watched) -> str:
@@ -1551,21 +1531,26 @@ def train_phases(card):
     return {"name": "roi_align_bwd", "route": "cuda",
             "source": "htd_tpu_torch/csrc/roi_align_bwd.cu",
             "replaces": "htd_tpu/ops/roi_align_pallas.py:1986",
-            "launches": train_counts["roi_align_bwd"], "max_abs_err": k4_err[torch.bfloat16],
+            "launches": train_counts["roi_align_bwd_kernel"],
+            "max_abs_err": k4_err[torch.bfloat16],
             "ms": k4["ms"], "device_ms": k4["device_ms"], "plain_ms": k4["plain_ms"],
             "bound_ms": max(k4["bytes_ms"], k4["ops_ms"]),
             "bound_by": "bytes" if k4["bytes_ms"] >= k4["ops_ms"] else "operations",
             "library_ms": None}
 
 
-def step_launches(dcn: int) -> dict:
-    """Each kernel's launches in one train step with `dcn` deformable
-    convs: K1 once, K2 and K4 three times, K3, K5 and K6 once per DCN, K7
-    three times (the FPN's top-down adds; their backward is plain torch),
-    K8 never (the fence switches are off)."""
-    return {"pyramid_pack": 1, "roi_align": 3, "deform_conv": dcn, "roi_align_bwd": 3,
-            "deform_conv_bwd_input": dcn, "deform_conv_bwd_offset_weight": dcn,
-            "upsample_add": 3, "layout_fence": 0, "soft_nms": 0}
+def step_kernels(dcn: int) -> dict:
+    """The hand-written kernels of one bfloat16 train step with `dcn`
+    deformable convs of one weight group: K1 once, K2 and K4 three times,
+    K3, K5 and K6 once per DCN, all three on the tensor cores (K6 runs its
+    d_offsets kernel and its d_weight kernel), K7 three times (the FPN's
+    top-down adds; their backward is plain torch), K8 never (the fence
+    switches are off), no soft-NMS."""
+    return {"pyramid_pack_kernel": 1, "roi_align_fwd_kernel": 3, "roi_align_bwd_kernel": 3,
+            "upsample_add_kernel": 3, K3_TC: dcn, K3_CC: 0,
+            "deform_conv_bwd_input_tc_kernel": dcn, "deform_conv_bwd_input_kernel": 0,
+            "deform_conv_bwd_offset_kernel": dcn, "deform_conv_bwd_weight_tc_kernel": dcn,
+            "deform_conv_bwd_weight_kernel": 0, "layout_fence_kernel": 0, "soft_nms_kernel": 0}
 
 
 def open_residuals(model) -> None:
@@ -1665,14 +1650,12 @@ def check_k5_k6(calls, names, label, deform_groups: int = 1,
     from htd_tpu_torch.ops.dcn import deform_conv2d_backward_plain
     from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
                                             launch_deform_conv_bwd_offset_weight)
-    from htd_tpu_torch.ops.roi_align_cuda import path_counts, reset_launch_counts
 
     errs = {}
     dg = deform_groups
     for dtype in dtypes:
         worst = {"d_x": [0.0, 0.0], "d_off": [0.0, 0.0], "d_w": [0.0, 0.0]}
         spread = 0.0
-        reset_launch_counts()
         for name, x, off, w, g, stride, groups in calls:
             if name not in names:
                 continue
@@ -1707,12 +1690,10 @@ def check_k5_k6(calls, names, label, deform_groups: int = 1,
         errs[dtype] = (worst["d_x"][0], max(worst["d_off"][0], worst["d_w"][0]))
         limits = "1e-5" if dtype == torch.float32 else \
             "K5 1e-5, K6 1e-4, each + one bfloat16 ulp"
-        k6_paths = {k: v for k, v in path_counts.items() if k.startswith("deform_conv_bwd_off")}
         print(f"{str(dtype)[6:]} {label}, deform groups {dg}: K5 d_x max err "
               f"{worst['d_x'][1]:.3g}, K6 d_off "
               f"{worst['d_off'][1]:.3g}, d_w {worst['d_w'][1]:.3g} of max |plain| (limit "
-              f"{limits}); two runs differ by at most {spread:.3g} of max |plain|; K6 paths "
-              f"{k6_paths}")
+              f"{limits}); two runs differ by at most {spread:.3g} of max |plain|")
     return errs[dtypes[0]]
 
 
@@ -1758,7 +1739,7 @@ def dcn_train_phases(card, imgs):
     from htd_tpu_torch.ops._build import load
     from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
                                             launch_deform_conv_bwd_offset_weight)
-    from htd_tpu_torch.ops.roi_align_cuda import _DTYPE_CODE
+    from htd_tpu_torch.ops._build import DTYPE_CODE
     from htd_tpu_torch.train.train_step import create_train_state
 
     phase("16 main path: HTD R-101-DCN training, bfloat16, batch 2 in the 800x1344 bucket")
@@ -1866,7 +1847,7 @@ def dcn_train_phases(card, imgs):
         if name in ("layer2.0", "layer2.1", "layer3.1", "layer4.1"):
             partials = load()[0].htd_deform_conv_bwd_dw_partials(
                 g.shape[0], g.shape[1], g.shape[2], x.shape[-1], g.shape[-1], groups,
-                _DTYPE_CODE[x.dtype])
+                DTYPE_CODE[x.dtype])
             vec = 2 if x.dtype == torch.bfloat16 and groups == 1 else 4  # tensor cores: float2
             print(f"{name} (stride {stride}, {x.shape[-1]} ch, {x.shape[1]}x{x.shape[2]} -> "
                   f"{g.shape[1]}x{g.shape[2]}): K5 {k5 * 1e3:.1f} us (bound "
@@ -1954,7 +1935,8 @@ def dcn_train_phases(card, imgs):
         {"name": "deform_conv_bwd_input", "route": "cuda",
          "source": "htd_tpu_torch/csrc/deform_conv_bwd_input.cu",
          "replaces": "htd_tpu/ops/dcn_pallas.py:313",
-         "launches": train_counts["deform_conv_bwd_input"], "path": "tensor cores (mma.sync bf16)",
+         "launches": train_counts["deform_conv_bwd_input_tc_kernel"],
+         "path": "tensor cores (mma.sync bf16)",
          "max_abs_err": k5_err, "ms": tot["k5"], "device_ms": dev[keys[0]],
          "plain_ms": tot["k5_plain"], "bound_ms": k5_bound,
          "bound_by": "bytes" if tot["k5_b"] >= tot["k5_o"] else "operations",
@@ -1962,7 +1944,7 @@ def dcn_train_phases(card, imgs):
         {"name": "deform_conv_bwd_offset_weight", "route": "cuda",
          "source": "htd_tpu_torch/csrc/deform_conv_bwd_offset_weight.cu",
          "replaces": "htd_tpu/ops/dcn_pallas.py:478",
-         "launches": train_counts["deform_conv_bwd_offset_weight"],
+         "launches": train_counts["deform_conv_bwd_offset_kernel"],
          "path": "d_w on the tensor cores (mma.sync bf16), d_off on the CUDA cores",
          "max_abs_err": k6_err, "ms": tot["k6"], "device_ms": k6_dev, "d_off_device_ms": dev[keys[1]],
          "d_w_device_ms": dev[keys[2]], "plain_ms": tot["k6_plain"], "bound_ms": k6_bound,
@@ -2083,9 +2065,7 @@ def fence_phase(model, img, cfg, card):
 
     from htd_tpu_torch import inference_detector
     from htd_tpu_torch.ops import elementwise_cuda
-    from htd_tpu_torch.models import graphs
     from htd_tpu_torch.ops.fence import layout_fence, layout_fence_plain
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
     phase("21 main path: R-101-DCN bfloat16 request with the three layout fences on")
     switches = ("HTD_FPN_FENCE", "HTD_RPN_FENCE", "HTD_DCN_FENCE")
@@ -2095,26 +2075,28 @@ def fence_phase(model, img, cfg, card):
     n_dcn = len(dcn_convs(model))
     n_rpn = len(cfg.rpn.anchor.strides)
     want = 3 + n_rpn + n_dcn
+    soft = int(cfg.rcnn_test.use_soft_nms)
     try:
         # the switches make another key: the first fenced request captures
-        # its graph (each launcher of the backbone and FPN called in the
-        # warm-up, whose fenced inputs come first, and in the capture),
-        # the second replays it under the profiler
+        # its graph (its eager warm-up, whose fenced inputs come first, runs
+        # the backbone's and FPN's fences, as its replay does), the second
+        # replays it
         os.environ.update({k: "1" for k in switches})
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        graphs.reset_graph_counts()
+
+        def first_request():
+            model._drop_graphs()
+            fenced.clear()
+            return inference_detector(model, img)
+
         with recording(elementwise_cuda, "launch_layout_fence", fenced.append):
-            inference_detector(model, img)
-        torch.cuda.synchronize()
-        captured = dict(launch_counts)
-        if graphs.graph_counts != {"capture": 1, "replay": 1, "eager": 0} \
-                or captured["layout_fence"] != n_rpn + graph_launches(3 + n_dcn, graphs.graph_counts):
-            fail(f"unexpected launches on the first fenced request: {captured}, graphs "
-                 f"{graphs.graph_counts}")
-        dets, counts = traced_request(lambda: inference_detector(model, img),
-                                      {"upsample_add": 3, "deform_conv_tc": n_dcn,
-                                       "layout_fence": 3 + n_dcn})
+            _, captured, _ = traced(
+                "the first fenced request", first_request,
+                request_kernels(1, 2, n_dcn, soft=soft, k8=n_rpn + 2 * (3 + n_dcn)),
+                {"capture": 1, "replay": 1, "eager": 0})
+        dets, counts, _ = traced("the replayed fenced request",
+                                 lambda: inference_detector(model, img),
+                                 request_kernels(1, 1, n_dcn, soft=soft, k8=want),
+                                 {"capture": 0, "replay": 1, "eager": 0})
     finally:
         for k, v in saved.items():
             if v is None:
@@ -2122,12 +2104,10 @@ def fence_phase(model, img, cfg, card):
             else:
                 os.environ[k] = v
     print(f"{', '.join(switches)} = 1 for two requests {img.shape[1]}x{img.shape[0]}, then "
-          f"restored: the first captured its graph (launches {captured}); the replayed one's "
-          f"kernels by its trace {counts}; K8 {counts['layout_fence']} (expected 3 FPN sums + "
-          f"{n_rpn} RPN levels + {n_dcn} deformable-conv inputs = {want})")
-    if counts["layout_fence"] != want or counts["upsample_add"] != 3 \
-            or counts["deform_conv"] != n_dcn:
-        fail(f"unexpected kernels on the fenced request: {counts}")
+          f"restored: the first captured its graph (kernels by its trace {captured}); the "
+          f"replayed one's kernels by its trace {counts}; K8 {counts['layout_fence_kernel']} "
+          f"(expected 3 FPN sums + {n_rpn} RPN levels + {n_dcn} deformable-conv inputs = "
+          f"{want})")
     same = all(np.array_equal(a, b) for a, b in zip(base, dets))
     print(f"detections of the fenced request bit-identical to the unfenced one: {same} "
           f"({len(dets[1])} detections)")
@@ -2138,14 +2118,14 @@ def fence_phase(model, img, cfg, card):
     dcn_input = max(fenced[:n_dcn], key=lambda f: f.numel())
     for label, x in (("the largest fenced tensor", largest),
                      ("the largest deformable-conv input", dcn_input)):
-        t, traced = interleaved_ms({"K8": (lambda: layout_fence(x), "layout_fence"),
-                                    "clone": (lambda: x.clone(), "")})
+        t, n_traced = interleaved_ms({"K8": (lambda: layout_fence(x), "layout_fence"),
+                                      "clone": (lambda: x.clone(), "")})
         plain = device_ms(lambda: layout_fence_plain(x), iters=50, cold=True)
         call = cuda_ms(lambda: layout_fence(x), iters=50)
         nbytes = 2 * x.numel() * x.element_size()
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         print(f"K8 on {label} {tuple(x.shape)} {x.dtype} strides {x.stride()}: K8 and clone() "
-              f"in turns, {INTERLEAVED} calls each ({traced} traced), L2 flushed, median device "
+              f"in turns, {INTERLEAVED} calls each ({n_traced} traced), L2 flushed, median device "
               f"time: K8 {t['K8'] * 1e3:.2f} us ({100 * bound / t['K8']:.1f}% of its bound "
               f"{bound * 1e3:.1f} us, {nbytes / 1e6:.2f} MB read and written at 3.35 TB/s), "
               f"clone() {t['clone'] * 1e3:.2f} us; K8 / clone() {t['K8'] / t['clone']:.3f}; plain "
@@ -2153,7 +2133,7 @@ def fence_phase(model, img, cfg, card):
               f"dispatch {call * 1e3:.1f} us ({card})")
         if x is largest:
             k8 = {"ms": t["K8"], "plain_ms": plain, "bound_ms": bound, "library_ms": t["clone"]}
-    return counts["layout_fence"], k8
+    return counts["layout_fence_kernel"], k8
 
 
 def match_detections(ref, got, box_tol: float = 1e-2, score_tol: float = 1e-3):
@@ -2186,21 +2166,23 @@ def tta_phase(model, stds, imgs, card):
     n_augs = 2 * len(TTA_SCALES)
     n_dcn = len(dcn_convs(model))
     # the first call captures a graph per key; the second replays them all
+    # (two backbone passes an aug: the proposals' and the cascade's), with
+    # one soft-NMS over the merged detections
     graphs.reset_graph_counts()
     aug_inference_detector(model, img, scales=TTA_SCALES, flip=True)
     first = dict(graphs.graph_counts)
-    (boxes, scores, labels), counts = traced_request(
+    if first["eager"] or first["capture"] < 1:
+        fail(f"the first TTA call did not capture its graphs: {first}")
+    (boxes, scores, labels), counts, _ = traced(
+        "the replayed TTA call",
         lambda: aug_inference_detector(model, img, scales=TTA_SCALES, flip=True),
-        {"upsample_add": 6 * n_augs, "deform_conv_tc": 2 * n_dcn * n_augs}, passes=2 * n_augs)
+        request_kernels(n_augs, 2 * n_augs, n_dcn, soft=int(cfg.rcnn_test.use_soft_nms)),
+        {"capture": 0, "replay": 2 * n_augs, "eager": 0})
     check_detections(boxes, scores, labels, img, cfg)
-    want = {"upsample_add": 6 * n_augs, "deform_conv": 2 * n_dcn * n_augs,
-            "pyramid_pack": n_augs, "roi_align": 3 * n_augs}
     print(f"scales {TTA_SCALES} x [no flip, flip] = {n_augs} augs on {img.shape[1]}x"
           f"{img.shape[0]}: {len(scores)} detections (max_per_img {cfg.rcnn_test.max_per_img}), "
           f"top scores {np.round(scores[:3], 4).tolist()}, labels {labels[:3].tolist()}; "
           f"graphs of the first call {first}; the replayed call's kernels by its trace {counts}")
-    if first["eager"] or first["capture"] < 1 or any(counts[k] != v for k, v in want.items()):
-        fail(f"expected kernels {want} (K7 6 per aug: the proposal and cascade passes)")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2277,8 +2259,6 @@ def eval_phase(card):
 
     from htd_tpu_torch import evaluate_dataset, evaluate_proposals, htd_r50_1x, init_detector
     from htd_tpu_torch.data.coco_eval import evaluate_coco_map
-    from htd_tpu_torch.models import graphs
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
     phase("23 main path: evaluate_dataset and evaluate_proposals, R-50 bfloat16, batch 8")
     model = init_detector(htd_r50_1x(compute_dtype="bfloat16"), seed=0)
@@ -2297,26 +2277,20 @@ def eval_phase(card):
           f"{self_check['mAP']}, AR@100 {self_check['AR@100']}")
     if self_check["mAP"] != 1.0:
         fail("the COCO evaluator does not give mAP 1 on the ground truth")
-    n_batches = -(-n_land // 8) + -(-(len(ds) - n_land) // 8)
     for run in ("first", "warm"):
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        graphs.reset_graph_counts()
-        t0 = time.perf_counter()
-        metrics = evaluate_dataset(model, ds, batch_size=8, log_every=0)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = dict(launch_counts)
-        print(f"evaluate_dataset ({run}): {len(ds) / dt:.2f} images/s ({dt:.2f} s, {n_batches} "
-              f"batches of 8); launches {counts}; graphs {dict(graphs.graph_counts)}; " +
-              ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()) + f" ({card})")
         # each batch replays its key's graph, captured in the first run
-        if graphs.graph_counts["replay"] != n_batches or graphs.graph_counts["eager"] \
-                or (graphs.graph_counts["capture"] > 0) != (run == "first") \
-                or counts["upsample_add"] != graph_launches(3, graphs.graph_counts) \
-                or counts["pyramid_pack"] != n_batches:
-            fail(f"expected a replayed graph and K1 1 launch per batch, K7 3 launches per "
-                 f"capture's warm-up and capture, got {counts}, graphs {graphs.graph_counts}")
+        kernels, graph = evaluation_kernels(n_land, len(ds) - n_land, 8, run == "first")
+
+        def evaluate():
+            if run == "first":
+                model._drop_graphs()
+            return evaluate_dataset(model, ds, batch_size=8, log_every=0)
+
+        metrics, counts, dt = traced(f"evaluate_dataset ({run})", evaluate, kernels, graph)
+        print(f"evaluate_dataset ({run}, under the profiler): {len(ds) / dt:.2f} images/s "
+              f"({dt:.2f} s, {graph['replay']} batches of 8); kernels by its trace {counts}; "
+              f"graphs {graph}; " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+              + f" ({card})")
         finite_metrics(f"evaluate_dataset ({run})", metrics)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2359,46 +2333,13 @@ def png_coco(root: str):
     return paths[0], paths[1], pixels
 
 
-def graph_count_keys(graph: dict) -> dict:
-    """`graphs.graph_counts` under the keys `tool_run` gives them."""
-    return {f"graph_{k}": v for k, v in graph.items()}
-
-
-def replayed(passes: int, counts: dict, per_pass: dict) -> dict:
-    """What `expect_launches` wants of a run of `passes` backbone passes
-    that each replay a graph (some captured in the run, as `counts`'
-    graph_capture says): the replays, no eager pass, and of each launcher
-    of the backbone and FPN ({launch counter key: calls per pass}) the
-    calls of the captures' warm-ups and captures."""
-    graph = {"capture": counts.get("graph_capture", 0), "eager": 0}
-    return {"graph_replay": passes, "graph_eager": 0,
-            **{k: graph_launches(n, graph) for k, n in per_pass.items()}}
-
-
-def tool_run(label: str, fn, card: str):
-    """Run one tool in process with the launch and graph counts set to 0
-    just before; returns (its result, the counts, graph counts as
-    `graph_count_keys` names them). Prints the wall time."""
-    from htd_tpu_torch.models import graphs
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
-
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    graphs.reset_graph_counts()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = {k: v for k, v in {**launch_counts, **path_counts,
-                                **graph_count_keys(graphs.graph_counts)}.items() if v}
-    print(f"[{label}] {dt:.2f} s; launches {counts} ({card})")
-    return out, counts
-
-
-def expect_launches(label: str, counts: dict, want: dict) -> None:
-    got = {k: counts.get(k, 0) for k in want}
-    if got != want:
-        fail(f"{label}: expected launches {want}, got {got}")
+def tool_run(label: str, fn, card: str, kernels: dict = None, graph: dict = None):
+    """Run one tool in process under `traced` (the kernels and graph counts
+    that it must show; none by default); returns its result and prints its
+    wall time (under the profiler) and the kernels of its trace."""
+    out, counts, seconds = traced(label, fn, kernels or {}, graph)
+    print(f"[{label}] {seconds:.2f} s under the profiler; kernels by its trace {counts} ({card})")
+    return out
 
 
 def tools_phase(card):
@@ -2432,11 +2373,10 @@ def tools_phase(card):
         common = ["--config", "htd_r50_1x", "--bf16", "--batch-size", "2", "--train-ann",
                   train_ann, "--train-img", root, "--log-interval", "1", "--seed", "0",
                   "--set", "train.total_epochs=2"]
-        full, counts = tool_run("train.py, 2 epochs", lambda: train_tool.main(
-            common + ["--work-dir", f"{root}/full"]), card)
-        expect_launches("train.py", counts, {"pyramid_pack": 2 * steps, "roi_align": 6 * steps,
-                                             "roi_align_bwd": 6 * steps,
-                                             "upsample_add": 6 * steps})
+        full = tool_run("train.py, 2 epochs", lambda: train_tool.main(
+            common + ["--work-dir", f"{root}/full"]), card, {
+                "pyramid_pack_kernel": 2 * steps, "roi_align_fwd_kernel": 6 * steps,
+                "roi_align_bwd_kernel": 6 * steps, "upsample_add_kernel": 6 * steps})
         for name in ("config.json", "train.log.json", "epoch_1.pth", "epoch_2.pth"):
             if not os.path.exists(f"{root}/full/{name}"):
                 fail(f"train.py wrote no {name}")
@@ -2450,12 +2390,11 @@ def tools_phase(card):
         if (meta["step"], meta["steps_per_epoch"], meta["epoch"]) != (steps, steps, 1):
             fail(f"epoch_1.pth meta {meta}")
 
-        resumed, counts = tool_run("train.py --resume-from epoch_1.pth --val-ann", lambda:
-                                   train_tool.main(common + [
-                                       "--work-dir", f"{root}/resumed", "--resume-from",
-                                       f"{root}/full/epoch_1.pth", "--val-ann", val_ann,
-                                       "--val-img", root]), card)
-        expect_launches("resumed train.py", counts, {"roi_align_bwd": 3 * steps})
+        resumed = tool_run("train.py --resume-from epoch_1.pth --val-ann", lambda:
+                           train_tool.main(common + [
+                               "--work-dir", f"{root}/resumed", "--resume-from",
+                               f"{root}/full/epoch_1.pth", "--val-ann", val_ann,
+                               "--val-img", root]), card, {"roi_align_bwd_kernel": 3 * steps})
         first, ref = resumed[0], full[steps]
         if (first["epoch"], first["iter"], ref["epoch"], ref["iter"]) != (2, 1, 2, 1):
             fail(f"the resumed run starts at {first}, not at epoch 2 iteration 1")
@@ -2481,13 +2420,13 @@ def tools_phase(card):
         ckpt = f"{root}/full/epoch_2.pth"
         test_args = ["--config", "htd_r50_1x", "--bf16", "--checkpoint", ckpt, "--ann", val_ann,
                      "--img-root", root, "--set", "rcnn_test.score_thr=0.0"]
-        n_batches = -(-n_land // 8) + -(-(len(val) - n_land) // 8)
-        metrics, counts = tool_run("test.py --dump --coco-dump", lambda: test_tool.main(
-            test_args + ["--dump", f"{root}/dets.json", "--coco-dump", f"{root}/coco.json"]), card)
+        # each test.py run builds its model: one capture a bucket
+        kernels, graph = evaluation_kernels(n_land, len(val) - n_land, 8, True)
+        metrics = tool_run("test.py --dump --coco-dump", lambda: test_tool.main(
+            test_args + ["--dump", f"{root}/dets.json", "--coco-dump", f"{root}/coco.json"]),
+            card, kernels, graph)
         finite_metrics("test.py", metrics)
-        expect_launches("test.py", counts, {"pyramid_pack": n_batches, "roi_align": 3 * n_batches,
-                                            **replayed(n_batches, counts, {"upsample_add": 3})})
-        offline, _ = tool_run("eval_metric.py", lambda: eval_metric.main(
+        offline = tool_run("eval_metric.py", lambda: eval_metric.main(
             [f"{root}/dets.json", "--ann", val_ann]), card)
         with open(f"{root}/coco.json") as f:
             n_coco = len(json.load(f))
@@ -2496,28 +2435,29 @@ def tools_phase(card):
               f"dump")
         if json.dumps(offline) != json.dumps(metrics):
             fail("eval_metric.py does not reproduce test.py's metrics")
-        recall, counts = tool_run("test.py --eval proposal", lambda: test_tool.main(
-            test_args + ["--eval", "proposal"]), card)
-        expect_launches("test.py --eval proposal", counts, {
-            "pyramid_pack": 0, "roi_align": 0, **replayed(n_batches, counts, {"upsample_add": 3})})
+        recall = tool_run("test.py --eval proposal", lambda: test_tool.main(
+            test_args + ["--eval", "proposal"]), card,
+            {**kernels, "pyramid_pack_kernel": 0, "roi_align_fwd_kernel": 0}, graph)
         if not all(0.0 <= v <= 1.0 for v in recall.values()):
             fail(f"proposal recall outside [0, 1]: {recall}")
-        aug, counts = tool_run("test.py --aug --max-images 2", lambda: test_tool.main(
-            test_args + ["--aug", "--max-images", "2"]), card)
+        # 2 images x flip, two backbone passes an aug, one bucket an orientation
+        buckets = len({r.landscape for r in val.records[:2]})
+        aug = tool_run("test.py --aug --max-images 2", lambda: test_tool.main(
+            test_args + ["--aug", "--max-images", "2"]), card,
+            {"pyramid_pack_kernel": 4, "roi_align_fwd_kernel": 12,
+             "upsample_add_kernel": 3 * (8 + buckets)},
+            {"capture": buckets, "replay": 8, "eager": 0})
         finite_metrics("test.py --aug", aug)
-        expect_launches("test.py --aug", counts, {"pyramid_pack": 4, "roi_align": 12,
-                                                  **replayed(8, counts, {"upsample_add": 3})})
         print(f"proposal recall {recall}; TTA (test scale x flip) on 2 images {aug}")
 
-        dcn, counts = tool_run("test.py --config htd_r101_dcn_2x", lambda: test_tool.main(
+        dcn = tool_run("test.py --config htd_r101_dcn_2x", lambda: test_tool.main(
             ["--config", "htd_r101_dcn_2x", "--bf16", "--max-images", "2", "--batch-size", "2",
-             "--ann", val_ann, "--img-root", root]), card)
+             "--ann", val_ann, "--img-root", root]), card, {K3_TC: 60, K3_CC: 0},
+            {"capture": 1, "replay": 1, "eager": 0})
         finite_metrics("R-101-DCN test.py", dcn)
-        expect_launches("R-101-DCN test.py", counts, {
-            **replayed(1, counts, {"deform_conv": 30, "deform_conv_tc": 30}), "graph_capture": 1})
         print(f"R-101-DCN bf16, random weights, 2 images: {dcn}")
 
-        published, _ = tool_run("publish_model.py", lambda: publish_model.main(
+        published = tool_run("publish_model.py", lambda: publish_model.main(
             [ckpt, f"{root}/htd_r50.pth"]), card)
         if not re.fullmatch(re.escape(root) + r"/htd_r50-[0-9a-f]{8}\.pth", published):
             fail(f"publish_model.py wrote {published}")
@@ -2708,6 +2648,26 @@ def nccl_world_of_one(card: str, group) -> None:
         fail(f"the step over NCCL disagrees with the step without a group: {over[:4]}")
 
 
+def agreed_kernel_counts(label: str, fn, kernels: dict, group):
+    """`kernel_counts` of fn() on every rank of the process `group` at
+    once: all ranks trace fn() again while any rank's trace holds fewer of
+    a kernel than `kernels` ({kernel name: n}) says, so that the ranks'
+    collectives stay paired; KERNEL_TRACES traces at most. Returns fn()'s
+    result and this rank's kernels."""
+    import torch.distributed as dist
+
+    from htd_tpu_torch.utils.profiling import KERNEL_TRACES, kernel_counts
+
+    for _ in range(KERNEL_TRACES):
+        out, got = kernel_counts(fn)
+        short = torch.tensor([int(any(got.get(k, 0) < n for k, n in kernels.items()))])
+        dist.all_reduce(short, op=dist.ReduceOp.MAX, group=group)
+        if not short.item():
+            return out, got
+    fail(f"{label}: {KERNEL_TRACES} traces held kernels {got} on some rank, fewer than "
+         f"{kernels}")
+
+
 def gloo_train_rank(rank: int, root: str) -> None:
     """Phase 25 (b): one of two gloo ranks on the card. GLOO_STEPS bf16
     R-50 steps on its own batch of 2 (launches checked per step, the
@@ -2716,7 +2676,6 @@ def gloo_train_rank(rank: int, root: str) -> None:
     import torch.distributed as dist
 
     from htd_tpu_torch import htd_r50_1x
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
     from htd_tpu_torch.parallel import broadcast_parameters
     from htd_tpu_torch.train import train_step as ts
 
@@ -2741,17 +2700,20 @@ def gloo_train_rank(rank: int, root: str) -> None:
         return out
 
     ts.all_reduce_mean_packed = timed
-    for i in range(GLOO_STEPS):
-        torch.cuda.synchronize()
-        reset_launch_counts()
+
+    def step():
         t0 = time.perf_counter()
         metrics = ts.train_step(state, batch, ts.step_generator(0, state.step, "cuda", rank, 2),
                                 group=group)
         torch.cuda.synchronize()
-        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
-        counts = dict(launch_counts)
-        if counts != step_launches(0):
-            fail(f"rank {rank}: unexpected launches at step {i}: {counts}")
+        return metrics, (time.perf_counter() - t0) * 1e3
+
+    want = step_kernels(0)
+    for i in range(GLOO_STEPS):
+        (metrics, ms), counts = agreed_kernel_counts(f"rank {rank} step {i}", step, want, group)
+        rec["step_ms"].append(ms)
+        if any(counts.get(k, 0) != n for k, n in want.items()):
+            fail(f"rank {rank}: unexpected kernels at step {i}: {counts}")
         if not all(math.isfinite(float(v)) for v in metrics.values()):
             fail(f"rank {rank}: non-finite losses at step {i}")
         rec["identical"].append(identical_across_ranks(state.model))
@@ -2823,13 +2785,15 @@ def gloo_train_phase(card: str, root: str) -> None:
             recs.append(json.load(f))
         rec = recs[-1]
         print(f"rank {r}: step median {statistics.median(rec['step_ms'][1:]):.2f} ms over steps "
-              f"2-{GLOO_STEPS} (first {rec['step_ms'][0]:.2f} ms); packed vector "
+              f"2-{GLOO_STEPS} (first {rec['step_ms'][0]:.2f} ms; under the profiler); packed "
+              f"vector "
               f"{rec['packed'][0]} float32 values ({rec['packed'][0] * 4 / 1e6:.1f} MB); its "
               f"all-reduce by events, gloo's host path (copies to and from the host, the sum on "
               f"the CPU; not NCCL's time): median {statistics.median(rec['reduce_ms']):.1f} ms "
-              f"({', '.join(f'{v:.1f}' for v in rec['reduce_ms'])}); launches per step as "
-              f"phase 12's; parameters bit-identical across the ranks after each step: "
-              f"{rec['identical']}, after the float32 step: {rec['f32_identical']} ({card})")
+              f"({', '.join(f'{v:.1f}' for v in rec['reduce_ms'])}); kernels per step as "
+              f"phase 12's, by their traces; parameters bit-identical across the ranks after "
+              f"each step: {rec['identical']}, after the float32 step: {rec['f32_identical']} "
+              f"({card})")
         if not all(rec["identical"]) or not rec["f32_identical"]:
             fail(f"rank {r}'s parameters differ from rank 0's")
     if recs[0]["loss"] != recs[1]["loss"]:
@@ -2853,7 +2817,7 @@ def spawned_evaluation(root: str, tag: str, group=None) -> None:
     saved to {root}/gloo_eval{tag}.pt."""
     from htd_tpu_torch import evaluate_dataset, htd_r50_1x, init_detector
     from htd_tpu_torch.models import graphs
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+    from htd_tpu_torch.utils.profiling import kernel_counts
 
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
@@ -2861,15 +2825,21 @@ def spawned_evaluation(root: str, tag: str, group=None) -> None:
     scale_scores(model)
     os.makedirs(f"{root}/coco{tag}")
     ds = SeededCoco(f"{root}/coco{tag}").dataset
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    graphs.reset_graph_counts()
-    metrics, dets = evaluate_dataset(model, ds, batch_size=8, log_every=0,
-                                     return_detections=True, group=group)
-    torch.cuda.synchronize()
-    torch.save({"metrics": metrics, "dets": dets,
-                "launches": {**launch_counts, **graph_count_keys(graphs.graph_counts)}},
-               f"{root}/gloo_eval{tag}.pt")
+
+    def evaluate():
+        model._drop_graphs()
+        graphs.reset_graph_counts()
+        return evaluate_dataset(model, ds, batch_size=8, log_every=0, return_detections=True,
+                                group=group)
+
+    if group is None:
+        (metrics, dets), counts = kernel_counts(evaluate)
+    else:
+        # a rank runs every other batch of 8: here one, captured then replayed
+        (metrics, dets), counts = agreed_kernel_counts(
+            f"evaluation rank {tag}", evaluate, GLOO_EVAL_KERNELS, group)
+    torch.save({"metrics": metrics, "dets": dets, "kernels": counts,
+                "graphs": dict(graphs.graph_counts)}, f"{root}/gloo_eval{tag}.pt")
 
 
 def gloo_eval_rank(rank: int, root: str) -> None:
@@ -2906,14 +2876,15 @@ def gloo_eval_phase(card: str, root: str, eval_metrics: dict) -> None:
         same = (list(out["dets"]) == list(ref_dets) and all(
             np.array_equal(x, y) for k in ref_dets for x, y in zip(ref_dets[k], out["dets"][k])))
         n = sum(len(v[1]) for v in out["dets"].values())
-        print(f"rank {r}: launches {out['launches']}; metrics {out['metrics']}; {n} gathered "
-              f"detections of {len(out['dets'])} images, bit-identical to one fresh process's "
-              f"(same batches, cuDNN's heuristics in both): {same}")
+        print(f"rank {r}: kernels by its trace {out['kernels']}, graphs {out['graphs']}; "
+              f"metrics {out['metrics']}; {n} gathered detections of {len(out['dets'])} images, "
+              f"bit-identical to one fresh process's (same batches, cuDNN's heuristics in "
+              f"both): {same}")
         if json.dumps(out["metrics"]) != json.dumps(ref) or not same:
             fail(f"rank {r}'s evaluation differs from one process's")
-        expect_launches(f"rank {r}", out["launches"], {
-            "pyramid_pack": 1, "roi_align": 3,
-            **replayed(1, out["launches"], {"upsample_add": 3})})
+        if any(out["kernels"].get(k, 0) != c for k, c in GLOO_EVAL_KERNELS.items()) \
+                or out["graphs"] != {"capture": 1, "replay": 1, "eager": 0}:
+            fail(f"rank {r}: expected kernels {GLOO_EVAL_KERNELS} and one capture and replay")
     diff = max(abs(ref[k] - eval_metrics[k]) for k in ref
                if math.isfinite(ref[k]) and math.isfinite(eval_metrics[k]))
     print(f"one fresh process with cuDNN's heuristics {ref}; phase 23 (autotuned) {eval_metrics}: "
@@ -3044,9 +3015,11 @@ def jpeg_coco(root: str, photos):
 
 class RecordedEvaluations:
     """Wraps `htd_tpu_torch.apis.evaluate_dataset` (the tools import it at
-    call time): each call runs with `return_detections=True` and the
-    launch counts set to 0 just before; records (model, dataset,
-    detections, counts, seconds) and returns the metrics alone."""
+    call time): each call runs with `return_detections=True` under
+    `traced`, which must find `evaluation_kernels` of its dataset (on a
+    model without graphs, one capture a bucket); records (model, dataset,
+    detections, kernels, seconds under the profiler) and returns the
+    metrics alone."""
 
     def __init__(self):
         import htd_tpu_torch.apis as apis
@@ -3054,19 +3027,20 @@ class RecordedEvaluations:
         self.apis, self.original, self.calls = apis, apis.evaluate_dataset, []
 
     def __enter__(self):
-        from htd_tpu_torch.models import graphs
-        from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
+        def recorded(model, dataset, batch_size=8, **kwargs):
+            fresh = not model._graphs
+            n_land = sum(r.landscape for r in dataset.records)
+            kernels, graph = evaluation_kernels(n_land, len(dataset) - n_land, batch_size, fresh)
 
-        def recorded(model, dataset, **kwargs):
-            torch.cuda.synchronize()
-            reset_launch_counts()
-            graphs.reset_graph_counts()
-            t0 = time.perf_counter()
-            metrics, dets = self.original(model, dataset, return_detections=True, **kwargs)
-            torch.cuda.synchronize()
-            self.calls.append((model, dataset, dets,
-                               {**launch_counts, **graph_count_keys(graphs.graph_counts)},
-                               time.perf_counter() - t0))
+            def evaluate():
+                if fresh:
+                    model._drop_graphs()
+                return self.original(model, dataset, batch_size=batch_size,
+                                     return_detections=True, **kwargs)
+
+            (metrics, dets), counts, seconds = traced(f"evaluation {len(self.calls)}", evaluate,
+                                                      kernels, graph)
+            self.calls.append((model, dataset, dets, counts, seconds))
             return metrics
 
         self.apis.evaluate_dataset = recorded
@@ -3129,39 +3103,34 @@ def robustness_phase(card: str) -> None:
         # (b) test.py on a JPEG mini-COCO
         ann = jpeg_coco(root, [(n, tuple(manifest[n]["shape"][:2])) for n in photos])
         land = sum(manifest[n]["shape"][1] >= manifest[n]["shape"][0] for n in photos)
-        n_batches = -(-land // 8) + -(-(len(photos) - land) // 8)
-        metrics, counts = tool_run("test.py --eval bbox on the JPEG mini-COCO", lambda:
-                                   test_tool.main(["--config", "htd_r50_1x", "--bf16", "--ann",
-                                                   ann, "--img-root", jdir, "--eval", "bbox",
-                                                   "--set", "rcnn_test.score_thr=0.0"]), card)
+        kernels, graph = evaluation_kernels(land, len(photos) - land, 8, True)
+        metrics = tool_run("test.py --eval bbox on the JPEG mini-COCO", lambda:
+                           test_tool.main(["--config", "htd_r50_1x", "--bf16", "--ann", ann,
+                                           "--img-root", jdir, "--eval", "bbox", "--set",
+                                           "rcnn_test.score_thr=0.0"]), card, kernels, graph)
         finite_metrics("test.py on JPEG files", metrics)
-        expect_launches("test.py on JPEG files", counts, {
-            "pyramid_pack": n_batches, "roi_align": 3 * n_batches,
-            **replayed(n_batches, counts, {"upsample_add": 3})})
-        print(f"test.py, R-50 bf16, {len(photos)} JPEG files in {n_batches} batches: {metrics}")
+        print(f"test.py, R-50 bf16, {len(photos)} JPEG files in {graph['replay']} batches: "
+              f"{metrics}")
 
         # (c) test_robustness.py on phase 24's PNG mini-COCO
         _, val_ann, _ = png_coco(root)
         out = f"{root}/robustness.json"
+        t0 = time.perf_counter()
         with RecordedEvaluations() as rec:
-            _, counts = tool_run("test_robustness.py", lambda: test_robustness.main([
+            test_robustness.main([
                 "--config", "htd_r50_1x", "--bf16", "--ann", val_ann, "--img-root", root,
                 "--out", out, "--corruptions", *corr.ALL_CORRUPTIONS, "--severities",
-                *map(str, ROBUST_SEVERITIES), "--set", "rcnn_test.score_thr=0.0"]), card)
+                *map(str, ROBUST_SEVERITIES), "--set", "rcnn_test.score_thr=0.0"])
+        print(f"[test_robustness.py] {time.perf_counter() - t0:.2f} s, each evaluation under "
+              f"the profiler ({card})")
         with open(out) as f:
             cells = json.load(f)
         missing = [(c, s) for c in corr.ALL_CORRUPTIONS for s in ROBUST_SEVERITIES
                    if str(s) not in cells.get(c, {})]
         if missing:
             fail(f"test_robustness.py wrote no cell for {missing}")
-        model, clean, clean_dets, _, clean_s = rec.calls[0]
-        n_land = sum(r.landscape for r in clean.records)
-        n_batches = -(-n_land // 8) + -(-(len(clean) - n_land) // 8)
-        for i, (_, ds, _, c, _) in enumerate(rec.calls):
-            expect_launches(f"test_robustness.py cell {i} ({getattr(ds, 'corruption', 'clean')}"
-                            f" {getattr(ds, 'severity', 0)})", c, {
-                                "pyramid_pack": n_batches, "roi_align": 3 * n_batches,
-                                **replayed(n_batches, c, {"upsample_add": 3})})
+        model, clean, clean_dets, clean_kernels, clean_s = rec.calls[0]
+        n_batches = clean_kernels["pyramid_pack_kernel"]
         n_cells = 1 + len(corr.ALL_CORRUPTIONS) * (len(ROBUST_SEVERITIES) - 1)
         if len(rec.calls) != n_cells:
             fail(f"test_robustness.py evaluated {len(rec.calls)} cells, not {n_cells}")
@@ -3174,8 +3143,8 @@ def robustness_phase(card: str) -> None:
             fail("severity 0's detections differ from evaluate_dataset's on the clean set")
         print(f"{n_cells} cells ({len(corr.ALL_CORRUPTIONS)} corruptions x severities "
               f"{ROBUST_SEVERITIES[1:]}, severity 0 once), {len(clean)} PNG images at batch 8, "
-              f"K1 {n_batches}, K2 {3 * n_batches} launches and {n_batches} graph replays "
-              f"(K7 3 each) per cell; "
+              f"K1 {n_batches}, K2 {3 * n_batches} kernels and {n_batches} graph replays "
+              f"(K7 3 each) per cell, by their traces; "
               f"severity 0: {n_dets} detections bit-identical to evaluate_dataset's on the "
               f"clean set with the same model")
         t0 = time.perf_counter()
@@ -3184,11 +3153,12 @@ def robustness_phase(card: str) -> None:
         by_name = {}
         for _, ds, _, _, sec in rec.calls[1:]:
             by_name.setdefault(ds.corruption, []).append(round(sec, 2))
-        print(f"cell wall s (host clock, evaluate_dataset with its image loads): clean "
+        print(f"cell wall s (host clock, evaluate_dataset with its image loads, under the "
+              f"profiler): clean "
               f"{clean_s:.2f}, of which {decode_s:.2f} s decode the {len(clean)} PNG files "
               f"({megapixels:.2f} MP) on the host; per corruption at severities "
               f"{ROBUST_SEVERITIES[1:]}: {by_name} ({card})")
-        printed, _ = tool_run("robustness_eval.py", lambda: robustness_eval.main(
+        printed = tool_run("robustness_eval.py", lambda: robustness_eval.main(
             [out, "--prints", "P", "mPC", "rPC", "--aggregate", "all"]), card)
         for key in ("P", "mPC"):
             finite_metrics(f"robustness_eval.py {key}", printed[key])
@@ -3282,33 +3252,50 @@ def jpeg_decode_rates(card: str, root: str) -> None:
 
 def drill_run(card: str, root: str) -> str:
     """Phase 27 (b): tools_torch/drill_production.py at production scale,
-    its tools run in this process (`in_process`) with the launch counts
-    set to 0 just before; returns the drill's checkpoint."""
+    its tools run in this process (`in_process`), its test.py under
+    `traced`; returns the drill's checkpoint."""
+    from htd_tpu_torch.models import graphs
     from tools_torch import drill_production as drill
 
     out = f"{root}/drill"
     argv = ["--images", str(DRILL_IMAGES), "--mirror-images", str(DRILL_MIRROR), "--scale",
             "x".join(map(str, DRILL_SCALE)), "--out", out]
-    saved, drill._run = drill._run, in_process
+    seen = {}
+
+    def run(cmd, env=None):
+        if os.path.basename(cmd[1]) != "test.py":
+            return in_process(cmd, env)
+        with open(cmd[cmd.index("--ann") + 1]) as f:
+            images = json.load(f)["images"]
+        land = sum(im["width"] >= im["height"] for im in images)
+        kernels, graph = evaluation_kernels(land, len(images) - land,
+                                            int(cmd[cmd.index("--batch-size") + 1]), True)
+        printed, seen["kernels"], _ = traced("the drill's test.py", lambda: in_process(cmd, env),
+                                             kernels, graph)
+        seen["graph"] = graph
+        return printed
+
+    saved, drill._run = drill._run, run
+    t0 = time.perf_counter()
     try:
-        summary, counts = tool_run(f"drill_production.py {' '.join(argv[:6])}",
-                                   lambda: drill.main(argv), card)
+        summary = drill.main(argv)
     finally:
         drill._run = saved
-    with open(f"{out}/ann.json") as f:
-        images = json.load(f)["images"]
-    land = sum(im["width"] >= im["height"] for im in images)
-    n_batches = -(-land // 4) + -(-(len(images) - land) // 4)
-    # the mirror's DRILL_MIRROR requests run on the host's CPU, eagerly
-    expect_launches("drill_production.py's test.py", counts, {
-        "pyramid_pack": n_batches, "roi_align": 3 * n_batches,
-        **replayed(n_batches, counts, {"upsample_add": 3}), "graph_eager": DRILL_MIRROR})
+    kernels, graph = seen["kernels"], seen["graph"]
+    print(f"[drill_production.py {' '.join(argv[:6])}] {time.perf_counter() - t0:.2f} s; its "
+          f"test.py's kernels by its trace {kernels} ({card})")
+    # after test.py, the mirror's DRILL_MIRROR requests run on the host's CPU, eagerly
+    if graphs.graph_counts != {**graph, "eager": DRILL_MIRROR}:
+        fail(f"the drill's graph counts {graphs.graph_counts}: not test.py's {graph} and "
+             f"{DRILL_MIRROR} eager mirror requests")
     finite_metrics("the drill's test.py", summary["full_set_metrics"])
+    n_batches = graph["replay"]
     print(f"test.py (R-50 float32, TF32 off, exact grid, {DRILL_SCALE[0]}x{DRILL_SCALE[1]}, "
-          f"batch 4, {len(images)} PNG images in {n_batches} batches; K1 {n_batches}, K2 "
-          f"{3 * n_batches} launches, {n_batches} graph replays): {summary['test_images_per_s']} "
-          f"images/s as test.py logs it (model build and cuDNN's first calls in the first "
-          f"batches), {summary['test_wall_s']} s in all; evaluate_coco_map on its dump over 80 "
+          f"batch 4, {DRILL_IMAGES} PNG images in {n_batches} batches; K1 {n_batches}, K2 "
+          f"{3 * n_batches} kernels, {n_batches} graph replays): "
+          f"{summary['test_images_per_s']} images/s as test.py logs it under the profiler "
+          f"(model build and cuDNN's first calls in the first batches), "
+          f"{summary['test_wall_s']} s in all; evaluate_coco_map on its dump over 80 "
           f"categories (host clock): native matcher {summary['matcher_s']} s of "
           f"{summary['eval_s']} s, numpy twin {summary['matcher_plain_s']} s of "
           f"{summary['eval_plain_s']} s, metrics equal ({card})")
@@ -3321,17 +3308,16 @@ def fidelity_run(card: str, pre_nms: bool) -> None:
 
     argv = ["--dtype", "bfloat16", "--height", "768", "--width", "1344"] + \
         (["--pre-nms"] if pre_nms else [])
+    calls = len(ab_fidelity.LADDER) * (1 + ab_fidelity.WARMUP_CALLS + ab_fidelity.TIMED_CALLS)
     with contextlib.redirect_stderr(open(os.devnull, "w")):
-        out, counts = tool_run(f"ab_fidelity.py{' --pre-nms' if pre_nms else ''}",
-                               lambda: ab_fidelity.main(argv), card)
+        out = tool_run(f"ab_fidelity.py{' --pre-nms' if pre_nms else ''}",
+                       lambda: ab_fidelity.main(argv), card, {"roi_align_fwd_kernel": 3 * calls})
     rungs = out["rungs"]
-    calls = len(rungs) * (1 + ab_fidelity.WARMUP_CALLS + ab_fidelity.TIMED_CALLS)
-    expect_launches("ab_fidelity.py", counts, {"roi_align": 3 * calls})
     if len(rungs) != 5 or not all(math.isfinite(v) for r in rungs.values() for v in r.values()):
         fail(f"ab_fidelity.py wrote {out}")
     print(f"ab_fidelity.py{' --pre-nms' if pre_nms else ''}: {json.dumps(out)}")
-    print(f"ms per image by rung (CUDA events over 8 warm calls, bf16, 768x1344; K2 "
-          f"{3 * calls} launches, 3 per call): "
+    print(f"ms per image by rung (CUDA events over 8 warm calls, bf16, 768x1344, under the "
+          f"profiler; K2 {3 * calls} kernels, 3 per call): "
           f"{ {k: v['ms_per_img'] for k, v in rungs.items()} } ({card})")
 
 
@@ -3341,7 +3327,7 @@ def flops_run(card: str) -> None:
 
     for config, n_dcn in (("htd_r50_1x", 0), ("htd_r101_dcn_2x", 30)):
         with contextlib.redirect_stdout(open(os.devnull, "w")):
-            out, _ = tool_run(f"get_flops.py --config {config}", lambda: get_flops.main(
+            out = tool_run(f"get_flops.py --config {config}", lambda: get_flops.main(
                 ["--config", config, "--height", "768", "--width", "1344", "--dtype",
                  "bfloat16"]), card)
         if out["calls"] != {"deform_conv": n_dcn, "roi_align": 3} or not out["total"] > 0:
@@ -3474,8 +3460,6 @@ def picture_phase(card: str) -> None:
     from htd_tpu_torch import htd_r50_1x, inference_detector, init_detector
     from htd_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg, read_jpeg
     from htd_tpu_torch.data.png import read_png
-    from htd_tpu_torch.models import graphs
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
     from htd_tpu_torch.utils.visualize import draw_detections
     from tests.jpeg_writers import forward_reference
     from tools_torch import browse_dataset
@@ -3535,17 +3519,9 @@ def picture_phase(card: str) -> None:
             model = init_detector(cfg, seed=0)
             scale_scores(model)
             inference_detector(model, img)     # warm: captures the bucket's graph
-            torch.cuda.synchronize()
-            reset_launch_counts()
-            graphs.reset_graph_counts()
-            t0 = time.perf_counter()
-            dboxes, dscores, dlabels = inference_detector(model, img)
-            torch.cuda.synchronize()
-            infer_ms = 1e3 * (time.perf_counter() - t0)
-            counts = {**launch_counts, **graph_count_keys(graphs.graph_counts)}
-        expect_launches("R-50 bf16 on photo0", counts,
-                        {"pyramid_pack": 1, "roi_align": 3, "graph_capture": 0,
-                         **replayed(1, counts, {"upsample_add": 3})})
+            (dboxes, dscores, dlabels), _, infer_s = traced(
+                "R-50 bf16 on photo0", lambda: inference_detector(model, img),
+                request_kernels(1, 1), {"capture": 0, "replay": 1, "eager": 0})
         check_detections(dboxes, dscores, dlabels, img, cfg)
         times = []
         for ext in (".png", ".jpg"):
@@ -3558,8 +3534,8 @@ def picture_phase(card: str) -> None:
                 file_hash(f"{root}/own.jpg") != hashlib.sha256(encode_jpeg(own)).hexdigest():
             fail("the drawn detections' files do not hold the returned pixels")
         print(f"[draw] R-50 bf16 on the card: {len(dscores)} detections on {name} "
-              f"({infer_ms:.2f} ms, K1 1, K2 3 launches, one graph replay), drawn and written "
-              f"as .png "
+              f"({1e3 * infer_s:.2f} ms under the profiler; K1 1, K2 3, K7 3 kernels by its "
+              f"trace, one graph replay), drawn and written as .png "
               f"({times[0]:.2f} ms, read back equal to the returned pixels) and .jpg "
               f"({times[1]:.2f} ms) on the host ({card})")
         del model
@@ -3633,8 +3609,6 @@ def main():
     from htd_tpu_torch.ops.roi_align import (roi_align_levels, roi_align_plain,
                                              roi_align_pyramid)
     from htd_tpu_torch.ops.boxes import map_roi_levels
-    from htd_tpu_torch.models import graphs
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
     t_start = time.perf_counter()
     phase("1 device")
@@ -3672,20 +3646,19 @@ def main():
     scale_scores(gpu32)
     scale_scores(cpu32)
     card_vs_cpu(gpu32, cpu32)
-    before = dict(launch_counts)
-    graphs.reset_graph_counts()
-    boxes, scores, labels = inference_detector(gpu32, imgs[0])
+
+    def first_request():
+        gpu32._drop_graphs()
+        return inference_detector(gpu32, imgs[0])
+
+    # the model's first request at this bucket: it captures the graph (its
+    # warm-up runs the backbone's and FPN's kernels), then replays it
+    graph = {"capture": 1, "replay": 1, "eager": 0}
+    (boxes, scores, labels), counts, _ = traced("the float32 request", first_request,
+                                                request_kernels(1, 2), graph)
     check_detections(boxes, scores, labels, imgs[0], ref_cfg)
-    counts = {k: launch_counts[k] - before[k] for k in launch_counts}
-    # the model's first request at this bucket: it captures the graph
-    # (K7's launcher called in the warm-up and in the capture), then replays it
-    if counts["pyramid_pack"] <= 0 or counts["roi_align"] <= 0 \
-            or graphs.graph_counts != {"capture": 1, "replay": 1, "eager": 0} \
-            or counts["upsample_add"] != graph_launches(3, graphs.graph_counts):
-        fail(f"a kernel was not launched on the float32 request: {counts}, graphs "
-             f"{graphs.graph_counts}")
     print(f"float32 request {imgs[0].shape[1]}x{imgs[0].shape[0]} at full size: "
-          f"{len(scores)} detections, launches {counts}, graphs {dict(graphs.graph_counts)}")
+          f"{len(scores)} detections, kernels by its trace {counts}, graphs {graph}")
     del gpu32, cpu32
 
     phase("5 kernels vs plain versions on the main path's first request")
@@ -3699,7 +3672,6 @@ def main():
     k1_err, k2_err = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         lv = [f.to(dtype) for f in levels]
-        reset_launch_counts()
         kp = pack_pyramid(lv)
         equal = torch.equal(kp.buf, pack_pyramid_plain(lv, kp.geom))
         k1_err[dtype] = (kp.buf.float() - pack_pyramid_plain(lv, kp.geom).float()).abs().max().item()
@@ -3787,19 +3759,19 @@ def main():
     kernels = [
         {"name": "pyramid_pack", "route": "cuda", "source": "htd_tpu_torch/csrc/pyramid_pack.cu",
          "replaces": "htd_tpu/ops/roi_align_pallas.py:196",
-         "launches": main_counts["pyramid_pack"], "max_abs_err": k1_err[torch.bfloat16],
+         "launches": main_counts["pyramid_pack_kernel"], "max_abs_err": k1_err[torch.bfloat16],
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": "bytes",
          "library_ms": k1_lib},
         {"name": "roi_align", "route": "cuda", "source": "htd_tpu_torch/csrc/roi_align.cu",
          "replaces": "htd_tpu/ops/roi_align_pallas.py:1438",
-         "launches": main_counts["roi_align"], "max_abs_err": k2_err[torch.bfloat16],
+         "launches": main_counts["roi_align_fwd_kernel"], "max_abs_err": k2_err[torch.bfloat16],
          "ms": k2["ms"], "device_ms": k2["device_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": max(k2["bytes_ms"], k2["ops_ms"]),
          "bound_by": "bytes" if k2["bytes_ms"] >= k2["ops_ms"] else "operations",
          "library_ms": None},
         *dcn_records,
     ]
-    return card, kind, kernels, t_start, main_counts["upsample_add"], pairs
+    return card, kind, kernels, t_start, main_counts["upsample_add_kernel"], pairs
 
 
 def run() -> None:
@@ -3827,10 +3799,10 @@ def run() -> None:
           f"tensor) and per train step (K4: its 3 calls, R-50; K5, K6: their 30 launches each, "
           f"R-101-DCN); launches are the kernels in the traces of the {len(REQUEST_SHAPES)} "
           f"replayed main-path requests (K1, K2, K7: R-50; K3, soft-NMS: R-101-DCN) and of the "
-          f"replayed fenced request (K8: R-101-DCN), and the launcher calls of the "
-          f"{TRAIN_STEPS} main-path train steps of each training path (K4: R-50; K5, K6: "
-          f"R-101-DCN); max_abs_err is bfloat16 vs the plain version (soft-NMS: float32, "
-          f"checked bit for bit); total {time.perf_counter() - t_start:.1f} s")
+          f"replayed fenced request (K8: R-101-DCN), and in the traces of the {TRAIN_STEPS} "
+          f"main-path train steps of each training path (K4: R-50; K5, K6: R-101-DCN, K6 by "
+          f"its d_offsets kernel); max_abs_err is bfloat16 vs the plain version (soft-NMS: "
+          f"float32, checked bit for bit); total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

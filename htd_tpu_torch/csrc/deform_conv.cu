@@ -412,16 +412,16 @@ int launch_tc(const void* x, const void* offsets, const void* weight, void* out,
 // x (n, h, w, cin), offsets (n, ho, wo, deform_groups * 18), weight (cout,
 // 3, 3, cin/groups), out (n, ho, wo, cout), all contiguous, one dtype:
 // 0 = float32, 1 = bfloat16. bfloat16 with groups == 1 takes the
-// tensor-core path (*path = 1; needs cin/deform_groups a multiple of 64
-// and cout a multiple of 8), everything else the CUDA-core path (*path = 0;
-// needs cin/groups and cin/deform_groups multiples of the 16-byte vector,
-// 4 float32 or 8 bfloat16, and cout/groups a multiple of 4).
+// tensor-core path (needs cin/deform_groups a multiple of 64 and cout a
+// multiple of 8), everything else the CUDA-core path (needs cin/groups and
+// cin/deform_groups multiples of the 16-byte vector, 4 float32 or 8
+// bfloat16, and cout/groups a multiple of 4).
 // Returns cudaGetLastError() after the launch (0 on success); -1 on bad
 // arguments.
 extern "C" int htd_deform_conv_fwd(const void* x, const void* offsets, const void* weight,
                                    void* out, int n, int h, int w, int cin, int ho, int wo,
                                    int cout, int groups, int deform_groups, int stride, int pad,
-                                   int dil, int dtype, int* path, cudaStream_t stream) {
+                                   int dil, int dtype, cudaStream_t stream) {
   DcnParams p;
   if (!fill_params(p, n, h, w, cin, ho, wo, cout, groups, deform_groups, stride, pad, dil,
                    dtype))
@@ -435,7 +435,6 @@ extern "C" int htd_deform_conv_fwd(const void* x, const void* offsets, const voi
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
       return (int)cudaGetLastError();
     const int64_t tiles = (int64_t)n * ((ho * wo + kTcM - 1) / kTcM);
-    *path = 1;
     return cout % 128 == 0 && tiles * (cout / 128) >= 2 * (int64_t)sms
                ? launch_tc<128>(x, offsets, weight, out, p, stream)
                : launch_tc<64>(x, offsets, weight, out, p, stream);
@@ -452,6 +451,5 @@ extern "C" int htd_deform_conv_fwd(const void* x, const void* offsets, const voi
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(offsets),
         static_cast<const __nv_bfloat16*>(weight), static_cast<__nv_bfloat16*>(out), p);
   }
-  *path = 0;
   return (int)cudaGetLastError();
 }

@@ -369,19 +369,19 @@ deform_conv_bwd_input_tc_kernel(const __nv_bfloat16* __restrict__ g,
 // (cout, 3, 3, cin/groups), all contiguous, one dtype: 0 = float32,
 // 1 = bfloat16. d_x (n, h, w, cin) float32, zeroed by the caller, K5 adds
 // into it; d_col (n, ho, wo, 9, cin) float32, written. bfloat16 with
-// groups == 1 takes the tensor-core path (*path = 1; needs cout a multiple
-// of 8), everything else the CUDA-core path (*path = 0; needs cin/groups
-// a multiple of 4 and cout/groups a multiple of the 16-byte vector, 4
-// float32 or 8 bfloat16). Both need cin/deform_groups a multiple of 64
-// (a block's 64 input channels lie in one deform group), or one deform
-// group and cin a multiple of 4 (CUDA cores) or 64 (tensor cores).
+// groups == 1 takes the tensor-core path (needs cout a multiple of 8),
+// everything else the CUDA-core path (needs cin/groups a multiple of 4 and
+// cout/groups a multiple of the 16-byte vector, 4 float32 or 8 bfloat16).
+// Both need cin/deform_groups a multiple of 64 (a block's 64 input
+// channels lie in one deform group), or one deform group and cin a
+// multiple of 4 (CUDA cores) or 64 (tensor cores).
 // Returns cudaGetLastError() after the launch (0 on success); -1 on bad
 // arguments.
 extern "C" int htd_deform_conv_bwd_input(const void* g, const void* offsets, const void* weight,
                                          float* d_x, float* d_col, int n, int h, int w,
                                          int cin, int ho, int wo, int cout, int groups,
                                          int deform_groups, int stride, int pad, int dil,
-                                         int dtype, int* path, cudaStream_t stream) {
+                                         int dtype, cudaStream_t stream) {
   DcnParams p;
   if (!fill_params(p, n, h, w, cin, ho, wo, cout, groups, deform_groups, stride, pad, dil,
                    dtype))
@@ -397,7 +397,6 @@ extern "C" int htd_deform_conv_bwd_input(const void* g, const void* offsets, con
     deform_conv_bwd_input_tc_kernel<<<grid, kTcThreads, kTcSmem, stream>>>(
         static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(offsets),
         static_cast<const __nv_bfloat16*>(weight), d_x, d_col, p);
-    *path = 1;
     return (int)cudaGetLastError();
   }
   const int vec = dtype == 0 ? Vec<float>::N : Vec<__nv_bfloat16>::N;
@@ -412,6 +411,5 @@ extern "C" int htd_deform_conv_bwd_input(const void* g, const void* offsets, con
         static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(offsets),
         static_cast<const __nv_bfloat16*>(weight), d_x, d_col, p);
   }
-  *path = 0;
   return (int)cudaGetLastError();
 }

@@ -43,8 +43,7 @@
 //   to the next, so the pixels are cut into ranges, and each block adds its
 //   partial tile to d_w once with vector `atomicAdd`s: one partial per
 //   range for each d_w element. Two paths, picked statically by dtype and
-//   weight groups (each input takes exactly one; the entry point reports
-//   it):
+//   weight groups (each input takes exactly one):
 //   - bfloat16 with one weight group (R-101-DCN / R-50-DCN training): per
 //     tap, d_w_tap^T (Cout x Cin) = G^T . S_tap on the tensor cores, the
 //     depth running over pixels. A block owns one tap, 64 input channels
@@ -546,16 +545,15 @@ bool takes_tc(const DcnParams& p, int dtype) { return dtype == 1 && p.cg == p.ci
 // by the caller, K6 adds into it. Needs cin/groups and cout/groups
 // multiples of the 16-byte vector (4 float32, 8 bfloat16) and, with more
 // than one deform group, cin/deform_groups a multiple of 64. bfloat16 with
-// groups == 1 takes the tensor-core d_w (*path = 1; needs cin a multiple
-// of 64), everything else the CUDA-core d_w (*path = 0). Returns
-// cudaGetLastError() after the two launches (0 on success); -1 on bad
-// arguments.
+// groups == 1 takes the tensor-core d_w (needs cin a multiple of 64),
+// everything else the CUDA-core d_w. Returns cudaGetLastError() after the
+// two launches (0 on success); -1 on bad arguments.
 extern "C" int htd_deform_conv_bwd_offset_weight(const void* x, const void* offsets,
                                                  const void* g, const float* d_col,
                                                  void* d_off, float* d_w, int n, int h, int w,
                                                  int cin, int ho, int wo, int cout, int groups,
                                                  int deform_groups, int stride, int pad, int dil,
-                                                 int dtype, int* path, cudaStream_t stream) {
+                                                 int dtype, cudaStream_t stream) {
   DcnParams p;
   DwSplit split;
   if (!fill_params(p, n, h, w, cin, ho, wo, cout, groups, deform_groups, stride, pad, dil,
@@ -589,7 +587,6 @@ extern "C" int htd_deform_conv_bwd_offset_weight(const void* x, const void* offs
       deform_conv_bwd_weight_tc_kernel<128><<<split.grid, kTcThreads, DwTile<128>::kSmem,
                                               stream>>>(xp, op, gp, d_w, p, split.px_per_split);
   }
-  *path = tc ? 1 : 0;
   return (int)cudaGetLastError();
 }
 

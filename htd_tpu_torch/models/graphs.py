@@ -17,12 +17,10 @@ static input and launches the graph, inside an `htd.graph.replay` span
 the graph's static outputs, which the next replay of that graph
 overwrites: a caller must be done with them by then.
 
-The kernels' launch counters (`ops.roi_align_cuda.launch_counts` and
-`path_counts`) count their launchers' calls: a capture's warm-up launches
-each kernel of the backbone and FPN once and its capture records each
-once, while a replay calls no launcher, so its kernels show only in a
-device trace. `graph_counts` counts captures, replays and the eager runs
-of the calls that could not replay.
+A replay runs no Python, so its kernels show only in a device trace
+(`utils.profiling.kernel_counts`); a capture's warm-up runs each kernel
+once and the capture itself none. `graph_counts` counts captures, replays
+and the eager runs of the calls that could not replay.
 """
 
 from __future__ import annotations

@@ -13,6 +13,9 @@ apart, by the host's C++ compiler (`$CXX`, else `c++` on `PATH`), into
 `_build/host-<hash>/`, with `-ffp-contract=off` so that no product and sum
 are fused where OpenCV keeps them apart; it needs no CUDA. Nothing here runs
 at import time.
+
+The launchers (`ops/*_cuda.py`) share `DTYPE_CODE`, `launch_stream` and
+`check_launch` beside `load`.
 """
 
 from __future__ import annotations
@@ -29,12 +32,16 @@ import time
 from pathlib import Path
 from typing import List, NamedTuple, Tuple
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off"]
+# the dtype argument of the kernels' C entry points
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class BuildInfo(NamedTuple):
@@ -117,11 +124,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.htd_roi_align_bwd.argtypes = [vp, f32p, i32p, vp, i32, i32, f32p, i32p, i32p,
                                       i32p, i32, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.htd_roi_align_bwd.restype = i32
-    lib.htd_deform_conv_fwd.argtypes = [vp, vp, vp, vp] + [i32] * 13 + [i32p, vp]
+    lib.htd_deform_conv_fwd.argtypes = [vp, vp, vp, vp] + [i32] * 13 + [vp]
     lib.htd_deform_conv_fwd.restype = i32
-    lib.htd_deform_conv_bwd_input.argtypes = [vp] * 5 + [i32] * 13 + [i32p, vp]
+    lib.htd_deform_conv_bwd_input.argtypes = [vp] * 5 + [i32] * 13 + [vp]
     lib.htd_deform_conv_bwd_input.restype = i32
-    lib.htd_deform_conv_bwd_offset_weight.argtypes = [vp] * 6 + [i32] * 13 + [i32p, vp]
+    lib.htd_deform_conv_bwd_offset_weight.argtypes = [vp] * 6 + [i32] * 13 + [vp]
     lib.htd_deform_conv_bwd_offset_weight.restype = i32
     lib.htd_deform_conv_bwd_dw_partials.argtypes = [i32] * 7
     lib.htd_deform_conv_bwd_dw_partials.restype = i32
@@ -210,6 +217,17 @@ def load_host() -> Tuple[ctypes.CDLL, BuildInfo]:
                                    i32, i32, i32, i32, i32, vp]
     lib.htd_text_glyph.restype = ctypes.c_int
     return lib, info
+
+
+def launch_stream() -> int:
+    """PyTorch's current CUDA stream, which every launch goes on."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise when the C entry point of kernel `name` returned an error."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error code {err}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,30 +5,27 @@
 
 Each checks what its kernel takes (device, dtype, shape, contiguity,
 alignment) and raises on anything else, allocates the outputs, launches on
-PyTorch's current stream, raises when the launch reports an error, and
-adds one to its entry in `launch_counts`. There is no fallback: a CUDA
-tensor goes through the kernel or the call raises. The public wrapper
-that picks between the kernels and their plain versions by device is
-`ops.dcn.deform_conv2d`.
+PyTorch's current stream, and raises when the launch reports an error.
+There is no fallback: a CUDA tensor goes through the kernel or the call
+raises. The public wrapper that picks between the kernels and their plain
+versions by device is `ops.dcn.deform_conv2d`.
 
 K3, K5 and K6 (its d_weight product) each have two paths, picked in C by
 dtype and weight groups (not a fallback: each input takes exactly one):
 bfloat16 with one weight group runs on the tensor cores, float32 or
-grouped weights on the CUDA cores. The kernel reports the path it
-launched, and the launcher counts it in `path_counts` (`deform_conv_tc` /
-`deform_conv_cc`, likewise for `deform_conv_bwd_input` and
-`deform_conv_bwd_offset_weight`) beside its one entry in `launch_counts`.
+grouped weights on the CUDA cores. Each path is a kernel of its own, whose
+name a profiler trace shows (`deform_conv_fwd_tc_kernel` /
+`deform_conv_fwd_kernel`, likewise `deform_conv_bwd_input_*` and
+`deform_conv_bwd_weight_*`; `utils.profiling.kernel_counts`).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
 
-from htd_tpu_torch.ops.roi_align_cuda import (_DTYPE_CODE, _check, _stream, launch_counts,
-                                              path_counts)
+from htd_tpu_torch.ops._build import DTYPE_CODE, check_launch, launch_stream
 
 
 def _check_inputs(name: str, weight_shape, groups: int, deform_groups: int,
@@ -44,7 +41,7 @@ def _check_inputs(name: str, weight_shape, groups: int, deform_groups: int,
     first = next(iter(tensors.values()))
     if any(t.device.type != "cuda" or t.device != first.device for t in tensors.values()):
         raise ValueError(f"{name} takes CUDA tensors on one device")
-    if first.dtype not in _DTYPE_CODE or any(t.dtype != first.dtype for t in tensors.values()):
+    if first.dtype not in DTYPE_CODE or any(t.dtype != first.dtype for t in tensors.values()):
         raise ValueError(f"{name} takes float32 or bfloat16 tensors of one dtype, not "
                          + ", ".join(f"{k} {t.dtype}" for k, t in tensors.items()))
     kh, kw, cg, cout = weight_shape
@@ -88,14 +85,11 @@ def launch_deform_conv(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Ten
     cout = weight.shape[-1]
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     lib, _ = load()
-    path = ctypes.c_int(-1)
     err = lib.htd_deform_conv_fwd(
         x.data_ptr(), offsets.data_ptr(), weight.data_ptr(), out.data_ptr(), n, h, w, cin,
-        ho, wo, cout, groups, deform_groups, stride, dilation, dilation, _DTYPE_CODE[x.dtype],
-        ctypes.byref(path), _stream())
-    _check(err, "deform_conv")
-    launch_counts["deform_conv"] += 1
-    path_counts["deform_conv_tc" if path.value == 1 else "deform_conv_cc"] += 1
+        ho, wo, cout, groups, deform_groups, stride, dilation, dilation, DTYPE_CODE[x.dtype],
+        launch_stream())
+    check_launch(err, "deform_conv")
     return out
 
 
@@ -116,14 +110,11 @@ def launch_deform_conv_bwd_input(x_shape, offsets: torch.Tensor, weight: torch.T
     d_x = torch.zeros((n, h, w, cin), dtype=torch.float32, device=g.device)
     d_col = torch.empty((n, ho, wo, 9, cin), dtype=torch.float32, device=g.device)
     lib, _ = load()
-    path = ctypes.c_int(-1)
     err = lib.htd_deform_conv_bwd_input(
         g.data_ptr(), offsets.data_ptr(), weight.data_ptr(), d_x.data_ptr(), d_col.data_ptr(),
         n, h, w, cin, ho, wo, cout, groups, deform_groups, stride, dilation, dilation,
-        _DTYPE_CODE[g.dtype], ctypes.byref(path), _stream())
-    _check(err, "deform_conv_bwd_input")
-    launch_counts["deform_conv_bwd_input"] += 1
-    path_counts["deform_conv_bwd_input_tc" if path.value == 1 else "deform_conv_bwd_input_cc"] += 1
+        DTYPE_CODE[g.dtype], launch_stream())
+    check_launch(err, "deform_conv_bwd_input")
     return d_x.to(g.dtype), d_col
 
 
@@ -152,13 +143,9 @@ def launch_deform_conv_bwd_offset_weight(x: torch.Tensor, offsets: torch.Tensor,
     d_off = torch.empty_like(offsets)
     d_w = torch.zeros((cout, kh, kw, cg), dtype=torch.float32, device=x.device)
     lib, _ = load()
-    path = ctypes.c_int(-1)
     err = lib.htd_deform_conv_bwd_offset_weight(
         x.data_ptr(), offsets.data_ptr(), g.data_ptr(), d_col.data_ptr(), d_off.data_ptr(),
         d_w.data_ptr(), n, h, w, cin, ho, wo, cout, groups, deform_groups, stride, dilation,
-        dilation, _DTYPE_CODE[x.dtype], ctypes.byref(path), _stream())
-    _check(err, "deform_conv_bwd_offset_weight")
-    launch_counts["deform_conv_bwd_offset_weight"] += 1
-    path_counts["deform_conv_bwd_offset_weight_tc" if path.value == 1
-                else "deform_conv_bwd_offset_weight_cc"] += 1
+        dilation, DTYPE_CODE[x.dtype], launch_stream())
+    check_launch(err, "deform_conv_bwd_offset_weight")
     return d_off, d_w.permute(1, 2, 3, 0)

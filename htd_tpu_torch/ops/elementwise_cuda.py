@@ -3,18 +3,18 @@
 
 Each checks what its kernel takes (device, dtype, shape, memory layout,
 alignment) and raises on anything else, allocates the output, launches on
-PyTorch's current stream, raises when the launch reports an error, and
-adds one to its entry in `launch_counts`. There is no fallback: a CUDA
-tensor goes through the kernel or the call raises. The public wrappers
-that pick between a kernel and its plain version by device are
-`ops.upsample.upsample2x_add` and `ops.fence.layout_fence`.
+PyTorch's current stream, and raises when the launch reports an error.
+There is no fallback: a CUDA tensor goes through the kernel or the call
+raises. The public wrappers that pick between a kernel and its plain
+version by device are `ops.upsample.upsample2x_add` and
+`ops.fence.layout_fence`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from htd_tpu_torch.ops.roi_align_cuda import _DTYPE_CODE, _check, _stream, launch_counts
+from htd_tpu_torch.ops._build import DTYPE_CODE, check_launch, launch_stream
 
 
 def _is_dense(x: torch.Tensor) -> bool:
@@ -38,7 +38,7 @@ def launch_upsample_add(low: torch.Tensor, lat: torch.Tensor) -> torch.Tensor:
 
     if low.device.type != "cuda" or lat.device != low.device:
         raise ValueError("launch_upsample_add takes CUDA tensors on one device")
-    if lat.dtype not in _DTYPE_CODE or low.dtype != lat.dtype:
+    if lat.dtype not in DTYPE_CODE or low.dtype != lat.dtype:
         raise ValueError(f"K7 takes float32 or bfloat16 tensors of one dtype, not low "
                          f"{low.dtype}, lat {lat.dtype}")
     b, h, w, c = low.shape
@@ -57,9 +57,8 @@ def launch_upsample_add(low: torch.Tensor, lat: torch.Tensor) -> torch.Tensor:
         return out
     lib, _ = load()
     err = lib.htd_upsample_add(low.data_ptr(), lat.data_ptr(), out.data_ptr(), b, h, w, row_bytes,
-                               _DTYPE_CODE[lat.dtype], _stream())
-    _check(err, "upsample_add")
-    launch_counts["upsample_add"] += 1
+                               DTYPE_CODE[lat.dtype], launch_stream())
+    check_launch(err, "upsample_add")
     return out
 
 
@@ -78,7 +77,6 @@ def launch_layout_fence(x: torch.Tensor) -> torch.Tensor:
         return out
     lib, _ = load()
     err = lib.htd_layout_fence(x.data_ptr(), out.data_ptr(), x.numel() * x.element_size(),
-                               _stream())
-    _check(err, "layout_fence")
-    launch_counts["layout_fence"] += 1
+                               launch_stream())
+    check_launch(err, "layout_fence")
     return out

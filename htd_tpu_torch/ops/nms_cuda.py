@@ -3,11 +3,10 @@ linear soft-NMS in one launch.
 
 It checks what the kernel takes (shape, dtype, contiguity, device) and
 raises on anything else, allocates the outputs (and, past 9,216 entries,
-the kernel's workspace), launches on PyTorch's current stream, raises when
-the launch reports an error, and adds one to `launch_counts["soft_nms"]`.
-There is no fallback: a CUDA tensor goes through the kernel or the call
-raises. The public wrapper that picks between the kernel and its plain
-version by device is `ops.nms.soft_nms`.
+the kernel's workspace), launches on PyTorch's current stream, and raises
+when the launch reports an error. There is no fallback: a CUDA tensor goes
+through the kernel or the call raises. The public wrapper that picks
+between the kernel and its plain version by device is `ops.nms.soft_nms`.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-from htd_tpu_torch.ops.roi_align_cuda import _check, _stream, launch_counts
+from htd_tpu_torch.ops._build import check_launch, launch_stream
 
 _MAX_ENTRIES = 1 << 30   # the kernel indexes entries with 32-bit integers
 _SHARED_ENTRIES = 9216   # the kernel's kSharedEntries: more entries take a workspace
@@ -58,7 +57,6 @@ def launch_soft_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: fl
     err = lib.htd_soft_nms(boxes.data_ptr(), scores.data_ptr(), n, iou_threshold, min_score,
                            max_out, None if workspace is None else workspace.data_ptr(),
                            keep_idx.data_ptr(), keep_score.data_ptr(), keep_valid.data_ptr(),
-                           _stream())
-    _check(err, "soft_nms")
-    launch_counts["soft_nms"] += 1
+                           launch_stream())
+    check_launch(err, "soft_nms")
     return keep_idx, keep_score, keep_valid

@@ -3,57 +3,24 @@
 
 Each launcher checks what its kernel takes (device, dtype, shape,
 contiguity, alignment) and raises on anything else, allocates the output,
-launches on PyTorch's current stream, raises when the launch reports an
-error, and adds one to its entry in `launch_counts`. There is no fallback:
-a CUDA tensor goes through the kernel or the call raises. The public
-wrappers that pick between a kernel and its plain version by device are
-`ops.pyramid.pack_pyramid`, `ops.roi_align.roi_align_pyramid` and
-`ops.roi_align.roi_align_levels`; the last two launch K4 in their
-backward.
+launches on PyTorch's current stream, and raises when the launch reports an
+error. There is no fallback: a CUDA tensor goes through the kernel or the
+call raises. The public wrappers that pick between a kernel and its plain
+version by device are `ops.pyramid.pack_pyramid`,
+`ops.roi_align.roi_align_pyramid` and `ops.roi_align.roi_align_levels`;
+the last two launch K4 in their backward.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from htd_tpu_torch.ops._build import DTYPE_CODE, check_launch, launch_stream
 from htd_tpu_torch.ops.pyramid import Pyramid, PyramidGeometry
-
-# kernel name -> launches since the last reset (the launchers of K3, K5
-# and K6, in `ops/dcn_cuda.py`, of K7 and K8, in `ops/elementwise_cuda.py`,
-# and of soft-NMS, in `ops/nms_cuda.py`, count here too; a CUDA graph's
-# capture counts the calls it records, its replay none: `models/graphs.py`)
-launch_counts: Dict[str, int] = {"pyramid_pack": 0, "roi_align": 0, "deform_conv": 0,
-                                 "roi_align_bwd": 0, "deform_conv_bwd_input": 0,
-                                 "deform_conv_bwd_offset_weight": 0, "upsample_add": 0,
-                                 "layout_fence": 0, "soft_nms": 0}
-# which path each launch of K3, K5 and K6 took: `_tc` the tensor cores
-# (bfloat16, one weight group), `_cc` the CUDA cores (float32, or grouped
-# weights); reset with `launch_counts`
-path_counts: Dict[str, int] = {"deform_conv_tc": 0, "deform_conv_cc": 0,
-                               "deform_conv_bwd_input_tc": 0, "deform_conv_bwd_input_cc": 0,
-                               "deform_conv_bwd_offset_weight_tc": 0,
-                               "deform_conv_bwd_offset_weight_cc": 0}
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launch_counts() -> None:
-    for counts in (launch_counts, path_counts):
-        for k in counts:
-            counts[k] = 0
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error code {err}")
 
 
 def _i32(vals) -> np.ndarray:
@@ -105,7 +72,7 @@ def launch_pyramid_pack(levels: Sequence[torch.Tensor], geom: PyramidGeometry) -
     f0 = levels[0]
     if f0.device.type != "cuda":
         raise ValueError("launch_pyramid_pack takes CUDA tensors")
-    if f0.dtype not in _DTYPE_CODE:
+    if f0.dtype not in DTYPE_CODE:
         raise ValueError(f"pyramid pack takes float32 or bfloat16, not {f0.dtype}")
     row_bytes = geom.channels * f0.element_size()
     if row_bytes % 16:
@@ -123,9 +90,8 @@ def launch_pyramid_pack(levels: Sequence[torch.Tensor], geom: PyramidGeometry) -
     err = lib.htd_pyramid_pack(
         out.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p), _ptr(hs), _ptr(ws), _ptr(offs),
         len(levels), geom.batch, geom.img_rows, geom.rows_pad, geom.w_pad, row_bytes,
-        _stream())
-    _check(err, "pyramid_pack")
-    launch_counts["pyramid_pack"] += 1
+        launch_stream())
+    check_launch(err, "pyramid_pack")
     return out
 
 
@@ -140,7 +106,7 @@ def launch_roi_align(pyr: Pyramid, rois: torch.Tensor, lvls: Optional[torch.Tens
     buf, geom = pyr
     if buf.device.type != "cuda" or rois.device != buf.device:
         raise ValueError("launch_roi_align takes CUDA tensors on one device")
-    if buf.dtype not in _DTYPE_CODE:
+    if buf.dtype not in DTYPE_CODE:
         raise ValueError(f"RoIAlign takes float32 or bfloat16 features, not {buf.dtype}")
     if not buf.is_contiguous() or buf.data_ptr() % 16:
         raise ValueError("pyramid buffer must be contiguous and 16-byte aligned")
@@ -154,9 +120,8 @@ def launch_roi_align(pyr: Pyramid, rois: torch.Tensor, lvls: Optional[torch.Tens
     lib, _ = load()
     a = _RoiArgs(geom, rois, lvls, strides)
     err = lib.htd_roi_align_fwd(buf.data_ptr(), *a.rois, out.data_ptr(), *a.geom, out_size,
-                                sampling_ratio, max_samples, _DTYPE_CODE[buf.dtype], _stream())
-    _check(err, "roi_align")
-    launch_counts["roi_align"] += 1
+                                sampling_ratio, max_samples, DTYPE_CODE[buf.dtype], launch_stream())
+    check_launch(err, "roi_align")
     return out
 
 
@@ -171,7 +136,7 @@ def launch_roi_align_bwd(geom: PyramidGeometry, rois: torch.Tensor,
 
     if g.device.type != "cuda" or rois.device != g.device:
         raise ValueError("launch_roi_align_bwd takes CUDA tensors on one device")
-    if g.dtype not in _DTYPE_CODE:
+    if g.dtype not in DTYPE_CODE:
         raise ValueError(f"RoIAlign backward takes float32 or bfloat16, not {g.dtype}")
     if not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("the cotangent must be contiguous and 16-byte aligned")
@@ -188,7 +153,6 @@ def launch_roi_align_bwd(geom: PyramidGeometry, rois: torch.Tensor,
     lib, _ = load()
     a = _RoiArgs(geom, rois, lvls, strides)
     err = lib.htd_roi_align_bwd(g.data_ptr(), *a.rois, d.data_ptr(), *a.geom, out_size,
-                                sampling_ratio, max_samples, _DTYPE_CODE[g.dtype], _stream())
-    _check(err, "roi_align_bwd")
-    launch_counts["roi_align_bwd"] += 1
+                                sampling_ratio, max_samples, DTYPE_CODE[g.dtype], launch_stream())
+    check_launch(err, "roi_align_bwd")
     return d

@@ -1,4 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card.
+Which kernels a call runs is read from its profiler trace, by name
+(`htd_tpu_torch.utils.profiling.kernel_counts`).
 
 Needs an NVIDIA Hopper GPU and nvcc; without a GPU every test skips. This
 file imports neither JAX nor the JAX package, so that it runs on a
@@ -14,6 +16,7 @@ import torch
 from htd_tpu_torch.ops.boxes import map_roi_levels
 from htd_tpu_torch.ops.pyramid import pack_pyramid, pack_pyramid_plain
 from htd_tpu_torch.ops.roi_align import roi_align_levels, roi_align_plain, roi_align_pyramid
+from htd_tpu_torch.utils.profiling import kernel_counts
 from tests.roi_cases import crowded_rois, special_rois
 
 STRIDES = (4, 8, 16, 32)
@@ -68,34 +71,31 @@ def test_kernels_match_plain(cuda, dtype, case):
     plain version, relative to its largest magnitude, on each of
     `_roi_case`'s roi sets, and on the special rois inverted (x2 < x1, y2 <
     y1) under a fixed grid of 2. Both accumulate in float32; they differ in
-    summation order and, in bfloat16, in one final rounding."""
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
-
+    summation order and, in bfloat16, in one final rounding. K1 runs once
+    and K2 once a call, and no other kernel runs."""
     feats, rois = _roi_case(cuda, dtype, case)
-    reset_launch_counts()
-    pyr = pack_pyramid(feats)
-    assert torch.equal(pyr.buf, pack_pyramid_plain(feats, pyr.geom))
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     lv = map_roi_levels(rois, 4)
-    for s in (4, 2, 1):
-        k = roi_align_pyramid(pyr, rois, lv, STRIDES, 7, 0, s)
-        assert _rel_err(k, roi_align_plain(pyr, rois, lv, STRIDES, 7, 0, s)) <= tol
-    k = roi_align_levels(pyr, rois, STRIDES, 7, 0, 1)
-    for lvl in range(4):
-        p = roi_align_plain(pyr, rois, torch.full_like(lv, lvl), STRIDES, 7, 0, 1)
-        assert _rel_err(k[lvl], p) <= tol
-    if case == "special":
-        assert k[:, :, 6:8].abs().max().item() == 0.0    # zero width and height
-        # corners swapped under a fixed grid: sample coordinates decrease
-        inv = rois[..., [2, 3, 0, 1]].contiguous()
-        k = roi_align_pyramid(pyr, inv, lv, STRIDES, 7, 2, 4)
-        assert _rel_err(k, roi_align_plain(pyr, inv, lv, STRIDES, 7, 2, 4)) <= tol
-    torch.cuda.synchronize()
-    assert launch_counts == {"pyramid_pack": 1, "roi_align": 4 + (case == "special"),
-                             "deform_conv": 0,
-                             "roi_align_bwd": 0, "deform_conv_bwd_input": 0,
-                             "deform_conv_bwd_offset_weight": 0, "upsample_add": 0,
-                             "layout_fence": 0, "soft_nms": 0}
+
+    def run():
+        pyr = pack_pyramid(feats)
+        assert torch.equal(pyr.buf, pack_pyramid_plain(feats, pyr.geom))
+        for s in (4, 2, 1):
+            k = roi_align_pyramid(pyr, rois, lv, STRIDES, 7, 0, s)
+            assert _rel_err(k, roi_align_plain(pyr, rois, lv, STRIDES, 7, 0, s)) <= tol
+        k = roi_align_levels(pyr, rois, STRIDES, 7, 0, 1)
+        for lvl in range(4):
+            p = roi_align_plain(pyr, rois, torch.full_like(lv, lvl), STRIDES, 7, 0, 1)
+            assert _rel_err(k[lvl], p) <= tol
+        if case == "special":
+            assert k[:, :, 6:8].abs().max().item() == 0.0    # zero width and height
+            # corners swapped under a fixed grid: sample coordinates decrease
+            inv = rois[..., [2, 3, 0, 1]].contiguous()
+            k = roi_align_pyramid(pyr, inv, lv, STRIDES, 7, 2, 4)
+            assert _rel_err(k, roi_align_plain(pyr, inv, lv, STRIDES, 7, 2, 4)) <= tol
+
+    want = {"pyramid_pack_kernel": 1, "roi_align_fwd_kernel": 4 + (case == "special")}
+    assert kernel_counts(run, want)[1] == want
 
 
 @pytest.mark.cuda
@@ -142,17 +142,14 @@ def test_deform_conv_matches_plain(cuda, stride, groups, dtype):
     (bfloat16) of the plain version's largest magnitude. Both sum in
     float32, in different orders; in bfloat16 the outputs differ by one
     final rounding. bfloat16 with one weight group takes the tensor
-    cores, everything else the CUDA cores."""
+    cores, everything else the CUDA cores: one kernel of that path runs."""
     from htd_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_plain
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
 
     x, off, wgt = _dcn_inputs(cuda, dtype, stride, groups)
-    reset_launch_counts()
-    k = deform_conv2d(x, off, wgt, stride=stride, groups=groups)
-    torch.cuda.synchronize()
-    assert launch_counts["deform_conv"] == 1
     tc = dtype == torch.bfloat16 and groups == 1
-    assert (path_counts["deform_conv_tc"], path_counts["deform_conv_cc"]) == (tc, not tc)
+    want = {"deform_conv_fwd_tc_kernel" if tc else "deform_conv_fwd_kernel": 1}
+    k, got = kernel_counts(lambda: deform_conv2d(x, off, wgt, stride=stride, groups=groups), want)
+    assert got == want
     p = deform_conv2d_plain(x, off, wgt, stride=stride, groups=groups)
     assert k.shape == p.shape and k.dtype == dtype
     assert _rel_err(k, p) <= (1e-4 if dtype == torch.float32 else 1e-2)
@@ -204,10 +201,10 @@ def test_roi_align_bwd_matches_plain(cuda, all_levels, dtype, s, case):
     float32 products, K4 with atomics in another order); through autograd
     the levels get it in the features' dtype, one launch per backward. On
     each of `_roi_case`'s roi sets, with a cotangent that has all-zero
-    bins (one roi's, two bin rows of another, one bin of every roi)."""
+    bins (one roi's, two bin rows of another, one bin of every roi). The
+    trace holds the three K4 kernels and the forward's K1 and K2."""
     from htd_tpu_torch.ops.roi_align import roi_align_backward_plain
-    from htd_tpu_torch.ops.roi_align_cuda import (launch_counts, launch_roi_align_bwd,
-                                                  reset_launch_counts)
+    from htd_tpu_torch.ops.roi_align_cuda import launch_roi_align_bwd
 
     feats, rois = _roi_case(cuda, dtype, case)
     if case == "small":
@@ -220,19 +217,23 @@ def test_roi_align_bwd_matches_plain(cuda, all_levels, dtype, s, case):
     g[..., 9, 2:4, :, :] = 0.0
     g[..., 5, 1, :] = 0.0
     g = g.to(dtype)
-    reset_launch_counts()
-    k = launch_roi_align_bwd(geom, rois, lv, g, STRIDES, 7, 0, s)
-    k2 = launch_roi_align_bwd(geom, rois, lv, g, STRIDES, 7, 0, s)
+
+    def run():
+        k = launch_roi_align_bwd(geom, rois, lv, g, STRIDES, 7, 0, s)
+        k2 = launch_roi_align_bwd(geom, rois, lv, g, STRIDES, 7, 0, s)
+        levels = [f.clone().requires_grad_(True) for f in feats]
+        pyr = pack_pyramid(levels)
+        out = (roi_align_levels(pyr, rois, STRIDES, 7, 0, s) if all_levels
+               else roi_align_pyramid(pyr, rois, lv, STRIDES, 7, 0, s))
+        out.backward(g)
+        return k, k2, levels
+
+    want = {"roi_align_bwd_kernel": 3, "pyramid_pack_kernel": 1, "roi_align_fwd_kernel": 1}
+    (k, k2, levels), got = kernel_counts(run, want)
+    assert got == want
     p = roi_align_backward_plain(geom, rois, lv, g, STRIDES, 7, 0, s)
     assert k.dtype == torch.float32 and k.shape == p.shape
     assert _rel_err(k, p) <= 1e-5 and _rel_err(k2, p) <= 1e-5
-    levels = [f.clone().requires_grad_(True) for f in feats]
-    pyr = pack_pyramid(levels)
-    out = (roi_align_levels(pyr, rois, STRIDES, 7, 0, s) if all_levels
-           else roi_align_pyramid(pyr, rois, lv, STRIDES, 7, 0, s))
-    out.backward(g)
-    torch.cuda.synchronize()
-    assert launch_counts["roi_align_bwd"] == 3
     from htd_tpu_torch.ops.pyramid import pyramid_level_grads
     for f, ref in zip(levels, pyramid_level_grads(p, geom)):
         assert f.grad.dtype == dtype
@@ -293,16 +294,27 @@ def test_deform_groups_match_plain(cuda, stride, dtype):
     and K6 against their plain versions, within `_bwd_err`'s limit (1e-4
     for K3's forward: its tensor cores sum over 9 x 128 products in float32
     in their own order). K3 and K5 take the tensor cores in bfloat16 and
-    the CUDA cores in float32."""
+    the CUDA cores in float32, and so does K6's d_weight."""
     from htd_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_backward_plain, \
         deform_conv2d_plain
     from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
                                             launch_deform_conv_bwd_offset_weight)
-    from htd_tpu_torch.ops.roi_align_cuda import path_counts, reset_launch_counts
 
     x, off, wgt = _dcn_inputs(cuda, dtype, stride, 1, deform_groups=2, seed=3)
-    reset_launch_counts()
-    k = deform_conv2d(x, off, wgt, stride=stride, deform_groups=2)
+    g = torch.randn(off.shape[:3] + (wgt.shape[-1],), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(4)).to(dtype)
+
+    def run():
+        k = deform_conv2d(x, off, wgt, stride=stride, deform_groups=2)
+        d_x, d_col = launch_deform_conv_bwd_input(x.shape, off, wgt, g, stride, 1, 2, 1)
+        return k, d_x, *launch_deform_conv_bwd_offset_weight(x, off, g, d_col, wgt.shape,
+                                                              stride, 1, 2, 1)
+
+    tc = "_tc" if dtype == torch.bfloat16 else ""
+    want = {f"deform_conv_fwd{tc}_kernel": 1, f"deform_conv_bwd_input{tc}_kernel": 1,
+            "deform_conv_bwd_offset_kernel": 1, f"deform_conv_bwd_weight{tc}_kernel": 1}
+    (k, d_x, d_off, d_w), got = kernel_counts(run, want)
+    assert got == want
     p = deform_conv2d_plain(x, off, wgt, stride=stride, deform_groups=2)
     err, lim = _ulp_limit(k, p, 1e-4)
     assert err <= lim, f"K3: {err:.3g} (limit {lim:.3g})"
@@ -310,22 +322,11 @@ def test_deform_groups_match_plain(cuda, stride, dtype):
     same = deform_conv2d_plain(x, off[..., :18].repeat(1, 1, 1, 2).contiguous(), wgt,
                                stride=stride, deform_groups=2)
     assert (same.float() - p.float()).abs().max() > 0.1 * p.float().abs().max()
-    g = torch.randn(off.shape[:3] + (wgt.shape[-1],), device=cuda, generator=torch.Generator(
-        device=cuda).manual_seed(4)).to(dtype)
     ref = deform_conv2d_backward_plain(x, off, wgt, g, stride=stride, deform_groups=2)
-    d_x, d_col = launch_deform_conv_bwd_input(x.shape, off, wgt, g, stride, 1, 2, 1)
-    d_off, d_w = launch_deform_conv_bwd_offset_weight(x, off, g, d_col, wgt.shape, stride, 1, 2,
-                                                      1)
-    torch.cuda.synchronize()
     for name, k, p in zip(("d_x", "d_off", "d_w"), (d_x, d_off, d_w.to(dtype)), ref):
         assert k.shape == p.shape and k.dtype == p.dtype, name
         err, lim = _bwd_err(k, p, dtype)
         assert err <= lim, f"{name}: {err:.3g} (limit {lim:.3g})"
-    tc = int(dtype == torch.bfloat16)
-    assert path_counts == {"deform_conv_tc": tc, "deform_conv_cc": 1 - tc,
-                           "deform_conv_bwd_input_tc": tc, "deform_conv_bwd_input_cc": 1 - tc,
-                           "deform_conv_bwd_offset_weight_tc": tc,
-                           "deform_conv_bwd_offset_weight_cc": 1 - tc}
 
 
 # R-101-DCN's deformable convs at 800x1344: (channels, input size, stride)
@@ -346,29 +347,29 @@ def test_tensor_core_paths_at_r101_shapes(cuda, conv, n):
     float32 sums in another order, then one rounding); K5's d_col and K6's
     d_w (float32, from the bfloat16-rounded samples, split over pixel
     ranges) within 1e-4. K6 reads K5's d_col, as in the backward. One
-    launch each, all counted on the tensor-core path."""
+    call each, every kernel the tensor-core path's."""
     from htd_tpu_torch.ops.dcn import (deform_conv2d, deform_conv2d_backward_input_plain,
                                        deform_conv2d_backward_offset_weight_plain,
                                        deform_conv2d_plain)
     from htd_tpu_torch.ops.dcn_cuda import (launch_deform_conv_bwd_input,
                                             launch_deform_conv_bwd_offset_weight)
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
 
     c, (h, w), stride = R101_DCN_SHAPES[conv]
     x, off, wgt = _dcn_inputs(cuda, torch.bfloat16, stride, 1, n=n, h=h, w=w, channels=(c, c),
                               seed=5)
     g = torch.randn(off.shape[:3] + (c,), device=cuda, generator=torch.Generator(
         device=cuda).manual_seed(6)).bfloat16()
-    reset_launch_counts()
-    k = deform_conv2d(x, off, wgt, stride=stride)
-    d_x, d_col = launch_deform_conv_bwd_input(x.shape, off, wgt, g, stride, 1, 1, 1)
-    d_off, d_w = launch_deform_conv_bwd_offset_weight(x, off, g, d_col, wgt.shape, stride, 1, 1,
-                                                      1)
-    torch.cuda.synchronize()
-    assert launch_counts["deform_conv"] == launch_counts["deform_conv_bwd_input"] == \
-        launch_counts["deform_conv_bwd_offset_weight"] == 1
-    assert path_counts["deform_conv_tc"] == path_counts["deform_conv_bwd_input_tc"] == \
-        path_counts["deform_conv_bwd_offset_weight_tc"] == 1
+
+    def run():
+        k = deform_conv2d(x, off, wgt, stride=stride)
+        d_x, d_col = launch_deform_conv_bwd_input(x.shape, off, wgt, g, stride, 1, 1, 1)
+        return k, d_x, d_col, *launch_deform_conv_bwd_offset_weight(x, off, g, d_col, wgt.shape,
+                                                                    stride, 1, 1, 1)
+
+    want = {"deform_conv_fwd_tc_kernel": 1, "deform_conv_bwd_input_tc_kernel": 1,
+            "deform_conv_bwd_offset_kernel": 1, "deform_conv_bwd_weight_tc_kernel": 1}
+    (k, d_x, d_col, d_off, d_w), got = kernel_counts(run, want)
+    assert got == want
     p_off, p_w = deform_conv2d_backward_offset_weight_plain(x, off, g, d_col, wgt.shape, stride)
     err, lim = _ulp_limit(d_off, p_off, 1e-4)
     assert err <= lim, f"K6 d_off: {err:.3g} (limit {lim:.3g})"
@@ -418,45 +419,30 @@ def test_x101_request_runs_k3_on_the_cuda_cores(cuda, x101_request):
     """One X-101 request at its test scale (1600x800: the 800x1600 and
     1600x800 buckets) runs K3 30 times, every kernel on the grouped
     CUDA-core path, and soft-NMS once; it returns detections. The first
-    request at a bucket captures the backbone's graph: its warm-up and its
-    capture call the K3 launcher 30 times each, on that path. The next
-    replays it and calls no K3 launcher: its trace holds the graph's 30
-    CUDA-core K3 kernels and no tensor-core one (a trace that lost a K3
-    kernel's record is taken again, 3 traces at most)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    request at a bucket captures the backbone's graph: its eager warm-up
+    runs the 30 K3 and 3 K7 kernels, the capture none, and the replay that
+    follows 30 and 3 more. The next request replays the graph alone. Each
+    request runs K1 once and K2 three times, and no tensor-core K3."""
     from htd_tpu_torch.apis import inference_detector
     from htd_tpu_torch.models import graphs
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, path_counts, reset_launch_counts
 
     model, imgs = x101_request
     for img in imgs:
-        model._drop_graphs()
-        reset_launch_counts()
-        graphs.reset_graph_counts()
-        boxes, _, _ = inference_detector(model, img)
-        torch.cuda.synchronize()
-        assert graphs.graph_counts == {"capture": 1, "replay": 1, "eager": 0}
-        assert (launch_counts["deform_conv"], launch_counts["soft_nms"]) == (60, 1)
-        assert (path_counts["deform_conv_cc"], path_counts["deform_conv_tc"]) == (60, 0)
-        assert len(boxes) > 0
-        for _ in range(3):
-            reset_launch_counts()
-            graphs.reset_graph_counts()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                boxes, _, _ = inference_detector(model, img)
-                torch.cuda.synchronize()
-            names = [e.name for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-            cc = sum("deform_conv_fwd_kernel" in n for n in names)
-            tc = sum("deform_conv_fwd_tc_kernel" in n for n in names)
-            if cc == 30:
-                break
-        assert (cc, tc) == (30, 0), f"{cc} CUDA-core and {tc} tensor-core K3 kernels"
-        assert graphs.graph_counts == {"capture": 0, "replay": 1, "eager": 0}
-        assert (launch_counts["deform_conv"], launch_counts["soft_nms"]) == (0, 1)
-        assert (path_counts["deform_conv_cc"], path_counts["deform_conv_tc"]) == (0, 0)
-        assert len(boxes) > 0
+        for passes, graph in ((2, {"capture": 1, "replay": 1, "eager": 0}),
+                              (1, {"capture": 0, "replay": 1, "eager": 0})):
+            def request():
+                if graph["capture"]:
+                    model._drop_graphs()
+                graphs.reset_graph_counts()
+                return inference_detector(model, img)
+
+            want = {"pyramid_pack_kernel": 1, "roi_align_fwd_kernel": 3,
+                    "upsample_add_kernel": 3 * passes, "deform_conv_fwd_kernel": 30 * passes,
+                    "soft_nms_kernel": 1}
+            (boxes, _, _), got = kernel_counts(request, want)
+            assert got == want
+            assert graphs.graph_counts == graph
+            assert len(boxes) > 0
 
 
 @pytest.mark.cuda
@@ -510,7 +496,6 @@ def test_x101_grouped_k3_matches_plain_at_request_inputs(cuda, x101_request, mon
     from htd_tpu_torch.apis import inference_detector
     from htd_tpu_torch.models import graphs
     from htd_tpu_torch.ops import dcn
-    from htd_tpu_torch.ops.roi_align_cuda import path_counts, reset_launch_counts
 
     model, imgs = x101_request
     m = model.backbone.get_submodule(conv + ".conv2")
@@ -524,18 +509,22 @@ def test_x101_grouped_k3_matches_plain_at_request_inputs(cuda, x101_request, mon
         return out
 
     monkeypatch.setattr(dcn, "deform_conv2d", capture)
-    reset_launch_counts()
-    graphs.reset_graph_counts()
+
+    def request():
+        seen.clear()
+        graphs.reset_graph_counts()
+        inference_detector(model, imgs[0])
+
     # a hooked module keeps the backbone eager, so that the request calls
     # the wrapper (a graph's replay would call no Python)
     hook = m.register_forward_pre_hook(lambda mod, args: None)
     try:
-        inference_detector(model, imgs[0])
+        _, got = kernel_counts(request, {"deform_conv_fwd_kernel": 30})
     finally:
         hook.remove()
-    torch.cuda.synchronize()
     assert graphs.graph_counts["eager"] == 1
-    assert len(seen) == 1 and path_counts["deform_conv_cc"] == 30
+    assert len(seen) == 1 and got["deform_conv_fwd_kernel"] == 30
+    assert "deform_conv_fwd_tc_kernel" not in got
     x, off, w, args, k = seen[0]
     assert x.dtype == torch.bfloat16 and args[0] == m.stride and args[3] == 64
     assert float(off.float().abs().mean()) > 0.1           # offsets that move the samples
@@ -572,23 +561,25 @@ def test_deform_conv_bwd_rejects_what_it_does_not_take(cuda):
 def test_deform_conv_module_trains_on_cuda(cuda):
     """`DeformConv2d` on the card with float32 parameters under bfloat16
     autocast, fed bfloat16 activations as the network feeds it: the
-    weight and offsets are cast to the input's dtype, the
-    output comes from `_DeformConv2d`, one backward launches K5 and K6 once
-    each, and the input and every parameter get a finite float32 gradient
-    within 3e-2 of the float32 CPU module's largest value (bfloat16
-    activations and cotangents). The offset conv has zero weights and a
+    weight and offsets are cast to the input's dtype, the output comes
+    from `_DeformConv2d` (one K3 kernel), one backward runs K5 and K6 once
+    each, all on the tensor cores (the CPU module runs no kernel), and the
+    input and every parameter get a finite float32 gradient within 3e-2 of
+    the float32 CPU module's largest value (bfloat16 activations and
+    cotangents). The offset conv has zero weights and a
     bias of eighths off the integers, so the offsets are the same in both
     dtypes: d_offsets jumps where a sample crosses an integer, and
     bfloat16 offsets from a random offset conv would move many samples
     into another cell."""
     from htd_tpu_torch.ops.dcn import DeformConv2d
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
     rng = np.random.RandomState(2)
     w_np = rng.normal(0, 0.05, (128, 128, 3, 3)).astype(np.float32)
     bias = (rng.randint(-2, 2, 18) + rng.randint(1, 8, 18) / 8).astype(np.float32)
     x_np = rng.normal(0, 1, (2, 128, 20, 30)).astype(np.float32)
-    grads = []
+    want = {"deform_conv_fwd_tc_kernel": 1, "deform_conv_bwd_input_tc_kernel": 1,
+            "deform_conv_bwd_offset_kernel": 1, "deform_conv_bwd_weight_tc_kernel": 1}
+    grads, ran = [], []
     for dev in ("cpu", "cuda"):
         m = DeformConv2d(128, 128, stride=2)
         with torch.no_grad():
@@ -598,16 +589,21 @@ def test_deform_conv_module_trains_on_cuda(cuda):
         m = m.to(dev).to(memory_format=torch.channels_last)
         x = torch.from_numpy(x_np).to(dev).to(memory_format=torch.channels_last)
         x.requires_grad_(True)
-        reset_launch_counts()
-        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=dev == "cuda"):
-            out = m(x.to(torch.bfloat16) if dev == "cuda" else x)
-        out.float().square().sum().backward()
+
+        def step():
+            x.grad = None
+            m.zero_grad(set_to_none=True)
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=dev == "cuda"):
+                out = m(x.to(torch.bfloat16) if dev == "cuda" else x)
+            out.float().square().sum().backward()
+            return out
+
+        out, got = kernel_counts(step, want if dev == "cuda" else None)
+        ran.append(got)
         grads.append([x.grad] + [p.grad for p in m.parameters()])
-    torch.cuda.synchronize()
+    assert ran == [{}, want]
     assert out.dtype == torch.bfloat16
     assert type(out.grad_fn.next_functions[0][0]).__name__ == "_DeformConv2dBackward"
-    assert (launch_counts["deform_conv"], launch_counts["deform_conv_bwd_input"],
-            launch_counts["deform_conv_bwd_offset_weight"]) == (1, 1, 1)
     for c, k in zip(*grads):
         assert k.dtype == torch.float32 and torch.isfinite(k).all()
         assert (k.cpu() - c).abs().max().item() <= 3e-2 * c.abs().max().item()
@@ -619,10 +615,11 @@ def test_train_step_launches(cuda, preset):
     """One bfloat16 train step of HTD R-50 / R-101-DCN / X-101-64x4d-DCN at
     full depth and width (a small 256x384 batch of 2): K1 once, K2 and K4
     three times each, K7 three times (the FPN's top-down adds), and with
-    the 30 deformable convs K3, K5 and K6 30 times each; finite float32
-    losses; P5's lateral conv gets a finite non-zero gradient."""
+    the 30 deformable convs K3, K5 and K6 30 times each, on the tensor
+    cores for R-101-DCN and on the CUDA cores for X-101's grouped convs;
+    finite float32 losses; P5's lateral conv gets a finite non-zero
+    gradient."""
     from htd_tpu_torch import config as PC
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
     from htd_tpu_torch.train.train_step import TrainBatch, create_train_state, train_step
 
     state = create_train_state(getattr(PC, preset)(compute_dtype="bfloat16"), seed=0)
@@ -635,14 +632,15 @@ def test_train_step_launches(cuda, preset):
                        torch.tensor([[256.0, 384.0], [240.0, 360.0]]), torch.from_numpy(boxes),
                        torch.from_numpy(rng.randint(0, 80, (2, 100)).astype(np.int32)),
                        torch.from_numpy(valid))
-    reset_launch_counts()
-    metrics = train_step(state, batch, torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    dcn = 0 if preset == "htd_r50_1x" else 30
-    assert launch_counts == {"pyramid_pack": 1, "roi_align": 3, "deform_conv": dcn,
-                             "roi_align_bwd": 3, "deform_conv_bwd_input": dcn,
-                             "deform_conv_bwd_offset_weight": dcn, "upsample_add": 3,
-                             "layout_fence": 0, "soft_nms": 0}
+    want = {"pyramid_pack_kernel": 1, "roi_align_fwd_kernel": 3, "roi_align_bwd_kernel": 3,
+            "upsample_add_kernel": 3}
+    if preset != "htd_r50_1x":
+        tc = "_tc" if preset == "htd_r101_dcn_2x" else ""
+        want.update({f"deform_conv_fwd{tc}_kernel": 30, f"deform_conv_bwd_input{tc}_kernel": 30,
+                     "deform_conv_bwd_offset_kernel": 30, f"deform_conv_bwd_weight{tc}_kernel": 30})
+    metrics, got = kernel_counts(
+        lambda: train_step(state, batch, torch.Generator(device="cuda").manual_seed(0)), want)
+    assert got == want
     assert all(v.dtype == torch.float32 and torch.isfinite(v).item() for v in metrics.values())
     g = state.model.neck.lateral_convs[3].conv.weight.grad
     assert torch.isfinite(g).all() and g.abs().max() > 0
@@ -667,14 +665,11 @@ def test_upsample_add_matches_plain(cuda, dtype, shape):
     at odd widths, one launch; its output is contiguous NHWC, i.e.
     channels_last as NCHW; the launcher's output is the autograd
     function's."""
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
     from htd_tpu_torch.ops.upsample import upsample2x_add, upsample2x_add_plain
 
     low, lat = _up_pair(cuda, dtype, *shape)
-    reset_launch_counts()
-    k = upsample2x_add(low, lat)
-    torch.cuda.synchronize()
-    assert launch_counts["upsample_add"] == 1
+    k, got = kernel_counts(lambda: upsample2x_add(low, lat), {"upsample_add_kernel": 1})
+    assert got == {"upsample_add_kernel": 1}
     assert k.dtype == dtype and k.is_contiguous()
     assert k.permute(0, 3, 1, 2).is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(k, upsample2x_add_plain(low, lat))
@@ -685,9 +680,8 @@ def test_upsample_add_rejects_what_it_does_not_take(cuda):
     """An NCHW-contiguous lateral (not channels_last) raises rather than
     being copied; so do two dtypes at the launcher, channels that are not a
     16-byte multiple, and a CPU tensor beside a CUDA one. A pair that is
-    not exactly 2x takes the resize branch and launches nothing."""
+    not exactly 2x takes the resize branch and runs no hand-written kernel."""
     from htd_tpu_torch.ops.elementwise_cuda import launch_upsample_add
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
     from htd_tpu_torch.ops.upsample import upsample2x_add
 
     low, lat = _up_pair(cuda, torch.float32, 1, 6, 10, 32)
@@ -702,9 +696,8 @@ def test_upsample_add_rejects_what_it_does_not_take(cuda):
         upsample2x_add(*_up_pair(cuda, torch.float32, 1, 6, 10, 6))
     with pytest.raises(ValueError):
         upsample2x_add(low.cpu(), lat)
-    reset_launch_counts()
-    out = upsample2x_add(low, lat[:, :11])
-    assert out.shape == (1, 11, 20, 32) and launch_counts["upsample_add"] == 0
+    out, got = kernel_counts(lambda: upsample2x_add(low, lat[:, :11]))
+    assert out.shape == (1, 11, 20, 32) and got == {}
 
 
 @pytest.mark.cuda
@@ -742,7 +735,6 @@ def test_layout_fence_matches_plain(cuda, dtype):
     the input's strides, one launch each; the gradient passes through
     `_LayoutFence`; a tensor with gaps raises."""
     from htd_tpu_torch.ops.fence import layout_fence, layout_fence_plain
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
     shapes = [(33, 7), (5, 11, 13), (2, 256, 25, 21), (2, 3, 7, 9, 5), (3, 64, 37, 41)]
     xs = [torch.randn(s, device=cuda).to(dtype) for s in shapes]
@@ -751,13 +743,15 @@ def test_layout_fence_matches_plain(cuda, dtype):
     gen = torch.Generator(device=cuda).manual_seed(7)
     xs += [torch.randint(0, 256, (span,), device=cuda, dtype=torch.uint8, generator=gen)
            for span in (1, 15, 16 * 12345 + 3)]
-    reset_launch_counts()
-    for x in xs:
-        k = layout_fence(x)
-        assert k.stride() == x.stride() and k.data_ptr() != x.data_ptr()
-        assert torch.equal(k, layout_fence_plain(x))
-    torch.cuda.synchronize()
-    assert launch_counts["layout_fence"] == len(xs)
+
+    def run():
+        for x in xs:
+            k = layout_fence(x)
+            assert k.stride() == x.stride() and k.data_ptr() != x.data_ptr()
+            assert torch.equal(k, layout_fence_plain(x))
+
+    want = {"layout_fence_kernel": len(xs)}
+    assert kernel_counts(run, want)[1] == want
     x = xs[2].detach().requires_grad_(True)
     out = layout_fence(x)
     assert type(out.grad_fn).__name__ == "_LayoutFenceBackward"
@@ -776,7 +770,6 @@ def test_fpn_gradients_through_k7(cuda):
     its own order); P5's lateral among them."""
     from htd_tpu_torch.models.fpn import FPN
     from htd_tpu_torch.models.layers import resize_nearest
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
     torch.manual_seed(0)
     neck = FPN().to(cuda).to(memory_format=torch.channels_last)
@@ -799,10 +792,8 @@ def test_fpn_gradients_through_k7(cuda):
         return [o.detach() for o in outs[:4]] + [x.grad for x in xs] + \
             [p.grad.clone() for p in neck.parameters()]
 
-    reset_launch_counts()
-    got = run(True)
-    torch.cuda.synchronize()
-    assert launch_counts["upsample_add"] == 3
+    got, ran = kernel_counts(lambda: run(True), {"upsample_add_kernel": 3})
+    assert ran == {"upsample_add_kernel": 3}
     assert neck.lateral_convs[3].conv.weight.grad.abs().max() > 0
     for a, b in zip(got, run(False)):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
@@ -856,7 +847,6 @@ def test_soft_nms_kernel_equals_plain(cuda, monkeypatch, n, case):
     sizes that are and are not a multiple of the block, with the entries in
     shared memory (up to 9,216) and in the device-memory workspace."""
     from htd_tpu_torch.ops import nms
-    from htd_tpu_torch.ops.roi_align_cuda import launch_counts, reset_launch_counts
 
     boxes, scores, (thr, iou, min_score, max_out) = _soft_nms_inputs(cuda, n, case)
     seen = []
@@ -867,19 +857,23 @@ def test_soft_nms_kernel_equals_plain(cuda, monkeypatch, n, case):
 
     soft_nms = nms.soft_nms
     monkeypatch.setattr(nms, "soft_nms", capture)
-    reset_launch_counts()
-    dets = nms.multiclass_nms(boxes, scores, thr, iou, max_out, candidate_cap=n,
-                              use_soft_nms=True, soft_min_score=min_score)
-    torch.cuda.synchronize()
-    assert launch_counts["soft_nms"] == 1 and len(seen) == 1
-    nms.multiclass_nms(boxes, scores, thr, iou, max_out, candidate_cap=n)
-    torch.cuda.synchronize()
-    assert launch_counts["soft_nms"] == 1
+    one = {"soft_nms_kernel": 1}
+
+    def soft():
+        seen.clear()
+        return nms.multiclass_nms(boxes, scores, thr, iou, max_out, candidate_cap=n,
+                                  use_soft_nms=True, soft_min_score=min_score)
+
+    dets, ran = kernel_counts(soft, one)
+    assert ran == one and len(seen) == 1
+    _, ran = kernel_counts(lambda: nms.multiclass_nms(boxes, scores, thr, iou, max_out,
+                                                      candidate_cap=n))
+    assert ran == {}
     cand, cand_scores = seen[0][0], seen[0][1]
     assert cand.shape == (n, 4) and cand.is_cuda
-    got = soft_nms(*seen[0])
+    got, ran = kernel_counts(lambda: soft_nms(*seen[0]), one)
+    assert ran == one
     want = nms.soft_nms_plain(*seen[0])
-    assert launch_counts["soft_nms"] == 2
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape == (max_out,)
         assert torch.equal(_float_bits(a), _float_bits(b))
