@@ -35,7 +35,10 @@ script exits non-zero without its final line:
      request;
   9. reference: R-101-DCN in float32 on the card against the CPU;
  10. HTD X-101-64x4d-DCN: one bfloat16 request at its test scale, with K3
-     on grouped convs (the CUDA-core path) held to its plain version;
+     on grouped convs (the grouped tensor-core path, 30 launches a
+     request) held to its plain version, and timed per stage and per
+     image as phase 11 times R-101-DCN's (cuDNN's grouped conv of the same
+     shapes as context);
  11. R-101-DCN timings: K3 per stage and per image by device time and by
      events beside its bound, its plain version and cuDNN's regular conv of
      the same shapes (context only); the soft-NMS kernel on phase 8's
@@ -728,7 +731,9 @@ def check_k3_deform_groups(captured, names):
           f"ulp); tiled offsets bit-equal to one group")
 
 
-K3_TC, K3_CC = "deform_conv_fwd_tc_kernel", "deform_conv_fwd_kernel"
+# K3's paths: the tensor cores, the grouped tensor cores, the CUDA cores
+K3_TC, K3_GT, K3_CC = ("deform_conv_fwd_tc_kernel", "deform_conv_fwd_grouped_tc_kernel",
+                       "deform_conv_fwd_kernel")
 
 
 def request_kernels(requests: int, passes: int, k3: int = 0, k3_kernel: str = K3_TC,
@@ -740,7 +745,7 @@ def request_kernels(requests: int, passes: int, k3: int = 0, k3_kernel: str = K3
     kernel `k3_kernel`) `k3` times a pass, `soft` soft-NMS and `k8` K8
     kernels, and no other K3, K8 or soft-NMS kernel."""
     want = {"pyramid_pack_kernel": requests, "roi_align_fwd_kernel": 3 * requests,
-            "upsample_add_kernel": 3 * passes, K3_TC: 0, K3_CC: 0,
+            "upsample_add_kernel": 3 * passes, K3_TC: 0, K3_GT: 0, K3_CC: 0,
             "layout_fence_kernel": k8, "soft_nms_kernel": soft}
     want[k3_kernel] = k3 * passes
     return want
@@ -828,13 +833,83 @@ def k3_work(x, off, w, groups, stride):
     return nbytes, 2 * n * ho * wo * 9 * x.shape[-1] * cout // groups
 
 
-def dcn_phases(imgs, card):
-    """Phases 7-11 (R-101-DCN, X-101-DCN); returns the kernel records of K3
-    and the soft-NMS kernel."""
+def time_k3(captured, card: str, path: str) -> dict:
+    """K3's times over one request's captured deformable convs (one launch
+    each, the main path's own inputs): by events with the launcher's host
+    work, by device time per stage (`device_times`, one profile over each
+    stage's launches), the same launches with every sample outside the
+    image (all corner weights 0), the plain version, and as context cuDNN's
+    regular conv of the same shapes and groups (not the same function);
+    the bound from `k3_work` (bytes at 3.35 TB/s or operations at 989
+    TFLOP/s). Prints them per stage and per image (`path` names K3's
+    path); returns the sums in ms, with `bound_ms` and `bound_by`."""
     import torch.nn.functional as F
 
-    from htd_tpu_torch import htd_r101_dcn_2x, htd_x101_dcn_2x, init_detector
     from htd_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_plain
+
+    k3 = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    per_stage = {}
+    for name, m, x, off in captured:
+        w = m.hwio_weight()
+        args = (x, off, w, m.stride, 1, 1, m.groups)
+        x_nchw, w_oihw = x.permute(0, 3, 1, 2), m.weight
+        ms = cuda_ms(lambda: deform_conv2d(*args))
+        k3["ms"] += ms
+        nbytes, ops = k3_work(x, off, w, m.groups, m.stride)
+        stage = per_stage.setdefault(name.split(".")[0], {"n": 0, "ms": 0.0, "ops": 0, "args": []})
+        stage["n"] += 1
+        stage["ms"] += ms
+        stage["ops"] += ops
+        stage["args"].append(args)
+        k3["plain_ms"] += cuda_ms(lambda: deform_conv2d_plain(*args), iters=2, warmup=1)
+        k3["cudnn_ms"] += cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, stride=m.stride, padding=1,
+                                                   groups=m.groups))
+        k3["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+        k3["ops_ms"] += ops / BF16_FLOP_PER_S * 1e3
+        if name in ("layer2.0", "layer2.1", "layer3.1", "layer4.1"):
+            print(f"K3 {name} (stride {m.stride}, {x.shape[-1]} ch, {x.shape[1]}x{x.shape[2]} -> "
+                  f"{off.shape[1]}x{off.shape[2]}): {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB")
+    # device time by stage: one profile over each stage's launches, the
+    # host's dispatch left out
+    k3["device_ms"] = 0.0
+    for st, d in per_stage.items():
+        d["device_ms"] = device_times(lambda: [deform_conv2d(*a) for a in d["args"]],
+                                      {"deform_conv_fwd": len(d["args"])},
+                                      iters=5)["deform_conv_fwd"]
+        k3["device_ms"] += d["device_ms"]
+    # what bounds K3: the same launches with every sample outside the image
+    # (all corner weights 0: the tensor-core path loads no corner, the
+    # grouped one only the image's first pixel, from L1) leave the weight
+    # tiles, the blend, the tensor cores and the corner tables
+    for st, d in per_stage.items():
+        far = [(a[0], torch.full_like(a[1], 1e4)) + a[2:] for a in d["args"]]
+        d["no_sampling_ms"] = device_times(lambda: [deform_conv2d(*a) for a in far],
+                                           {"deform_conv_fwd": len(far)},
+                                           iters=5)["deform_conv_fwd"]
+        del far
+    print("K3 per stage: " + "; ".join(
+        f"{st} {d['n']} launches, device {d['device_ms']:.3f} ms ({d['device_ms'] / d['n'] * 1e3:.1f} "
+        f"us each, {d['ops'] / d['device_ms'] / 1e9:.1f} TFLOP/s), events {d['ms']:.3f} ms, "
+        f"device with every sample outside the image (all corner weights 0) "
+        f"{d['no_sampling_ms']:.3f} ms" for st, d in per_stage.items()))
+    bound = max(k3["bytes_ms"], k3["ops_ms"])
+    print(f"K3 per image ({len(captured)} launches, bf16, {path}): device "
+          f"{k3['device_ms']:.3f} ms ({100 * bound / k3['device_ms']:.1f}% of its bound), by events "
+          f"{k3['ms']:.3f} ms ({k3['ms'] / len(captured) * 1e3:.1f} us per launch, the host's "
+          f"dispatch included); bound {bound:.4f} ms (operations at 989 TFLOP/s bf16 "
+          f"{k3['ops_ms']:.4f} ms, bytes at 3.35 TB/s {k3['bytes_ms']:.4f} ms); plain version "
+          f"{k3['plain_ms']:.3f} ms; context: cuDNN regular conv of the same shapes "
+          f"{k3['cudnn_ms']:.3f} ms ({card})")
+    k3["bound_ms"] = bound
+    k3["bound_by"] = "bytes" if k3["bytes_ms"] >= k3["ops_ms"] else "operations"
+    return k3
+
+
+def dcn_phases(imgs, card):
+    """Phases 7-11 (R-101-DCN, X-101-DCN); returns the kernel records of K3
+    (R-101-DCN's tensor-core path, X-101-DCN's grouped one) and the
+    soft-NMS kernel."""
+    from htd_tpu_torch import htd_r101_dcn_2x, htd_x101_dcn_2x, init_detector
 
     phase("7 main path: HTD R-101-DCN, bfloat16, 800x1344 bucket")
     cfg = htd_r101_dcn_2x(compute_dtype="bfloat16")
@@ -886,71 +961,27 @@ def dcn_phases(imgs, card):
     print(f"init_detector(htd_x101_dcn_2x(compute_dtype='bfloat16'), seed=0), test scale "
           f"{xcfg.test_scale}, groups {xcfg.backbone.groups}")
     offset_stats(xm, imgs[:1])
-    run_requests(xm, imgs[:1], xcfg, per_request_k3=30, k3_kernel=K3_CC)
+    xcounts = run_requests(xm, imgs[:1], xcfg, per_request_k3=30, k3_kernel=K3_GT)
     xcap = capture_dcn(xm, imgs[0])
-    check_k3(xcap, ("layer2.0", "layer3.1", "layer4.1"))
+    xk3_err = check_k3(xcap, ("layer2.0", "layer3.1", "layer4.1"))
+    xk3 = time_k3(xcap, card, "grouped tensor-core path")
     del xm, xcap
 
     phase("11 R-101-DCN timings")
-    k3 = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
-    per_stage = {}
-    for name, m, x, off in captured:
-        w = m.hwio_weight()
-        args = (x, off, w, m.stride, 1, 1, m.groups)
-        x_nchw, w_oihw = x.permute(0, 3, 1, 2), m.weight
-        ms = cuda_ms(lambda: deform_conv2d(*args))
-        k3["ms"] += ms
-        nbytes, ops = k3_work(x, off, w, m.groups, m.stride)
-        stage = per_stage.setdefault(name.split(".")[0], {"n": 0, "ms": 0.0, "ops": 0, "args": []})
-        stage["n"] += 1
-        stage["ms"] += ms
-        stage["ops"] += ops
-        stage["args"].append(args)
-        k3["plain_ms"] += cuda_ms(lambda: deform_conv2d_plain(*args), iters=2, warmup=1)
-        k3["cudnn_ms"] += cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, stride=m.stride, padding=1,
-                                                   groups=m.groups))
-        k3["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-        k3["ops_ms"] += ops / BF16_FLOP_PER_S * 1e3
-        if name in ("layer2.0", "layer2.1", "layer3.1", "layer4.1"):
-            print(f"K3 {name} (stride {m.stride}, {x.shape[-1]} ch, {x.shape[1]}x{x.shape[2]} -> "
-                  f"{off.shape[1]}x{off.shape[2]}): {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB")
-    # device time by stage: one profile over each stage's launches, the
-    # host's dispatch left out
-    k3["device_ms"] = 0.0
-    for st, d in per_stage.items():
-        d["device_ms"] = device_times(lambda: [deform_conv2d(*a) for a in d["args"]],
-                                      {"deform_conv_fwd": len(d["args"])},
-                                      iters=5)["deform_conv_fwd"]
-        k3["device_ms"] += d["device_ms"]
-    # what bounds K3: the same launches with every sample outside the image
-    # (all corner weights 0, so no corner is loaded) leave the weight tiles,
-    # the tensor cores and the corner tables
-    for st, d in per_stage.items():
-        far = [(a[0], torch.full_like(a[1], 1e4)) + a[2:] for a in d["args"]]
-        d["no_sampling_ms"] = device_times(lambda: [deform_conv2d(*a) for a in far],
-                                           {"deform_conv_fwd": len(far)},
-                                           iters=5)["deform_conv_fwd"]
-        del far
-    print("K3 per stage: " + "; ".join(
-        f"{st} {d['n']} launches, device {d['device_ms']:.3f} ms ({d['device_ms'] / d['n'] * 1e3:.1f} "
-        f"us each, {d['ops'] / d['device_ms'] / 1e9:.1f} TFLOP/s), events {d['ms']:.3f} ms, "
-        f"device with every sample outside the image (no corner loads) "
-        f"{d['no_sampling_ms']:.3f} ms" for st, d in per_stage.items()))
-    bound = max(k3["bytes_ms"], k3["ops_ms"])
-    print(f"K3 per image ({len(captured)} launches, bf16, tensor-core path): device "
-          f"{k3['device_ms']:.3f} ms ({100 * bound / k3['device_ms']:.1f}% of its bound), by events "
-          f"{k3['ms']:.3f} ms ({k3['ms'] / len(captured) * 1e3:.1f} us per launch, the host's "
-          f"dispatch included); bound {bound:.4f} ms (operations at 989 TFLOP/s bf16 "
-          f"{k3['ops_ms']:.4f} ms, bytes at 3.35 TB/s {k3['bytes_ms']:.4f} ms); plain version "
-          f"{k3['plain_ms']:.3f} ms; context: cuDNN regular conv of the same shapes "
-          f"{k3['cudnn_ms']:.3f} ms ({card})")
+    k3 = time_k3(captured, card, "tensor-core path")
     return [{"name": "deform_conv", "route": "cuda",
              "source": "htd_tpu_torch/csrc/deform_conv.cu",
              "replaces": "htd_tpu/ops/dcn_pallas.py:131", "launches": counts[K3_TC],
              "path": "tensor cores (mma.sync bf16)", "max_abs_err": k3_err, "ms": k3["ms"],
-             "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"], "bound_ms": bound,
-             "bound_by": "bytes" if k3["bytes_ms"] >= k3["ops_ms"] else "operations",
-             "library_ms": None},
+             "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+             "bound_by": k3["bound_by"], "library_ms": None},
+            {"name": "deform_conv (grouped)", "route": "cuda",
+             "source": "htd_tpu_torch/csrc/deform_conv.cu",
+             "replaces": "htd_tpu/ops/dcn_pallas.py:131", "launches": xcounts[K3_GT],
+             "path": "grouped tensor cores (mma.sync bf16, block-diagonal; X-101-64x4d-DCN)",
+             "max_abs_err": xk3_err, "ms": xk3["ms"], "device_ms": xk3["device_ms"],
+             "plain_ms": xk3["plain_ms"], "bound_ms": xk3["bound_ms"],
+             "bound_by": xk3["bound_by"], "library_ms": xk3["cudnn_ms"]},
             time_soft_nms(soft_args, counts["soft_nms_kernel"], card)]
 
 
@@ -1547,7 +1578,7 @@ def step_kernels(dcn: int) -> dict:
     top-down adds; their backward is plain torch), K8 never (the fence
     switches are off), no soft-NMS."""
     return {"pyramid_pack_kernel": 1, "roi_align_fwd_kernel": 3, "roi_align_bwd_kernel": 3,
-            "upsample_add_kernel": 3, K3_TC: dcn, K3_CC: 0,
+            "upsample_add_kernel": 3, K3_TC: dcn, K3_GT: 0, K3_CC: 0,
             "deform_conv_bwd_input_tc_kernel": dcn, "deform_conv_bwd_input_kernel": 0,
             "deform_conv_bwd_offset_kernel": dcn, "deform_conv_bwd_weight_tc_kernel": dcn,
             "deform_conv_bwd_weight_kernel": 0, "layout_fence_kernel": 0, "soft_nms_kernel": 0}
@@ -2452,7 +2483,7 @@ def tools_phase(card):
 
         dcn = tool_run("test.py --config htd_r101_dcn_2x", lambda: test_tool.main(
             ["--config", "htd_r101_dcn_2x", "--bf16", "--max-images", "2", "--batch-size", "2",
-             "--ann", val_ann, "--img-root", root]), card, {K3_TC: 60, K3_CC: 0},
+             "--ann", val_ann, "--img-root", root]), card, {K3_TC: 60, K3_GT: 0, K3_CC: 0},
             {"capture": 1, "replay": 1, "eager": 0})
         finite_metrics("R-101-DCN test.py", dcn)
         print(f"R-101-DCN bf16, random weights, 2 images: {dcn}")
@@ -3794,11 +3825,13 @@ def run() -> None:
     drill_phase(card)
     picture_phase(card)
     print(f"kernel times are per image (K2: the sum of its 3 calls per request; K3: of its "
-          f"30 launches per R-101-DCN request; soft-NMS: its one launch per R-101-DCN request; "
+          f"30 launches per R-101-DCN request; K3 grouped: of its 30 launches per X-101-DCN "
+          f"request; soft-NMS: its one launch per R-101-DCN request; "
           f"K7: of its 3 launches per R-50 request; K8: one launch on the largest fenced "
           f"tensor) and per train step (K4: its 3 calls, R-50; K5, K6: their 30 launches each, "
           f"R-101-DCN); launches are the kernels in the traces of the {len(REQUEST_SHAPES)} "
-          f"replayed main-path requests (K1, K2, K7: R-50; K3, soft-NMS: R-101-DCN) and of the "
+          f"replayed main-path requests (K1, K2, K7: R-50; K3, soft-NMS: R-101-DCN; K3 grouped: "
+          f"X-101-DCN) and of the "
           f"replayed fenced request (K8: R-101-DCN), and in the traces of the {TRAIN_STEPS} "
           f"main-path train steps of each training path (K4: R-50; K5, K6: R-101-DCN, K6 by "
           f"its d_offsets kernel); max_abs_err is bfloat16 vs the plain version (soft-NMS: "

@@ -27,8 +27,14 @@
 // multiply-adds; for R-101-DCN's 3x3 convs that is 1152-4608 per element
 // against about 3 bytes moved, far above the card's ratio of operations to
 // bytes. The sampled (Ho, Wo, 9, Cin) tensor never reaches device memory,
-// which is what the TPU kernel fused too. Two paths, picked statically by
-// dtype and weight groups:
+// which is what the TPU kernel fused too. Three paths, picked statically by
+// dtype and weight groups, each input taking exactly one:
+//
+//   bfloat16, groups == 1                               -> tensor cores
+//   bfloat16, groups > 1, Cin/groups == Cout/groups in
+//     {8, 16, 32}, Cin/deform_groups a multiple of 64,
+//     an image's H * W * Cin * 2 bytes below 2^31            -> grouped tensor cores
+//   float32; any other grouped bfloat16 shape            -> CUDA cores
 //
 // - bfloat16 with one weight group (R-101-DCN, inference and training):
 //   an implicit GEMM on the tensor cores, M = output pixels, N = Cout,
@@ -54,8 +60,36 @@
 //   pixel tile, and this pipeline bound the path, not the sampling: with
 //   every sample outside the image it takes nearly as long. wgmma, TMA
 //   multicast of the weight tiles and a deeper pipeline are later work.
-// - float32, or grouped weights (X-101-64x4d-DCN, 8-32 channels per
-//   group): CUDA cores, exact float32 products. One block per 64 output
+// - bfloat16 with grouped weights of 8, 16 or 32 channels, input channels
+//   per group equal to output channels (X-101-64x4d-DCN's layer2-4):
+//   the grouped tensor-core path. Each sample feeds only its own group's
+//   outputs, so K is short (9 x 8-32) and the sampling, not the products,
+//   bounds the path; and a block's whole weight slab fits on chip, which
+//   R-101's dense weight does not. A block owns 64 output pixels (a 4 x
+//   16 tile of the map) and 64 channels (whole groups: its input slab is
+//   its output slab). It first copies the slab's weights (64 x 9 x cg,
+//   9-36 KB) into shared memory by cp.async and writes the corner table
+//   of all 9 taps for its pixels, then passes one barrier; after that its
+//   8 warps (16 pixels x 32 channels each) run independently. Each thread
+//   blends, per tap, 8 consecutive channels of two pixels (rows g and g +
+//   8 of mma's A fragment) from 16-byte corner loads, in float32 in
+//   add_corner's order from the first product, rounds each sample once to
+//   bf16 (the plain version's sample, a zero's sign aside) and keeps it in
+//   registers as its own A fragment: the K slots of mma.m16n8k16 are
+//   permuted so that a thread's slots are its 8 channels (two K steps a
+//   tap), which needs no shared A tile, no ldmatrix and no barrier. Its B
+//   fragment is the matching 16 bytes of the weight slab, zero where the
+//   output channel's group is another (block-diagonal: for 8 or 16
+//   channels a group 3/4 or 1/2 of the products are zeros, which the
+//   tensor cores absorb). bf16 products, float32 sums, one rounding of
+//   the output. On the H100 (X-101's 30 convs at 800x1600) it takes
+//   1.7 ms an image against 0.236 ms of bytes; the tap loop's instruction
+//   throughput bounds it (about 250 instructions a thread a tap, mostly
+//   the float32 blend and the bf16 unpacking: with every sample outside the
+//   image it takes 3/4 of the time), then each block's weight copy and
+//   corner table.
+// - float32, or grouped bfloat16 weights outside that rule: CUDA cores,
+//   exact float32 products. One block per 64 output
 //   pixels x 64 output channels; per (tap, deform group) 64 threads write
 //   the corner table, then per chunk of 32 input channels the block
 //   samples the tile into shared memory and stages the weight beside it,
@@ -407,13 +441,190 @@ int launch_tc(const void* x, const void* offsets, const void* weight, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---- the grouped tensor-core path: bfloat16, 8, 16 or 32 channels a group ----
+
+constexpr int kGtThreads = 256;  // 8 warps: 4 over the pixels x 2 over the channels
+constexpr int kGtSlab = 64;      // channels per block, input and output alike
+constexpr int kGtTileW = 16;     // the block's pixels: a kGtTileH x kGtTileW tile of the map
+constexpr int kGtTileH = 4;
+constexpr int kGtPix = kGtTileH * kGtTileW;
+static_assert(kGtPix == 64 && kGtSlab == 64, "4 x 2 warps of 16 pixels x 32 channels");
+
+// Dynamic shared memory of one block: the weight slab, then the corner
+// byte offsets and weights of every (tap, pixel).
+inline size_t gt_smem_bytes(int cg) {
+  return (size_t)kGtSlab * kTaps * cg * sizeof(__nv_bfloat16) +
+         (size_t)kTaps * kGtPix * (sizeof(int4) + sizeof(float4));
+}
+
+// Eight bfloat16 values to float32, exactly (a bfloat16 is the high half of
+// its float32).
+__device__ __forceinline__ void unpack_bf16x8(const uint4& u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+template <int CG>
+__global__ void __launch_bounds__(kGtThreads, 2)
+deform_conv_fwd_grouped_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                                  const __nv_bfloat16* __restrict__ offsets,
+                                  const __nv_bfloat16* __restrict__ weight,
+                                  __nv_bfloat16* __restrict__ out, const DcnParams p) {
+  static_assert(CG == 8 || CG == 16 || CG == 32, "a warp's 32 channels are whole groups");
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [out channel][tap][input channel of its group], as the weight lies in memory
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);
+  // [tap][pixel]: each corner's byte offset in the image (0 where the
+  // corner does not count) and its weight
+  int4* coff = reinterpret_cast<int4*>(smem + kGtSlab * kTaps * CG * sizeof(__nv_bfloat16));
+  float4* cw = reinterpret_cast<float4*>(coff + kTaps * kGtPix);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int img = blockIdx.z;
+  const int npix = p.ho * p.wo;
+  const int tiles_x = (p.wo + kGtTileW - 1) / kGtTileW;
+  const int oy0 = blockIdx.x / tiles_x * kGtTileH;
+  const int ox0 = (blockIdx.x % tiles_x) * kGtTileW;
+  const int c0 = blockIdx.y * kGtSlab;  // the block's first channel, in and out
+
+  // the slab's weights, one contiguous run, in flight while the tables are written
+  const __nv_bfloat16* wsrc = weight + (int64_t)c0 * kTaps * CG;
+  for (int e = tid; e < kGtSlab * kTaps * CG / 8; e += kGtThreads)
+    cp_async16(ws + e * 8, wsrc + e * 8, true);
+  cp_async_commit();
+  for (int e = tid; e < kTaps * kGtPix; e += kGtThreads) {
+    const int px = e % kGtPix, tap = e / kGtPix;
+    const int oy = oy0 + px / kGtTileW, ox = ox0 + px % kGtTileW;
+    Corners c = no_corners();
+    if (oy < p.ho && ox < p.wo) {
+      const float2 d = tap_offset(offsets, (int64_t)img * npix + oy * p.wo + ox, c0 / p.cdg,
+                                  tap, p);
+      c = sample_corners(oy, ox, tap / 3, tap % 3, d.x, d.y, p);
+    }
+    const int row = p.cin * (int)sizeof(__nv_bfloat16);
+    coff[e] = make_int4(c.idx[0] * row, c.idx[1] * row, c.idx[2] * row, c.idx[3] * row);
+    cw[e] = make_float4(c.w[0], c.w[1], c.w[2], c.w[3]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // thread (g, t) of its warp: pixels wm + g and wm + g + 8, input
+  // channels wn + 8t .. wn + 8t + 7 of the slab, which lie in one group;
+  // output channels wn + 8j + g (j = 0..3), whose weights at those inputs
+  // are live only where the group is the same
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp & 3) * 16, wn = (warp >> 2) * 32;
+  const char* xc = reinterpret_cast<const char*>(x + (int64_t)img * p.h * p.w * p.cin + c0 +
+                                                 wn + 8 * t);
+  const __nv_bfloat16* wrow[4];
+  bool live[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int o = wn + 8 * j + g;
+    live[j] = CG == 32 || o / CG == (wn + 8 * t) / CG;
+    wrow[j] = ws + o * kTaps * CG + (wn + 8 * t) % CG;
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] = 0.0f;
+
+#pragma unroll 1
+  for (int tap = 0; tap < kTaps; ++tap) {
+    uint4 b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = live[j] ? *reinterpret_cast<const uint4*>(wrow[j] + tap * CG)
+                     : make_uint4(0, 0, 0, 0);
+    // A: K slots (2t, 2t + 1 | 2t + 8, 2t + 9) of step s are channels
+    // 8t + 4s + (0, 1 | 2, 3); a[s][r] / a[s][2 + r] hold pixel r's pairs.
+    // Every corner is loaded (a dead one at offset 0 with weight 0)
+    uint32_t a[2][4];
+    uint4 raw[2][4];
+    float wq[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int px = tap * kGtPix + wm + g + 8 * r;
+      const int4 o = coff[px];
+      const float4 w = cw[px];
+      wq[r][0] = w.x; wq[r][1] = w.y; wq[r][2] = w.z; wq[r][3] = w.w;
+      raw[r][0] = __ldg(reinterpret_cast<const uint4*>(xc + o.x));
+      raw[r][1] = __ldg(reinterpret_cast<const uint4*>(xc + o.y));
+      raw[r][2] = __ldg(reinterpret_cast<const uint4*>(xc + o.z));
+      raw[r][3] = __ldg(reinterpret_cast<const uint4*>(xc + o.w));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // add_corner's order from the first product (0 + p is p, a zero's
+      // sign aside)
+      float s[8], val[8];
+      unpack_bf16x8(raw[r][0], val);
+#pragma unroll
+      for (int v = 0; v < 8; ++v) s[v] = __fmul_rn(wq[r][0], val[v]);
+#pragma unroll
+      for (int q = 1; q < 4; ++q) {
+        unpack_bf16x8(raw[r][q], val);
+        add_corner(s, wq[r][q], val);
+      }
+      const uint4 packed = pack_bf16x8(s);
+      a[0][r] = packed.x;
+      a[0][2 + r] = packed.y;
+      a[1][r] = packed.z;
+      a[1][2 + r] = packed.w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mma_bf16_16816(acc[j], a[0], b[j].x, b[j].y);
+      mma_bf16_16816(acc[j], a[1], b[j].z, b[j].w);
+    }
+  }
+
+  // rows g (+8): pixels; columns 2t, 2t + 1 of each n-tile: channels
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int px = wm + g + 8 * r;
+    const int oy = oy0 + px / kGtTileW, ox = ox0 + px % kGtTileW;
+    if (oy >= p.ho || ox >= p.wo) continue;
+    __nv_bfloat16* o = out + ((int64_t)img * npix + oy * p.wo + ox) * p.cout + c0 + wn + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+          __floats2bfloat162_rn(acc[j][2 * r], acc[j][2 * r + 1]);
+  }
+}
+
+template <int CG>
+int launch_grouped_tc(const void* x, const void* offsets, const void* weight, void* out,
+                      const DcnParams& p, cudaStream_t stream) {
+  const size_t smem = gt_smem_bytes(CG);
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(deform_conv_fwd_grouped_tc_kernel<CG>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) != cudaSuccess)
+    return (int)cudaGetLastError();
+  dim3 grid(((p.ho + kGtTileH - 1) / kGtTileH) * ((p.wo + kGtTileW - 1) / kGtTileW),
+            p.cout / kGtSlab, p.n);
+  deform_conv_fwd_grouped_tc_kernel<CG><<<grid, kGtThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(offsets),
+      static_cast<const __nv_bfloat16*>(weight), static_cast<__nv_bfloat16*>(out), p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (n, h, w, cin), offsets (n, ho, wo, deform_groups * 18), weight (cout,
 // 3, 3, cin/groups), out (n, ho, wo, cout), all contiguous, one dtype:
 // 0 = float32, 1 = bfloat16. bfloat16 with groups == 1 takes the
 // tensor-core path (needs cin/deform_groups a multiple of 64 and cout a
-// multiple of 8), everything else the CUDA-core path (needs cin/groups and
+// multiple of 8); bfloat16 with groups > 1, cin/groups == cout/groups in
+// {8, 16, 32}, cin/deform_groups a multiple of 64 and an image's bytes
+// (h * w * cin * 2) within 31 bits the grouped tensor-core path;
+// everything else the CUDA-core path (needs cin/groups and
 // cin/deform_groups multiples of the 16-byte vector, 4 float32 or 8
 // bfloat16, and cout/groups a multiple of 4).
 // Returns cudaGetLastError() after the launch (0 on success); -1 on bad
@@ -438,6 +649,12 @@ extern "C" int htd_deform_conv_fwd(const void* x, const void* offsets, const voi
     return cout % 128 == 0 && tiles * (cout / 128) >= 2 * (int64_t)sms
                ? launch_tc<128>(x, offsets, weight, out, p, stream)
                : launch_tc<64>(x, offsets, weight, out, p, stream);
+  }
+  if (dtype == 1 && p.cg == p.og && p.cdg % kGtSlab == 0 &&
+      (int64_t)h * w * cin * sizeof(__nv_bfloat16) <= INT32_MAX) {
+    if (p.cg == 8) return launch_grouped_tc<8>(x, offsets, weight, out, p, stream);
+    if (p.cg == 16) return launch_grouped_tc<16>(x, offsets, weight, out, p, stream);
+    if (p.cg == 32) return launch_grouped_tc<32>(x, offsets, weight, out, p, stream);
   }
   const int vec = dtype == 0 ? Vec<float>::N : Vec<__nv_bfloat16>::N;
   if (p.cg % vec || p.cdg % vec || p.og % 4) return -1;

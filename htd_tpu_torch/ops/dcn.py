@@ -30,7 +30,9 @@ every offset: the TPU kernels' sample window and their capped correction
 passes have no counterpart here.
 
 In bfloat16 with one weight group the two products over samples run on
-the tensor cores: K3's output and K6's d_w contract each sample blended in
+the tensor cores, and so does K3's with grouped weights of 8, 16 or 32
+channels (as many input as output channels a group, as in ResNeXt): K3's
+output and K6's d_w contract each sample blended in
 float32 and rounded once to bfloat16 (the plain versions round at the same
 point), with float32 sums, so kernel and plain version differ only in
 summation order. On the H100, K3 and K6's d_w (2 * N * Ho * Wo * 9 * Cin
@@ -259,8 +261,9 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
     a multiple of 64 when there are several; inputs of one dtype; x and
     offsets contiguous, the weight's memory in (Cout, kh, kw, Cin / groups)
     order as `DeformConv2d.hwio_weight()` gives it). K3, K5 and K6's d_w
-    run on the tensor cores in bfloat16 with one weight group and on the
-    CUDA cores otherwise (`ops.dcn_cuda`); the plain versions on the CPU. With
+    run on the tensor cores in bfloat16 with one weight group, K3 also
+    with grouped weights of 8, 16 or 32 channels, and on the CUDA cores
+    otherwise (`ops.dcn_cuda`); the plain versions on the CPU. With
     `HTD_DCN_FENCE=1`, x is fenced first (kernel K8 on CUDA), as in the JAX
     package."""
     _check(x, offsets, weight, stride, dilation, deform_groups, groups)

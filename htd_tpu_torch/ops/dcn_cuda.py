@@ -10,11 +10,16 @@ There is no fallback: a CUDA tensor goes through the kernel or the call
 raises. The public wrapper that picks between the kernels and their plain
 versions by device is `ops.dcn.deform_conv2d`.
 
-K3, K5 and K6 (its d_weight product) each have two paths, picked in C by
-dtype and weight groups (not a fallback: each input takes exactly one):
-bfloat16 with one weight group runs on the tensor cores, float32 or
-grouped weights on the CUDA cores. Each path is a kernel of its own, whose
-name a profiler trace shows (`deform_conv_fwd_tc_kernel` /
+K3, K5 and K6 (its d_weight product) pick their path in C by dtype and
+weight groups (not a fallback: each input takes exactly one). bfloat16
+with one weight group runs on the tensor cores. K3 has a third path:
+bfloat16 with grouped weights of 8, 16 or 32 channels, as many input as
+output channels a group, Cin / deform_groups a multiple of 64 and an
+image's H * W * Cin * 2 bytes below 2**31 (X-101-64x4d-DCN's convs) runs on
+the tensor cores too, block-diagonally.
+float32, and every other grouped shape, runs on the CUDA cores. Each path
+is a kernel of its own, whose name a profiler trace shows
+(`deform_conv_fwd_tc_kernel` / `deform_conv_fwd_grouped_tc_kernel` /
 `deform_conv_fwd_kernel`, likewise `deform_conv_bwd_input_*` and
 `deform_conv_bwd_weight_*`; `utils.profiling.kernel_counts`).
 """

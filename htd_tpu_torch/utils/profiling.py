@@ -19,11 +19,12 @@ T = TypeVar("T")
 
 # the `__global__` kernels of `htd_tpu_torch/csrc/*.cu`, as a trace's device
 # records name them. Each path of K3, K5 and K6 is a kernel of its own
-# (`_tc`: the tensor cores; else the CUDA cores), and a K6 call runs
-# `deform_conv_bwd_offset_kernel` and one of the two d_weight kernels.
+# (`_tc`: the tensor cores, `_grouped_tc` K3's for grouped weights; else
+# the CUDA cores), and a K6 call runs `deform_conv_bwd_offset_kernel` and
+# one of the two d_weight kernels.
 KERNELS = frozenset({
     "pyramid_pack_kernel", "roi_align_fwd_kernel", "roi_align_bwd_kernel",
-    "deform_conv_fwd_kernel", "deform_conv_fwd_tc_kernel",
+    "deform_conv_fwd_kernel", "deform_conv_fwd_tc_kernel", "deform_conv_fwd_grouped_tc_kernel",
     "deform_conv_bwd_input_kernel", "deform_conv_bwd_input_tc_kernel",
     "deform_conv_bwd_offset_kernel", "deform_conv_bwd_weight_kernel",
     "deform_conv_bwd_weight_tc_kernel", "upsample_add_kernel", "layout_fence_kernel",

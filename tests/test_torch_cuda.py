@@ -142,12 +142,13 @@ def test_deform_conv_matches_plain(cuda, stride, groups, dtype):
     (bfloat16) of the plain version's largest magnitude. Both sum in
     float32, in different orders; in bfloat16 the outputs differ by one
     final rounding. bfloat16 with one weight group takes the tensor
-    cores, everything else the CUDA cores: one kernel of that path runs."""
+    cores, with 64 groups of 8 channels the grouped tensor cores, float32
+    the CUDA cores: one kernel of that path runs."""
     from htd_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_plain
 
     x, off, wgt = _dcn_inputs(cuda, dtype, stride, groups)
-    tc = dtype == torch.bfloat16 and groups == 1
-    want = {"deform_conv_fwd_tc_kernel" if tc else "deform_conv_fwd_kernel": 1}
+    want = {"deform_conv_fwd_kernel" if dtype == torch.float32 else
+            "deform_conv_fwd_tc_kernel" if groups == 1 else "deform_conv_fwd_grouped_tc_kernel": 1}
     k, got = kernel_counts(lambda: deform_conv2d(x, off, wgt, stride=stride, groups=groups), want)
     assert got == want
     p = deform_conv2d_plain(x, off, wgt, stride=stride, groups=groups)
@@ -156,18 +157,91 @@ def test_deform_conv_matches_plain(cuda, stride, groups, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("deform_groups", [1, 2])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("cg", [8, 16, 32])
+def test_grouped_k3_matches_plain(cuda, cg, stride, deform_groups):
+    """bfloat16 K3 with 256 channels in groups of 8, 16 and 32 (X-101's
+    layer2-4 group widths) on the grouped tensor-core path, against its
+    plain version: a 23x37 map, so that the 4 x 16 pixel tiles are ragged
+    in both directions, at strides 1 and 2, offsets of up to ~8 px that
+    put some samples outside the image, one deform group or two (each
+    128 channels): within 1e-4 of max |plain| plus one bfloat16 ulp (the
+    same bfloat16 samples and weights, float32 sums in another order, one
+    rounding). One kernel of that path runs."""
+    from htd_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_plain
+
+    x, off, wgt = _dcn_inputs(cuda, torch.bfloat16, stride, 256 // cg, channels=(256, 256),
+                              deform_groups=deform_groups, seed=cg + stride)
+    ys = off[..., 0::2].float() + torch.arange(3, device=cuda).repeat(3 * deform_groups) - 1
+    assert (ys.amin((0, 2, 3)) < -1).any() and (off.float().abs() > 5).any()   # off the map
+    want = {"deform_conv_fwd_grouped_tc_kernel": 1}
+    k, got = kernel_counts(lambda: deform_conv2d(x, off, wgt, stride=stride,
+                                                 deform_groups=deform_groups,
+                                                 groups=256 // cg), want)
+    assert got == want
+    p = deform_conv2d_plain(x, off, wgt, stride=stride, deform_groups=deform_groups,
+                            groups=256 // cg)
+    assert k.shape == p.shape and k.dtype == torch.bfloat16
+    err, lim = _ulp_limit(k, p, 1e-4)
+    assert err <= lim, f"K3 cg {cg}: {err:.3g} (limit {lim:.3g})"
+
+
+# K3's rule, a row each: (dtype, Cin, Cout, groups) -> the kernel that runs
+_CC, _TC, _GT = ("deform_conv_fwd_kernel", "deform_conv_fwd_tc_kernel",
+                 "deform_conv_fwd_grouped_tc_kernel")
+K3_RULE = {"float32_grouped": (torch.float32, 512, 512, 64, _CC),
+           "bf16_dense": (torch.bfloat16, 128, 96, 1, _TC),
+           "bf16_x101_layer2": (torch.bfloat16, 512, 512, 64, _GT),
+           "bf16_x101_layer3": (torch.bfloat16, 1024, 1024, 64, _GT),
+           "bf16_x101_layer4": (torch.bfloat16, 2048, 2048, 64, _GT),
+           "bf16_more_inputs_than_outputs": (torch.bfloat16, 512, 256, 64, _CC),
+           "bf16_64_a_group": (torch.bfloat16, 256, 256, 4, _CC),
+           "bf16_24_a_group": (torch.bfloat16, 192, 192, 8, _CC),
+           "bf16_cin_96": (torch.bfloat16, 96, 96, 12, _CC)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K3_RULE))
+def test_k3_dispatch_rule(cuda, case):
+    """Each row of K3's rule runs its one kernel: float32 grouped weights
+    the CUDA cores; bfloat16 with one weight group the tensor cores;
+    X-101's bfloat16 shapes (8, 16, 32 channels a group) the grouped
+    tensor cores; bfloat16 grouped shapes outside the rule (fewer output
+    than input channels a group, 64 or 24 channels a group, Cin not a
+    multiple of 64) the CUDA cores. Each output is held to the plain
+    version within 1e-4 of its largest magnitude, plus one bfloat16 ulp in
+    bfloat16."""
+    from htd_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_plain
+
+    dtype, cin, cout, groups, kernel = K3_RULE[case]
+    x, off, wgt = _dcn_inputs(cuda, dtype, 1, groups, n=1, h=12, w=20, channels=(cin, cout),
+                              seed=9)
+    k, got = kernel_counts(lambda: deform_conv2d(x, off, wgt, groups=groups), {kernel: 1})
+    assert got == {kernel: 1}
+    err, lim = _ulp_limit(k, deform_conv2d_plain(x, off, wgt, groups=groups), 1e-4)
+    assert err <= lim, f"K3 {case}: {err:.3g} (limit {lim:.3g})"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("groups", [1, 64])
-def test_deform_conv_zero_offsets_is_conv2d(cuda, groups):
-    """With zero offsets K3 computes the regular conv (float32, TF32 off)."""
+def test_deform_conv_zero_offsets_is_conv2d(cuda, groups, dtype):
+    """With zero offsets K3 computes the regular conv of the same inputs
+    (taken in float32, TF32 off): within 1e-4 of its largest magnitude,
+    plus one bfloat16 ulp in bfloat16 (the output's rounding); in bfloat16
+    with 64 groups, the grouped tensor-core path against
+    `F.conv2d(groups=64)`."""
     import torch.nn.functional as F
 
     from htd_tpu_torch.ops.dcn import deform_conv2d
 
-    x, off, wgt = _dcn_inputs(cuda, torch.float32, 2, groups)
+    x, off, wgt = _dcn_inputs(cuda, dtype, 2, groups)
     k = deform_conv2d(x, torch.zeros_like(off), wgt, stride=2, groups=groups)
-    ref = F.conv2d(x.permute(0, 3, 1, 2), wgt.permute(3, 2, 0, 1), stride=2, padding=1,
-                   groups=groups).permute(0, 2, 3, 1)
-    assert _rel_err(k, ref) <= 1e-4
+    ref = F.conv2d(x.float().permute(0, 3, 1, 2), wgt.float().permute(3, 2, 0, 1), stride=2,
+                   padding=1, groups=groups).permute(0, 2, 3, 1)
+    err, lim = _bwd_err(k, ref, dtype)
+    assert err <= lim - 1e-5 + 1e-4, f"{err:.3g} (limit {lim - 1e-5 + 1e-4:.3g})"
 
 
 @pytest.mark.cuda
@@ -418,11 +492,13 @@ def x101_request():
 def test_x101_request_runs_k3_on_the_cuda_cores(cuda, x101_request):
     """One X-101 request at its test scale (1600x800: the 800x1600 and
     1600x800 buckets) runs K3 30 times, every kernel on the grouped
-    CUDA-core path, and soft-NMS once; it returns detections. The first
+    tensor-core path (`deform_conv_fwd_grouped_tc_kernel`; before it, the
+    CUDA cores), and soft-NMS once; it returns detections. The first
     request at a bucket captures the backbone's graph: its eager warm-up
     runs the 30 K3 and 3 K7 kernels, the capture none, and the replay that
     follows 30 and 3 more. The next request replays the graph alone. Each
-    request runs K1 once and K2 three times, and no tensor-core K3."""
+    request runs K1 once and K2 three times, and neither of the other two
+    K3 kernels."""
     from htd_tpu_torch.apis import inference_detector
     from htd_tpu_torch.models import graphs
 
@@ -437,8 +513,8 @@ def test_x101_request_runs_k3_on_the_cuda_cores(cuda, x101_request):
                 return inference_detector(model, img)
 
             want = {"pyramid_pack_kernel": 1, "roi_align_fwd_kernel": 3,
-                    "upsample_add_kernel": 3 * passes, "deform_conv_fwd_kernel": 30 * passes,
-                    "soft_nms_kernel": 1}
+                    "upsample_add_kernel": 3 * passes,
+                    "deform_conv_fwd_grouped_tc_kernel": 30 * passes, "soft_nms_kernel": 1}
             (boxes, _, _), got = kernel_counts(request, want)
             assert got == want
             assert graphs.graph_counts == graph
@@ -453,8 +529,9 @@ def test_x101_k3_launches_lie_in_dcn_spans(cuda, x101_request):
     `htd.dcn` spans, whose K3 calls go into the graph and launch nothing;
     all 60 lie inside the request's one `htd.graph.capture` span inside
     `htd.backbone_fpn`, and the replay that follows runs the graph's 30 K3
-    kernels. A trace that lost a K3 kernel's record is taken again (3
-    traces at most)."""
+    kernels, all of them `deform_conv_fwd_grouped_tc_kernel` and none of
+    the other two K3 kernels. A trace that lost a K3 kernel's record is
+    taken again (3 traces at most)."""
     from torch.profiler import ProfilerActivity, profile
 
     from bench_h100.trace import from_profiler
@@ -468,13 +545,16 @@ def test_x101_k3_launches_lie_in_dcn_spans(cuda, x101_request):
             torch.cuda.synchronize()
         tr = from_profiler(prof)
         k3 = [launch for name, _, _, launch in tr.device
-              if "deform_conv_fwd" in name and launch is not None]
+              if "deform_conv_fwd_grouped_tc_kernel" in name and launch is not None]
         replayed = [name for name, _, _, launch in tr.device
-                    if "deform_conv_fwd" in name and launch is None]
+                    if "deform_conv_fwd_grouped_tc_kernel" in name and launch is None]
         if len(k3) == 30 and len(replayed) == 30:
             break
     assert len(k3) == 30, f"{len(k3)} K3 kernels with their launch in 3 traces"
     assert len(replayed) == 30, f"{len(replayed)} K3 kernels of the replay in 3 traces"
+    others = [name for name, _, _, _ in tr.device if "deform_conv_fwd" in name
+              and "deform_conv_fwd_grouped_tc_kernel" not in name]
+    assert not others, f"other K3 kernels ran: {others[:2]}"
     dcn = [(a, b) for n, a, b in tr.spans if n == "htd.dcn"]
     backbone = [(a, b) for n, a, b in tr.spans if n == "htd.backbone_fpn"]
     capture = [(a, b) for n, a, b in tr.spans if n == "htd.graph.capture"]
@@ -488,11 +568,13 @@ def test_x101_k3_launches_lie_in_dcn_spans(cuda, x101_request):
 @pytest.mark.cuda
 @pytest.mark.parametrize("conv", ["layer2.0", "layer3.1", "layer4.1"])
 def test_x101_grouped_k3_matches_plain_at_request_inputs(cuda, x101_request, monkeypatch, conv):
-    """K3's grouped bfloat16 path (8, 16 and 32 channels a group) against
-    its plain twin on one conv of each stage, at the input and offsets a
-    request at 800x1600 gives it (layer2.0 with stride 2): within 1e-4 of
-    max |plain| plus one bfloat16 ulp (the same bfloat16 samples and
-    weights, float32 sums in another order, one rounding)."""
+    """K3's grouped tensor-core path (8, 16 and 32 channels a group)
+    against its plain twin on one conv of each stage, at the input and
+    offsets a request at 800x1600 gives it (layer2.0 with stride 2): within
+    1e-4 of max |plain| plus one bfloat16 ulp (the same bfloat16 samples
+    and weights, float32 sums in another order, one rounding). The eager
+    request runs its 30 K3 kernels on that path and none on the other
+    two."""
     from htd_tpu_torch.apis import inference_detector
     from htd_tpu_torch.models import graphs
     from htd_tpu_torch.ops import dcn
@@ -519,12 +601,12 @@ def test_x101_grouped_k3_matches_plain_at_request_inputs(cuda, x101_request, mon
     # the wrapper (a graph's replay would call no Python)
     hook = m.register_forward_pre_hook(lambda mod, args: None)
     try:
-        _, got = kernel_counts(request, {"deform_conv_fwd_kernel": 30})
+        _, got = kernel_counts(request, {"deform_conv_fwd_grouped_tc_kernel": 30})
     finally:
         hook.remove()
     assert graphs.graph_counts["eager"] == 1
-    assert len(seen) == 1 and got["deform_conv_fwd_kernel"] == 30
-    assert "deform_conv_fwd_tc_kernel" not in got
+    assert len(seen) == 1 and got["deform_conv_fwd_grouped_tc_kernel"] == 30
+    assert "deform_conv_fwd_tc_kernel" not in got and "deform_conv_fwd_kernel" not in got
     x, off, w, args, k = seen[0]
     assert x.dtype == torch.bfloat16 and args[0] == m.stride and args[3] == 64
     assert float(off.float().abs().mean()) > 0.1           # offsets that move the samples
@@ -616,7 +698,8 @@ def test_train_step_launches(cuda, preset):
     full depth and width (a small 256x384 batch of 2): K1 once, K2 and K4
     three times each, K7 three times (the FPN's top-down adds), and with
     the 30 deformable convs K3, K5 and K6 30 times each, on the tensor
-    cores for R-101-DCN and on the CUDA cores for X-101's grouped convs;
+    cores for R-101-DCN; for X-101's grouped convs K3 on the grouped
+    tensor-core path, K5 and K6 on the CUDA cores;
     finite float32 losses; P5's lateral conv gets a finite non-zero
     gradient."""
     from htd_tpu_torch import config as PC
@@ -636,7 +719,8 @@ def test_train_step_launches(cuda, preset):
             "upsample_add_kernel": 3}
     if preset != "htd_r50_1x":
         tc = "_tc" if preset == "htd_r101_dcn_2x" else ""
-        want.update({f"deform_conv_fwd{tc}_kernel": 30, f"deform_conv_bwd_input{tc}_kernel": 30,
+        fwd = "deform_conv_fwd_tc_kernel" if tc else "deform_conv_fwd_grouped_tc_kernel"
+        want.update({fwd: 30, f"deform_conv_bwd_input{tc}_kernel": 30,
                      "deform_conv_bwd_offset_kernel": 30, f"deform_conv_bwd_weight{tc}_kernel": 30})
     metrics, got = kernel_counts(
         lambda: train_step(state, batch, torch.Generator(device="cuda").manual_seed(0)), want)

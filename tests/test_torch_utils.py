@@ -6,6 +6,8 @@ in for)."""
 
 import json
 import logging
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -63,8 +65,10 @@ _NS = "void (anonymous namespace)::"
     ([_NS + "deform_conv_fwd_tc_kernel<128>(__nv_bfloat16 const*, __nv_bfloat16 const*)",
       _NS + "deform_conv_fwd_tc_kernel<64>(__nv_bfloat16 const*, __nv_bfloat16 const*)",
       _NS + "deform_conv_fwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*, DcnParams)",
-      _NS + "deform_conv_fwd_kernel<float>(float const*, DcnParams)"],
-     {"deform_conv_fwd_tc_kernel": 2, "deform_conv_fwd_kernel": 2}),
+      _NS + "deform_conv_fwd_kernel<float>(float const*, DcnParams)",
+      _NS + "deform_conv_fwd_grouped_tc_kernel<16>(__nv_bfloat16 const*, DcnParams)"],
+     {"deform_conv_fwd_tc_kernel": 2, "deform_conv_fwd_kernel": 2,
+      "deform_conv_fwd_grouped_tc_kernel": 1}),
     ([_NS + "deform_conv_bwd_input_tc_kernel(__nv_bfloat16 const*, float*, DcnParams)",
       _NS + "deform_conv_bwd_input_kernel<float>(float const*, float*, DcnParams)"],
      {"deform_conv_bwd_input_tc_kernel": 1, "deform_conv_bwd_input_kernel": 1}),
@@ -89,6 +93,18 @@ def test_count_kernels_by_whole_name(names, want):
     under its own `__global__` name; a name that only contains one of them
     counts nothing."""
     assert profiling.count_kernels(names) == want
+
+
+def test_kernels_are_the_global_functions_of_csrc():
+    """`KERNELS` holds every `__global__` function of `htd_tpu_torch/csrc`'s
+    CUDA sources and nothing else, so that no kernel is missing from the
+    counts read off a trace."""
+    torch.set_num_threads(1)
+    csrc = Path(profiling.__file__).resolve().parent.parent / "csrc"
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    found = {name for src in csrc.glob("*.cu*") for name in pattern.findall(src.read_text())}
+    assert len(found) == 14
+    assert found == profiling.KERNELS
 
 
 class _Event:
