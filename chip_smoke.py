@@ -186,9 +186,19 @@ script exits non-zero without its final line:
      --raw, --corruption gaussian_noise --severity 3) and phase 24's PNG
      mini-COCO, every written file against the manifest (JPEG by bytes, PNG
      by pixels) made by tools/browse_dataset.py on the same annotations;
-     its wall time per image. The phase takes at most 60 s.
+     its wall time per image. The phase takes at most 60 s;
+ 29. main path: DetectoRS R-50 under HTD's heads (bfloat16, the
+     benchmark's configuration file and seeded weights, so every path of
+     the switchable atrous convs counts) on one request in each bucket,
+     800x1344 and 1344x800: each request replays its graph with 52 K3
+     launches (26 SAC convs at dilation 1 and 3, all on the tensor-core
+     path) and 6 K7 (two FPN passes); every one of those K3 calls, its
+     inputs captured from an eager request, held to its plain version; the
+     52 launches' device time per bucket beside their least time
+     (`bench_h100/counts/detectors.sac_fwd_least_s`).
 Every forward runs K7 3 times (one per FPN top-down add), whatever its
-batch. On an inference call on the card the backbone and FPN replay a CUDA
+batch; DetectoRS's recursive feature pyramid runs the FPN twice. On an
+inference call on the card the backbone and FPN replay a CUDA
 graph (`htd_tpu_torch/models/graphs.py`), which runs no Python: every
 phase counts the hand-written kernels a call runs by name in its profiler
 trace (`htd_tpu_torch.utils.profiling.kernel_counts`), where a capturing
@@ -790,13 +800,14 @@ def traced(label: str, fn, kernels: dict, graph: dict = None):
     return out, got, seconds
 
 
-def run_requests(model, imgs, cfg, per_request_k3: int, k3_kernel: str = K3_TC):
+def run_requests(model, imgs, cfg, per_request_k3: int, k3_kernel: str = K3_TC,
+                 passes: int = 1):
     """The main path: `inference_detector` on each image once to capture
     its bucket's graph of the backbone and FPN, then once more under
-    `traced`, which must replay it and run `request_kernels` (K3
-    `per_request_k3` times, by `k3_kernel`; soft-NMS once where the test
-    config asks for it). Returns the kernels summed over the replayed
-    requests."""
+    `traced`, which must replay it and run `request_kernels` (`passes`
+    backbone-and-FPN passes a request, K3 `per_request_k3` times in all,
+    by `k3_kernel`; soft-NMS once where the test config asks for it).
+    Returns the kernels summed over the replayed requests."""
     from htd_tpu_torch import inference_detector
     from htd_tpu_torch.models import graphs
 
@@ -807,7 +818,8 @@ def run_requests(model, imgs, cfg, per_request_k3: int, k3_kernel: str = K3_TC):
     print(f"first requests: graphs {dict(graphs.graph_counts)}")
     if graphs.graph_counts["eager"] or graphs.graph_counts["replay"] != len(imgs):
         fail(f"the first requests did not replay their graphs: {graphs.graph_counts}")
-    want = request_kernels(1, 1, per_request_k3, k3_kernel, int(cfg.rcnn_test.use_soft_nms))
+    want = request_kernels(1, passes, per_request_k3 // passes, k3_kernel,
+                           int(cfg.rcnn_test.use_soft_nms))
     total = {}
     for img in imgs:
         (boxes, scores, labels), counts, _ = traced(
@@ -3629,6 +3641,90 @@ def tta_eval_phases(card, pairs, k7_launches, imgs):
     ]
 
 
+DETECTORS_CONFIG = "bench_h100/configs/htd_detectors_r50_1x.json"   # phase 29
+DETECTORS_SEED = 2**31 + 29
+DETECTORS_SHAPES = ((480, 640), (640, 480))   # one image a bucket, h x w
+
+
+def capture_sac(model, img):
+    """(SAC conv name, (x, offsets, weight, stride, dilation)) of every K3
+    call of one eager request: its forward pre-hooks on the SAC convs name
+    the calls and keep the request eager (a replay runs no Python)."""
+    from htd_tpu_torch import inference_detector
+    from htd_tpu_torch.models import resnet
+
+    got, at = [], [None]
+    hooks = [m.register_forward_pre_hook(lambda mod, args, name=name: at.__setitem__(0, name))
+             for name, m in model.named_modules() if isinstance(m, resnet.SAConv2d)]
+    k3 = resnet.deform_conv2d
+    resnet.deform_conv2d = lambda *args: (got.append((at[0], args)), k3(*args))[1]
+    try:
+        inference_detector(model, img)
+    finally:
+        resnet.deform_conv2d = k3
+        for h in hooks:
+            h.remove()
+    return got
+
+
+def detectors_phase(card: str) -> None:
+    """Phase 29: DetectoRS R-50 under HTD's heads, both buckets."""
+    from bench_h100.counts.detectors import sac_fwd_least_s
+    from bench_h100.harness import port_config
+    from bench_h100.program import build_detector
+    from bench_h100.weights_rfp import make_state_dict
+    from htd_tpu_torch.data.pipeline import bucket_shape
+    from htd_tpu_torch.models.resnet import SAConv2d
+    from htd_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_plain
+
+    phase("29 main path: DetectoRS R-50 under HTD's heads, bfloat16, 800x1344 and 1344x800")
+    doc = json.loads(open(DETECTORS_CONFIG).read())
+    cfg = port_config(doc)
+    dev = torch.device("cuda")
+    model = build_detector(cfg, make_state_dict(doc["config"], doc["assumed"], DETECTORS_SEED,
+                                                dev), dev)
+    n_sac = sum(isinstance(m, SAConv2d) for m in model.modules())
+    print(f"{doc['preset']} from {DETECTORS_CONFIG} (compute {cfg.compute_dtype}), weights "
+          f"`bench_h100/weights_rfp.py` seed {DETECTORS_SEED}; {n_sac} SAC convs")
+    if n_sac != 26:
+        fail(f"DetectoRS R-50 has {n_sac} SAC convs, not 26")
+    rng = np.random.RandomState(29)
+    imgs = [rng.randint(0, 256, hw + (3,)).astype(np.uint8) for hw in DETECTORS_SHAPES]
+    run_requests(model, imgs, cfg, per_request_k3=2 * n_sac, passes=2)
+    worst = 0.0
+    for img in imgs:
+        hw = bucket_shape(cfg.test_scale, img.shape[1] >= img.shape[0])
+        calls = capture_sac(model, img)
+        dil = [a[4] for _, a in calls]
+        if len(calls) != 2 * n_sac or dil != [1, 3] * n_sac:
+            fail(f"{hw}: {len(calls)} K3 calls at dilations {dil}, not 1 and 3 of each SAC conv")
+        for name, args in calls:
+            k, p = deform_conv2d(*args).float(), deform_conv2d_plain(*args).float()
+            e, scale = (k - p).abs().max().item(), p.abs().max().item()
+            lim = 1e-4 * scale + bf16_ulp(scale)
+            if e > lim:
+                fail(f"K3 {name} at dilation {args[4]}, {hw}: max abs err {e:.3g}, limit "
+                     f"{lim:.3g}")
+            worst = max(worst, e / scale)
+        torch.cuda.synchronize()
+        dev_ms = device_times(lambda: [deform_conv2d(*a) for _, a in calls],
+                              {"deform_conv_fwd": len(calls)}, iters=5)["deform_conv_fwd"]
+        bound = sac_fwd_least_s(doc["config"], hw) * 1e3
+        d3 = [a for _, a in calls if a[4] == 3]
+        d3_ms = device_times(lambda: [deform_conv2d(*a) for a in d3],
+                             {"deform_conv_fwd": len(d3)}, iters=5)["deform_conv_fwd"]
+        print(f"bucket {hw[0]}x{hw[1]}: {len(calls)} K3 calls (Cin "
+              f"{sorted({a[0].shape[-1] for _, a in calls})}, {sum(a[3] == 2 for _, a in calls)} "
+              f"of stride 2) each within 1e-4 of max |plain| + one bfloat16 ulp of its plain "
+              f"version; device {dev_ms:.3f} ms (dilation 3: {d3_ms:.3f} ms), least time "
+              f"{bound:.4f} ms (`sac_fwd_least_s`), {100 * bound / dev_ms:.1f}% of it ({card})")
+        del calls, d3
+    print(f"bfloat16: K3 vs plain over both buckets' {4 * n_sac} SAC calls: max err {worst:.3g} "
+          f"of max |plain|")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main():
     """Phases 1-11 (inference); returns the card's lines, the kernel records,
     K7's launches on the main path and the laterals of its first request."""
@@ -3811,7 +3907,8 @@ def run() -> None:
     hold inference tensors, which autograd rejects), then phases 20-23
     (TTA and evaluation), 24 (the tools), 25 (data parallel), 26 (JPEG
     and robustness), 27 (production-scale evaluation and the last
-    tools) and 28 (the picture path), then the result."""
+    tools), 28 (the picture path) and 29 (DetectoRS, under
+    `torch.inference_mode`), then the result."""
     with torch.inference_mode():
         card, kind, kernels, t_start, k7_launches, pairs = main()
     kernels.append(train_phases(card))
@@ -3824,6 +3921,8 @@ def run() -> None:
     robustness_phase(card)
     drill_phase(card)
     picture_phase(card)
+    with torch.inference_mode():
+        detectors_phase(card)
     print(f"kernel times are per image (K2: the sum of its 3 calls per request; K3: of its "
           f"30 launches per R-101-DCN request; K3 grouped: of its 30 launches per X-101-DCN "
           f"request; soft-NMS: its one launch per R-101-DCN request; "

@@ -2,12 +2,23 @@
 
 A framework-free copy of the JAX package's configuration dataclasses and
 presets, kept here so that the port imports nothing of `htd_tpu`. A test
-holds every preset's `dataclasses.asdict` equal to the JAX package's, so
-the two copies cannot drift. The presets transcribe the HTD configs:
+holds every shared preset's `dataclasses.asdict` equal to the JAX
+package's on the JAX package's keys, so the two copies cannot drift. The
+presets transcribe the HTD configs:
   * htd_r50_1x           <- configs/htd/htd_resnet50_1x.py
   * htd_r101_2x          <- configs/htd/htd_resnet101_2x.py
   * htd_r101_dcn_2x      <- configs/htd/htd_resnet101_dcn_2x_mstrain.py
   * htd_x101_dcn_2x      <- configs/htd/htd_resnetx101_dcn_2x_mstrain.py
+The port has one preset more, which the JAX package lacks:
+  * htd_detectors_r50_1x <- htd_resnet50_1x.py's heads under the backbone
+    and neck of mmdetection v2.7.0's
+    configs/detectors/detectors_cascade_rcnn_r50_1x_coco.py (DetectoRS:
+    weight-standardised convs, switchable atrous convs, a recursive
+    feature pyramid).
+The fields that only that preset sets (`BackboneConfig.conv_aws`,
+`stage_with_sac`; `FPNConfig.rfp_steps`) are not in the JAX package's
+dataclasses; the test compares the other fields and holds these at their
+defaults in the four shared presets.
 `apply_overrides` and `dump_config`, the tools' `--set` options and their
 `config.json`, are copies of the JAX package's too.
 """
@@ -31,6 +42,11 @@ class BackboneConfig:
     stage_with_dcn: Tuple[bool, ...] = (False, False, False, False)
     dcn_deform_groups: int = 1
     base_planes: int = 64                # stage-1 width (tests/dryruns shrink)
+    # DetectoRS (port only): every conv weight-standardised (mmcv ConvAWS2d);
+    # conv2 of the stages that ask for it a deformable switchable atrous
+    # conv (mmcv SAConv2d with use_deform)
+    conv_aws: bool = False
+    stage_with_sac: Tuple[bool, ...] = (False, False, False, False)
 
 
 @dataclass(frozen=True)
@@ -38,6 +54,9 @@ class FPNConfig:
     in_channels: Tuple[int, ...] = (256, 512, 1024, 2048)
     out_channels: int = 256
     num_outs: int = 5                    # P2-P5 + P6 (maxpool of P5)
+    # DetectoRS's recursive feature pyramid (port only): 1 = a plain FPN;
+    # n > 1 runs n - 1 further backbones fed back through ASPP
+    rfp_steps: int = 1
 
 
 @dataclass(frozen=True)
@@ -286,6 +305,19 @@ def htd_x101_dcn_2x(**overrides) -> HTDConfig:
             mstrain_range=((1600, 400), (1600, 1400)),
         ),
         test_scale=(1600, 800),
+    )
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def htd_detectors_r50_1x(**overrides) -> HTDConfig:
+    """HTD R-50 1x (configs/htd/htd_resnet50_1x.py: heads, RPN, hard NMS,
+    test scale 1333x800) under DetectoRS's ResNet-50 and RFP neck, as
+    mmdetection v2.7.0's configs/detectors/detectors_cascade_rcnn_r50_1x_coco.py
+    sets them: ConvAWS everywhere, deformable SAC in layer2-4 of both
+    backbones, rfp_steps 2 (ASPP's widths and dilations are `fpn.ASPP`'s)."""
+    cfg = HTDConfig(
+        backbone=BackboneConfig(conv_aws=True, stage_with_sac=(False, True, True, True)),
+        fpn=FPNConfig(rfp_steps=2),
     )
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 

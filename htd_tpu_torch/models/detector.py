@@ -12,7 +12,11 @@ The packed pyramid (kernel K1) is built once per forward and shared by
 stage 0, stage 1 and the BA extractor (kernel K2 reads it three times;
 in training, K4 adds each of the three reads' gradients into it).
 In the DCN presets the backbone's deformable convs run kernel K3, each
-inside an `htd.dcn` span nested in `htd.backbone_fpn`.
+inside an `htd.dcn` span nested in `htd.backbone_fpn`. In the DetectoRS
+preset the neck is the recursive feature pyramid (`fpn.RFP`), which takes
+the image too and runs its second backbone in an `htd.rfp` span, and each
+switchable atrous conv runs in an `htd.sac` span (K3 twice); the
+port does not train that preset.
 On an inference call on CUDA (no autograd, eval mode, no autocast, no
 forward hook on the backbone or neck) `simple_test`, `rpn_proposals` and
 `stages_forward` replay the backbone and FPN as one CUDA graph per input
@@ -35,7 +39,7 @@ from torch.profiler import record_function
 
 from htd_tpu_torch.config import BoxCoderConfig, HTDConfig, StageTrainConfig
 from htd_tpu_torch.models import graphs
-from htd_tpu_torch.models.fpn import FPN
+from htd_tpu_torch.models.fpn import ASPP, FPN, RFP
 from htd_tpu_torch.models.heads import GlobalContextHead, HTDBBoxHead, Shared2FCBBoxHead
 from htd_tpu_torch.models.resnet import ResNet
 from htd_tpu_torch.models.roi_extract import AdptRoIExtractor, SingleRoIExtractor
@@ -79,11 +83,21 @@ class HTDRoIHead(nn.Module):
 class HTDDetector(nn.Module):
     def __init__(self, cfg: HTDConfig):
         super().__init__()
-        bb = cfg.backbone
+        bb, f = cfg.backbone, cfg.fpn
         self.cfg = cfg
-        self.backbone = ResNet(bb.depth, bb.out_indices, bb.base_planes, bb.stage_with_dcn,
-                               bb.groups, bb.base_width, bb.dcn_deform_groups)
-        self.neck = FPN(cfg.fpn.in_channels, cfg.fpn.out_channels, cfg.fpn.num_outs)
+
+        def backbone(rfp_inplanes: int = 0) -> ResNet:
+            return ResNet(bb.depth, bb.out_indices, bb.base_planes, bb.stage_with_dcn,
+                          bb.groups, bb.base_width, bb.dcn_deform_groups, bb.conv_aws,
+                          bb.stage_with_sac, rfp_inplanes)
+
+        self.backbone = backbone()
+        if f.rfp_steps > 1:
+            fed = len(ASPP.dilations) * ASPP.out_channels
+            self.neck = RFP(f.in_channels, f.out_channels, f.num_outs,
+                            [backbone(fed) for _ in range(f.rfp_steps - 1)])
+        else:
+            self.neck = FPN(f.in_channels, f.out_channels, f.num_outs)
         a = cfg.rpn.anchor
         self.anchor_gen = AnchorGenerator(strides=a.strides, ratios=a.ratios,
                                           scales=a.scales)
@@ -95,8 +109,9 @@ class HTDDetector(nn.Module):
         self._graphs: Dict[tuple, graphs.FeatureGraph] = {}
         self._graphed_modules: Optional[Tuple[nn.Module, ...]] = None
 
-    # a graph reads the parameters and buffers it was captured with: every
-    # call that can change their identity, or the mode, drops the graphs
+    # a graph reads the parameters and buffers it was captured with, and the
+    # standardised weights its warm-up kept (`layers.ConvAWS2d`): every call
+    # that can change their identity, or the mode, drops the graphs
     def _drop_graphs(self) -> None:
         self._graphs.clear()
         self._graphed_modules = None
@@ -129,6 +144,8 @@ class HTDDetector(nn.Module):
         """(B, H, W, 3) images -> FPN levels, NCHW in channels_last format."""
         x = images.to(device=self.device, dtype=self.compute_dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
+        if isinstance(self.neck, RFP):
+            return self.neck(self.backbone(x), x)
         return self.neck(self.backbone(x))
 
     def _eager_reason(self, images: torch.Tensor) -> Optional[str]:
@@ -316,6 +333,9 @@ class HTDDetector(nn.Module):
         indexing concat([gt, candidates]). Given identical overrides, both
         packages consume the same samples."""
         c = self.cfg
+        if isinstance(self.neck, RFP) or c.backbone.conv_aws or any(c.backbone.stage_with_sac):
+            raise NotImplementedError("the port does not train htd_detectors_r50_1x (DetectoRS: "
+                                      "weight-standardised and switchable atrous convs, RFP)")
         tc = c.train
         dev = self.device
         f32 = torch.float32

@@ -46,9 +46,64 @@ class FrozenBatchNorm2d(nn.Module):
         return x * mul.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
 
 
-def conv(cin: int, cout: int, kernel: int, stride: int = 1, bias: bool = True) -> nn.Conv2d:
-    """Conv with torch-style 'same' padding for odd kernels."""
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=bias)
+def conv(cin: int, cout: int, kernel: int, stride: int = 1, bias: bool = True,
+         aws: bool = False) -> nn.Conv2d:
+    """Conv with torch-style 'same' padding for odd kernels; weight-standardised
+    (`ConvAWS2d`) when `aws`."""
+    cls = ConvAWS2d if aws else nn.Conv2d
+    return cls(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=bias)
+
+
+def standardize(weight: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """mmcv `ConvAWS2d._get_weight` in float32: each output channel's
+    weights less their mean, over the square root of their unbiased variance
+    plus 1e-5, times `gamma` plus `beta` ((Cout, 1, 1, 1) each)."""
+    w = weight.float()
+    flat = w.flatten(1)
+    mean = flat.mean(1).view(-1, 1, 1, 1)
+    std = torch.sqrt(flat.var(1) + 1e-5).view(-1, 1, 1, 1)
+    return gamma.float() * ((w - mean) / std) + beta.float()
+
+
+class ConvAWS2d(nn.Conv2d):
+    """mmcv `ConvAWS2d`: a conv whose weight is standardised per output
+    channel (`standardize`), with the (Cout, 1, 1, 1) buffers `weight_gamma`
+    (ones) and `weight_beta` (zeros) of its state dict. A call that records
+    no autograd reuses the standardised weight, in the weight's dtype and
+    memory format, that the first such call derived, until the module is
+    moved, cast or loaded (`_apply`, `_load_from_state_dict`): a weight
+    changed in place in between is loaded with `load_state_dict`. A call
+    that records autograd derives it afresh."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.register_buffer("weight_gamma", torch.ones(self.out_channels, 1, 1, 1))
+        self.register_buffer("weight_beta", torch.zeros(self.out_channels, 1, 1, 1))
+        self._kept = None
+
+    def _apply(self, *args, **kwargs):
+        self._kept = None
+        return super()._apply(*args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._kept = None
+        return super()._load_from_state_dict(*args, **kwargs)
+
+    def derive(self):
+        """The weight the conv runs with."""
+        w = standardize(self.weight, self.weight_gamma, self.weight_beta)
+        return torch.empty_like(self.weight).copy_(w)
+
+    def weights(self):
+        """`derive()`, kept between calls that record no autograd."""
+        if torch.is_grad_enabled():
+            return self.derive()
+        if self._kept is None:
+            self._kept = self.derive()
+        return self._kept
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weights(), self.bias)
 
 
 class ConvModule(nn.Module):

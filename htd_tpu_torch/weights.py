@@ -22,8 +22,8 @@ import torch
 import torch.nn as nn
 
 from htd_tpu_torch.config import HTDConfig
-from htd_tpu_torch.models.layers import FrozenBatchNorm2d
-from htd_tpu_torch.models.resnet import ARCH_BLOCKS
+from htd_tpu_torch.models.layers import ConvAWS2d, FrozenBatchNorm2d
+from htd_tpu_torch.models.resnet import ARCH_BLOCKS, SAConv2d
 from htd_tpu_torch.ops.dcn import DeformConv2d
 
 
@@ -144,13 +144,18 @@ def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
     `zero_init_residual`), which keeps random activations from growing
     block by block. A deformable conv's weight is drawn like a conv's;
     its `conv_offset` starts at zero, as mmcv's does, so an untrained DCN
-    samples at its taps."""
+    samples at its taps. DetectoRS's added paths start as mmcv and mmdet
+    start them: a switchable atrous conv's `weight_diff`, contexts and
+    offset convs at zero and its switch at 1 (the dilation-1 branch alone),
+    `rfp_conv` and `rfp_weight` at zero; `weight_gamma` at one and
+    `weight_beta` at zero."""
     g = torch.Generator().manual_seed(seed)
     for name, m in model.named_modules():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "conv_offset":
+        if leaf in ("conv_offset", "offset_s", "offset_l", "pre_context", "post_context",
+                    "rfp_conv", "rfp_weight", "switch"):
             m.weight.zero_()
-            m.bias.zero_()
+            m.bias.fill_(1.0 if leaf == "switch" else 0.0)
         elif isinstance(m, DeformConv2d):
             fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
             m.weight.copy_(torch.empty(m.weight.shape).normal_(
@@ -170,6 +175,11 @@ def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()
+            if isinstance(m, SAConv2d):
+                m.weight_diff.zero_()
+            if isinstance(m, ConvAWS2d):
+                m.weight_gamma.fill_(1.0)
+                m.weight_beta.zero_()
         elif isinstance(m, (FrozenBatchNorm2d, nn.GroupNorm)):
             m.weight.fill_(0.0 if name.endswith(".bn3") else 1.0)
             m.bias.zero_()

@@ -1,14 +1,19 @@
 """The port's `apply_overrides` / `dump_config` against the JAX package's
 (htd_tpu_torch.config vs htd_tpu.config): the same override strings give
 the same resolved config, the same errors, and the same dump of every
-preset."""
+preset, on the JAX package's keys (the port's config adds the DetectoRS
+fields, which the JAX package lacks)."""
 
 import pytest
 
 from htd_tpu import config as JC
 from htd_tpu_torch import config as PC
+from tests.torch_port import PORT_ONLY, dump_on_jax_keys
 
-PRESETS = ["htd_r50_1x", "htd_r101_2x", "htd_r101_dcn_2x", "htd_x101_dcn_2x"]
+PRESETS = ["htd_r50_1x", "htd_r101_2x", "htd_r101_dcn_2x", "htd_x101_dcn_2x",
+           "htd_detectors_r50_1x"]
+# the JAX package has no DetectoRS preset: the port's is HTD R-50 1x on its keys
+JAX_PRESET = {"htd_detectors_r50_1x": "htd_r50_1x"}
 OVERRIDES = [
     "rcnn_test.use_soft_nms=true",        # bool
     "backbone.norm_eval=0",               # bool from a digit
@@ -35,7 +40,7 @@ def test_apply_overrides_matches_jax(preset):
     opts = OVERRIDES
     p = PC.apply_overrides(getattr(PC, preset)(), opts)
     j = JC.apply_overrides(getattr(JC, preset)(), opts)
-    assert PC.dump_config(p) == JC.dump_config(j)
+    assert dump_on_jax_keys(PC.dump_config(p)) == JC.dump_config(j)
     assert p.rcnn_test.use_soft_nms is True and p.backbone.norm_eval is False
     assert p.train.lr_steps == (16, 22) and p.train.img_scale == (96, 64)
     assert p.train.grad_clip_norm is None and p.train.mstrain_range == (1600.0, 400.0)
@@ -58,8 +63,19 @@ def test_apply_overrides_raises_as_jax(option, error):
 @pytest.mark.parametrize("preset", PRESETS)
 def test_dump_config_matches_jax(preset):
     """The dump of every preset is the JAX package's, character for
-    character."""
-    assert PC.dump_config(getattr(PC, preset)()) == JC.dump_config(getattr(JC, preset)())
+    character, on the JAX package's keys; the DetectoRS preset's is HTD
+    R-50 1x's there (its heads, RPN, test settings and scale), and its own
+    fields are what DetectoRS sets."""
+    cfg = getattr(PC, preset)()
+    assert dump_on_jax_keys(PC.dump_config(cfg)) == \
+        JC.dump_config(getattr(JC, JAX_PRESET.get(preset, preset))())
+    port_only = {k: getattr(getattr(cfg, k.split(".")[0]), k.split(".")[1]) for k in PORT_ONLY}
+    if preset in JAX_PRESET:
+        assert port_only == {"backbone.conv_aws": True,
+                             "backbone.stage_with_sac": (False, True, True, True),
+                             "fpn.rfp_steps": 2}
+    else:
+        assert port_only == PORT_ONLY
 
 
 @pytest.mark.parametrize("option,check", [

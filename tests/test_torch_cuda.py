@@ -458,6 +458,34 @@ def test_tensor_core_paths_at_r101_shapes(cuda, conv, n):
     assert err <= lim, f"K5 d_col: {err:.3g} (limit {lim:.3g})"
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("c", [128, 256, 512])
+def test_k3_at_dilation_3_matches_plain(cuda, c, stride):
+    """bfloat16 K3 on the tensor cores at dilation 3 and padding 3, as
+    DetectoRS's switchable atrous convs run its large branch, at layer2's
+    input size (200x336 for stride 2, 100x168 for stride 1), against its
+    plain version: within 1e-4 of max |plain| plus one bfloat16 ulp (the same
+    bfloat16 samples and operands, float32 sums in another order, then one
+    rounding); one launch of the tensor-core kernel; and another function
+    than dilation 1 on the same inputs. The channels are those of
+    DetectoRS R-50's SAC convs in layer2, layer3 and layer4."""
+    from htd_tpu_torch.ops.dcn import deform_conv2d, deform_conv2d_plain
+
+    h, w = (200, 336) if stride == 2 else (100, 168)
+    x, off, wgt = _dcn_inputs(cuda, torch.bfloat16, stride, 1, n=1, h=h, w=w, channels=(c, c),
+                              seed=7)
+    want = {"deform_conv_fwd_tc_kernel": 1}
+    k, got = kernel_counts(lambda: deform_conv2d(x, off, wgt, stride=stride, dilation=3), want)
+    assert got == want
+    p = deform_conv2d_plain(x, off, wgt, stride=stride, dilation=3)
+    assert k.shape == p.shape == (1, (h - 1) // stride + 1, (w - 1) // stride + 1, c)
+    err, lim = _ulp_limit(k, p, 1e-4)
+    assert err <= lim, f"K3 at dilation 3: {err:.3g} (limit {lim:.3g})"
+    one = deform_conv2d(x, off, wgt, stride=stride, dilation=1)
+    assert (one.float() - p.float()).abs().max() > 0.1 * p.float().abs().max()
+
+
 @pytest.fixture(scope="module")
 def x101_request():
     """X-101-64x4d-DCN in bfloat16 as the benchmark's `x101dcn.infer` cell

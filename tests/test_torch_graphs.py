@@ -232,7 +232,7 @@ def test_one_graph_per_key_replayed(cpu_graphs, counts, monkeypatch):
 
 # -- on the card -----------------------------------------------------------------
 
-PRESETS = ["htd_r50_1x", "htd_r101_dcn_2x", "htd_x101_dcn_2x"]
+PRESETS = ["htd_r50_1x", "htd_r101_dcn_2x", "htd_x101_dcn_2x", "htd_detectors_r50_1x"]
 SEED = 2**31 + 11
 
 
@@ -253,9 +253,9 @@ def bench_model(request):
     card."""
     import json
 
+    from bench_h100 import weights, weights_rfp
     from bench_h100.harness import BENCH, port_config
     from bench_h100.program import build_detector
-    from bench_h100.weights import make_state_dict
     from htd_tpu_torch.data.pipeline import bucket_shape
 
     if not torch.cuda.is_available():
@@ -263,6 +263,7 @@ def bench_model(request):
     dev = torch.device("cuda")
     doc = json.loads((BENCH / "configs" / f"{request.param}.json").read_text())
     cfg = port_config(doc)
+    make_state_dict = (weights_rfp if cfg.fpn.rfp_steps > 1 else weights).make_state_dict
     model = build_detector(cfg, make_state_dict(doc["config"], doc["assumed"], SEED, dev), dev)
     yield model, [bucket_shape(cfg.test_scale, land) for land in (True, False)]
     del model
@@ -270,9 +271,13 @@ def bench_model(request):
 
 
 def eager_levels(model, images):
-    """`model.neck(model.backbone(x))` of the images, run directly."""
+    """`model.neck(model.backbone(x))` of the images, run directly (the
+    recursive feature pyramid's neck also takes x)."""
     x = images.to(model.compute_dtype).permute(0, 3, 1, 2)
-    return model.neck(model.backbone(x.contiguous(memory_format=torch.channels_last)))
+    x = x.contiguous(memory_format=torch.channels_last)
+    if model.cfg.fpn.rfp_steps > 1:
+        return model.neck(model.backbone(x), x)
+    return model.neck(model.backbone(x))
 
 
 def same(a, b) -> bool:
@@ -359,7 +364,7 @@ def test_detections_as_with_fresh_graphs_and_eager(cuda, counts, bench_model):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bench_model", PRESETS[1:], indirect=True)
+@pytest.mark.parametrize("bench_model", PRESETS[1:3], indirect=True)
 def test_a_replayed_request_runs_the_30_k3_kernels(cuda, counts, bench_model):
     """Under the profiler a replayed DCN request opens one `htd.graph.replay`
     span inside `htd.backbone_fpn` and no `htd.dcn` span, and its trace
@@ -389,3 +394,44 @@ def test_a_replayed_request_runs_the_30_k3_kernels(cuda, counts, bench_model):
     backbone = [(a, b) for n, a, b in tr.spans if n == "htd.backbone_fpn"]
     replay = [(a, b) for n, a, b in tr.spans if n == "htd.graph.replay"]
     assert len(backbone) == 1 and backbone[0][0] <= replay[0][0] <= replay[0][1] <= backbone[0][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bench_model", PRESETS[3:], indirect=True)
+def test_a_replayed_rfp_request_runs_both_backbones_in_one_graph(cuda, counts, bench_model):
+    """A replayed DetectoRS request opens one `htd.graph.replay` span inside
+    `htd.backbone_fpn` and no `htd.rfp`, `htd.sac` or `htd.dcn` span: both
+    backbones, ASPP and the gate are in the graph, whose trace holds SAC's 52
+    `deform_conv_fwd` kernels (26 SAC convs, two each) and the two FPN
+    passes' 6 `upsample_add` kernels (a trace that lost a kernel record is
+    taken again, 3 at most). Prints the peak memory of a capturing request."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench_h100.trace import from_profiler
+
+    model, _ = bench_model
+    img = np.random.default_rng(12).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    model._drop_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    inference_detector(model, img)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(3):
+        graphs.reset_graph_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            inference_detector(model, img)
+            torch.cuda.synchronize()
+        tr = from_profiler(prof)
+        k3 = [n for n, *_ in tr.device if "deform_conv_fwd" in n]
+        k7 = [n for n, *_ in tr.device if "upsample_add" in n]
+        if len(k3) == 52 and len(k7) == 6:
+            break
+    print(f"\nDetectoRS R-50: peak {peak / 2**20:.0f} MiB over a capturing request at 800x1344; "
+          f"{torch.cuda.get_device_name(0)}")
+    assert (len(k3), len(k7)) == (52, 6), f"{len(k3)} K3 and {len(k7)} K7 kernels in 3 traces"
+    assert all("deform_conv_fwd_tc_kernel" in n for n in k3), set(k3)
+    assert dict(counts) == {"capture": 0, "replay": 1, "eager": 0}
+    names = [n for n, *_ in tr.spans]
+    assert not {"htd.dcn", "htd.sac", "htd.rfp"} & set(names)
+    assert names.count("htd.graph.replay") == 1

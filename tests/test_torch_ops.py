@@ -23,7 +23,7 @@ from htd_tpu_torch.data import pipeline as ppipe
 from htd_tpu_torch.ops import anchors as panchors
 from htd_tpu_torch.ops import boxes as pboxes
 from htd_tpu_torch.ops import nms as pnms
-from tests.torch_port import t
+from tests.torch_port import PORT_ONLY, on_keys, t
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
@@ -38,9 +38,17 @@ def _boxes(rng, n, span=200.0, size=(2.0, 60.0)):
 @pytest.mark.parametrize("preset", ["htd_r50_1x", "htd_r101_2x", "htd_r101_dcn_2x",
                                     "htd_x101_dcn_2x"])
 def test_config_presets_match(preset):
-    """The port's config copy cannot drift from the JAX package's."""
-    assert (dataclasses.asdict(getattr(PC, preset)())
-            == dataclasses.asdict(getattr(JC, preset)()))
+    """The port's config copy cannot drift from the JAX package's: on the
+    JAX package's keys the two presets are equal, and the fields the JAX
+    package lacks are the port's DetectoRS fields, at their defaults."""
+    port = dataclasses.asdict(getattr(PC, preset)())
+    jax_side = dataclasses.asdict(getattr(JC, preset)())
+    cut, extra = on_keys(port, jax_side)
+    assert cut == jax_side
+    assert sorted(extra) == sorted(PORT_ONLY)
+    for key, default in PORT_ONLY.items():
+        group, field = key.split(".")
+        assert port[group][field] == default, key
 
 
 def test_box_ops_match(rng):

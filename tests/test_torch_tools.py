@@ -24,7 +24,7 @@ from htd_tpu_torch.train.checkpoint import save_checkpoint
 from htd_tpu_torch.train.optim import make_optimizer
 from htd_tpu_torch.train.train_step import TrainState
 from tests.test_e2e_parity import _assert_rows_match_or_tie
-from tests.torch_port import port_config, tiny_pair
+from tests.torch_port import dump_on_jax_keys, port_config, tiny_pair
 from tests.tiny import tiny_config
 from tools import coco_error_analysis as jerr
 from tools import browse_dataset as jbrowse
@@ -165,11 +165,15 @@ def test_test_tool_matches_jax(mini_coco, checkpoint, tiny_presets, monkeypatch,
 
 @pytest.mark.parametrize("preset", ["htd_r50_1x", "htd_x101_dcn_2x"])
 def test_print_config_matches_jax(preset, monkeypatch, capsys):
-    """tools_torch/print_config.py prints tools/print_config.py's text."""
+    """tools_torch/print_config.py prints tools/print_config.py's text on the
+    JAX package's keys; the port's config adds only the DetectoRS fields,
+    at their defaults (`tests/torch_port.PORT_ONLY`)."""
     monkeypatch.setattr(sys, "argv", ["print_config.py", preset])
     jprint.main()
     j = capsys.readouterr().out
-    assert pprint.main([preset]) + "\n" == capsys.readouterr().out == j
+    p = pprint.main([preset])
+    assert p + "\n" == capsys.readouterr().out
+    assert dump_on_jax_keys(p) + "\n" == j
 
 
 def test_train_resume_is_bit_exact(mini_coco, tiny_presets, tmp_path):

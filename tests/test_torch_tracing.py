@@ -5,8 +5,8 @@ spans and four `htd.sync.to_host` copies; every call that blocks the host
 until the device catches up runs in an `htd.sync.<site>` span of its own.
 On the CPU the tests read the span tree of one request under
 `torch.profiler`; on the card (marked `cuda`, skipped elsewhere) they hold
-every runtime synchronisation of R-50, R-101-DCN and X-101-64x4d-DCN
-requests to those spans:
+every runtime synchronisation of R-50, R-101-DCN, X-101-64x4d-DCN and
+DetectoRS R-50 requests to those spans:
 
     python -m pytest --noconftest -s tests/test_torch_tracing.py -k card
 
@@ -185,6 +185,44 @@ def test_each_deformable_conv_is_one_dcn_span(monkeypatch, groups):
         assert all(sum(inside(c, s) for c in calls) == 1 for s in dcn_spans), name
 
 
+def test_detectors_request_runs_rfp_and_sac_spans(monkeypatch):
+    """An eager DetectoRS request (depth 10: three SAC convs a backbone)
+    runs the recursive feature pyramid's second step in one `htd.rfp` span
+    and each switchable atrous conv in an `htd.sac` span of its own, three
+    of them inside `htd.rfp` (the second backbone's), all nested in
+    `htd.backbone_fpn`; each SAC span holds its two deformable convs (K3 at
+    dilation 1 and 3) and the request's top-level spans are R-50's."""
+    from htd_tpu_torch.models import resnet
+
+    cfg = C.htd_detectors_r50_1x().replace(
+        backbone=C.BackboneConfig(depth=10, conv_aws=True,
+                                  stage_with_sac=(False, True, True, True)),
+        proposal_test=C.ProposalConfig(nms_pre=64, nms_post=48, max_num=48),
+        rcnn_test=C.RCNNTestConfig(max_per_img=10))
+    model = init_detector(cfg, device="cpu", seed=0)
+    real_k3 = resnet.deform_conv2d
+
+    def k3(x, off, w, stride, dilation):
+        with record_function(f"test.k3.d{dilation}"):
+            return real_k3(x, off, w, stride, dilation)
+
+    monkeypatch.setattr(resnet, "deform_conv2d", k3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        inference_detector(model, image(7), scale=(96, 64))
+    events = host_events(prof)
+    spans = [e for e in events if e[0].startswith("htd.")]
+    assert [s[0] for s in top_level(spans)] == \
+        ["htd.preprocess", *LAYERS] + ["htd.sync.to_host"] * 4
+    backbone = named(spans, "htd.backbone_fpn")
+    rfp, sac = named(spans, "htd.rfp"), named(spans, "htd.sac")
+    assert len(backbone) == 1 and len(rfp) == 1 and len(sac) == 6
+    assert all(inside(s, backbone[0]) for s in rfp + sac)
+    assert sum(inside(s, rfp[0]) for s in sac) == 3
+    for d in (1, 3):
+        calls = [e for e in events if e[0] == f"test.k3.d{d}"]
+        assert len(calls) == 6 and all(sum(inside(c, s) for s in sac) == 1 for c in calls)
+
+
 def test_training_forward_carries_the_dcn_spans():
     """A train step of the tiny R-101-DCN model on the CPU: its forward runs
     each of the 3 deformable convs in an `htd.dcn` span inside the step's
@@ -229,13 +267,18 @@ def is_sync(name: str) -> bool:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("preset", ["htd_r50_1x", "htd_r101_dcn_2x", "htd_x101_dcn_2x"])
+@pytest.mark.parametrize("preset", ["htd_r50_1x", "htd_r101_dcn_2x", "htd_x101_dcn_2x",
+                                    "htd_detectors_r50_1x"])
 def test_every_sync_on_the_card_is_in_a_sync_span(cuda, preset):
     """Two requests that capture the backbone's graphs (one per bucket),
     then two that replay them: every runtime synchronisation lies in an
-    `htd.sync.*` span, one to a span; each capture's own lies in the one
-    `htd.sync.capture` span of its capturing request, inside its
-    `htd.graph.capture` span."""
+    `htd.sync.*` span, one to a span, at the sites R-50's requests have
+    (DetectoRS's recursive feature pyramid adds none); each capture's own
+    lies in the one `htd.sync.capture` span of its capturing request,
+    inside its `htd.graph.capture` span. A capturing DetectoRS request runs
+    its backbones' Python (the eager warm-up, and the capture), which opens
+    an `htd.rfp` span and 26 `htd.sac` spans each time inside
+    `htd.backbone_fpn`; a replayed one opens none."""
     model = init_detector(getattr(C, preset)(compute_dtype="bfloat16"), seed=0)
     imgs = [image(4, 480, 640), image(5, 640, 480)]
     for img in imgs:                    # builds the kernels, caches the anchors
@@ -269,3 +312,15 @@ def test_every_sync_on_the_card_is_in_a_sync_span(cuda, preset):
     held = named(spans, "htd.sync.capture")
     assert len(captures) == len(held) == 2
     assert all(inside(s, c) and inside(c, r) for s, c, r in zip(held, captures, requests))
+    assert {s[0] for s in sync_spans} <= {"htd.sync.upload", "htd.sync.box_coder",
+                                          "htd.sync.nms", "htd.sync.to_host",
+                                          "htd.sync.capture"}
+    rfp, sac = named(spans, "htd.rfp"), named(spans, "htd.sac")
+    if preset == "htd_detectors_r50_1x":
+        backbones = named(spans, "htd.backbone_fpn")
+        first = [s for s in rfp if any(inside(s, r) for r in requests[:2])]
+        assert len(first) >= 2 and len(rfp) == len(first)
+        assert len(sac) == 26 * len(first)        # the warm-up's (and the capture's) calls
+        assert all(any(inside(s, b) for b in backbones) for s in rfp + sac)
+    else:
+        assert not rfp and not sac

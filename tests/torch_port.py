@@ -8,6 +8,7 @@ both. JAX runs on the CPU at highest matmul precision (tests/conftest.py).
 
 import dataclasses
 import functools
+import json
 
 import numpy as np
 import torch
@@ -31,6 +32,34 @@ def port_config(cfg):
     cls = getattr(PC, type(cfg).__name__)
     return cls(**{f.name: port_config(getattr(cfg, f.name))
                   for f in dataclasses.fields(cfg)})
+
+
+def on_keys(port, jax_side):
+    """`port` (a nested dict of the port's config) cut to the keys of the JAX
+    package's `jax_side`, and the keys it holds beyond them, dotted."""
+    if not isinstance(port, dict):
+        return port, []
+    cut, extra = {}, [k for k in port if k not in jax_side]
+    for k, v in jax_side.items():
+        cut[k], more = on_keys(port[k], v) if k in port else (None, [])
+        extra += [f"{k}.{m}" for m in more]
+    return cut, extra
+
+
+# the port's fields that only its DetectoRS preset sets, at their defaults
+PORT_ONLY = {"backbone.conv_aws": False, "backbone.stage_with_sac": (False,) * 4,
+             "fpn.rfp_steps": 1}
+
+
+def dump_on_jax_keys(text: str) -> str:
+    """A dump of the port's config (`config.dump_config`'s JSON) cut to the
+    JAX package's keys, in the same form; the keys it holds beyond them
+    must be the DetectoRS fields, `PORT_ONLY`."""
+    from htd_tpu import config as JC
+
+    cut, extra = on_keys(json.loads(text), json.loads(JC.dump_config(JC.HTDConfig())))
+    assert sorted(extra) == sorted(PORT_ONLY)
+    return json.dumps(cut, indent=2)
 
 
 def _fill(path, shape, rng):
