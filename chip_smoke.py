@@ -195,7 +195,12 @@ script exits non-zero without its final line:
      path) and 6 K7 (two FPN passes); every one of those K3 calls, its
      inputs captured from an eager request, held to its plain version; the
      52 launches' device time per bucket beside their least time
-     (`bench_h100/counts/detectors.sac_fwd_least_s`).
+     (`bench_h100/counts/detectors.sac_fwd_least_s`);
+ 30. hard NMS: the hard-NMS kernels held to `nms_plain`, bit for bit, on the
+     RPN's and post's own inputs of an eager R-50 request (the benchmark's
+     configuration file and seeded weights, 800x1344), then their device
+     time beside the plain fixpoint's and their bound (the IoUs'
+     operations, the bytes, the scan's serial chain).
 Every forward runs K7 3 times (one per FPN top-down add), whatever its
 batch; DetectoRS's recursive feature pyramid runs the FPN twice. On an
 inference call on the card the backbone and FPN replay a CUDA
@@ -236,6 +241,16 @@ SM_LANES = 128             # one SM issues 4 warp instructions a cycle
 # barrier, a load, 2 more `redux` steps and a ballot, the pick's load)
 SOFT_NMS_ENTRY_OPS = 30
 SOFT_NMS_CHAIN_CYCLES = 300
+# the hard-NMS kernels' bound (phase 30), the largest of: the IoUs the keep
+# set needs (each pair of boxes up to the last 64-box tile the scan visits)
+# at the float32 rate, reckoned at 13 operations (2 max, 2 min, 2
+# differences, 2 clamps, the product, the sum of areas, the difference, the
+# clamp, the division); the bytes read and written once (boxes, scores,
+# order, outputs); and the scan's serial chain, for each tile visited the
+# least that resolving it after the one before takes (a warp-wide OR of its
+# kept rows, two `redux` steps, and a barrier)
+HARD_NMS_IOU_OPS = 13
+HARD_NMS_TILE_CYCLES = 100
 SCORE_SCALE = 4.0          # seeded fc_cls std 0.01 -> 0.04, see phase 3
 REQUEST_SHAPES = [(480, 640), (600, 800), (427, 640), (720, 1280)]
 # seeded offset convs give offsets of about this std (px) at each DCN
@@ -340,15 +355,17 @@ def device_times(fn, keys=None, iters: int = 20, cold: bool = False) -> dict:
     The profiler loses some launches' records (on the H100 late in this
     script: one K4 call of 10 in every trace, whatever the spins around
     the loop; once a whole trace of 115 K3 launches; a quarter of K5's
-    launches in three traces running), so each kernel's time is its mean
-    over the launches the trace holds, times its launches per call: the
-    count `keys` gives for a key that one kernel name matches, when the
-    trace holds at least one and at most that many of its launches per
-    run; else its count over `iters`, rounded. A trace that so gives a key
-    other launches per call than `keys` says (none held, more than
-    launched, or a key over several names that lost records) is taken
-    again, and after DEVICE_TIME_TRACES such traces the call fails;
-    records lost are reported. With `cold`, a 256 MB `bitwise_not_`
+    launches in three traces running; DetectoRS's SAC K3 launches, whose
+    key matches more than one kernel name, in three traces running after
+    phase 28), so a key's time is the mean over the launches of its
+    kernels that the trace holds, times its launches per call: the count
+    `keys` gives, when the trace holds at least one and at most that many
+    of its launches per run (spread over the names the key matches in
+    proportion to the launches each holds); else each name's count over
+    `iters`, rounded. A trace that so gives a key other launches per call
+    than `keys` says (none held, or more than launched) is taken again,
+    and after DEVICE_TIME_TRACES such traces the call fails; records lost
+    are reported. With `cold`, a 256 MB `bitwise_not_`
     before each run evicts the 50 MB L2 cache, so that a byte-bound call
     reads its inputs from device memory; its own kernels are left out."""
     from torch.profiler import ProfilerActivity, profile
@@ -370,12 +387,16 @@ def device_times(fn, keys=None, iters: int = 20, cold: bool = False) -> dict:
         per_call = {e.key: round(e.count / iters) for e in events}
         for k, n in keys.items():
             named = [e for e in events if k in e.key]
-            if len(named) == 1 and 0 < named[0].count <= iters * n:
-                per_call[named[0].key] = n      # records are lost, never added
-        got = {k: sum(n for name, n in per_call.items() if k in name) for k in keys}
+            held = sum(e.count for e in named)
+            if named and held <= iters * n:    # records are lost, never added
+                for e in named:
+                    per_call[e.key] = n * e.count / held
+        got = {k: round(sum(n for name, n in per_call.items() if k in name)) for k in keys}
         if got == keys:
             break
-        print(f"  device_times: the trace gives {got} launches per call, not {keys}; traced again")
+        held = {e.key: e.count for e in events if any(k in e.key for k in keys)}
+        print(f"  device_times: the trace gives {got} launches per call, not {keys} (launches "
+              f"held by name: {held}); traced again")
     else:
         fail(f"device_times: {DEVICE_TIME_TRACES} traces gave {got} launches per call, not {keys}")
     caught = {k: sum(e.count for e in events if k in e.key) for k in keys}
@@ -747,16 +768,20 @@ K3_TC, K3_GT, K3_CC = ("deform_conv_fwd_tc_kernel", "deform_conv_fwd_grouped_tc_
 
 
 def request_kernels(requests: int, passes: int, k3: int = 0, k3_kernel: str = K3_TC,
-                    soft: int = 0, k8: int = 0) -> dict:
+                    soft: int = 0, k8: int = 0, *, nms: int) -> dict:
     """The hand-written kernels that the trace of `requests` inference
     requests (an image or a batch each) holds when they make `passes`
     backbone-and-FPN passes (each replay, eager pass or capture's warm-up):
     K1 once and K2 three times a request, K7 three times and K3 (the
     kernel `k3_kernel`) `k3` times a pass, `soft` soft-NMS and `k8` K8
-    kernels, and no other K3, K8 or soft-NMS kernel."""
+    kernels, `nms` hard-NMS calls of one mask and one scan kernel each (the
+    RPN's, once an image of each run of the RPN, which every replay, eager
+    call or capture's warm-up makes, and post's where it is hard), and no
+    other K3, K8 or NMS kernel."""
     want = {"pyramid_pack_kernel": requests, "roi_align_fwd_kernel": 3 * requests,
             "upsample_add_kernel": 3 * passes, K3_TC: 0, K3_GT: 0, K3_CC: 0,
-            "layout_fence_kernel": k8, "soft_nms_kernel": soft}
+            "layout_fence_kernel": k8, "soft_nms_kernel": soft,
+            "nms_mask_kernel": nms, "nms_scan_kernel": nms}
     want[k3_kernel] = k3 * passes
     return want
 
@@ -806,8 +831,9 @@ def run_requests(model, imgs, cfg, per_request_k3: int, k3_kernel: str = K3_TC,
     its bucket's graph of the backbone and FPN, then once more under
     `traced`, which must replay it and run `request_kernels` (`passes`
     backbone-and-FPN passes a request, K3 `per_request_k3` times in all,
-    by `k3_kernel`; soft-NMS once where the test config asks for it).
-    Returns the kernels summed over the replayed requests."""
+    by `k3_kernel`; the RPN's hard NMS once; post's soft-NMS once where the
+    test config asks for it, else its hard NMS once). Returns the kernels
+    summed over the replayed requests."""
     from htd_tpu_torch import inference_detector
     from htd_tpu_torch.models import graphs
 
@@ -818,8 +844,8 @@ def run_requests(model, imgs, cfg, per_request_k3: int, k3_kernel: str = K3_TC,
     print(f"first requests: graphs {dict(graphs.graph_counts)}")
     if graphs.graph_counts["eager"] or graphs.graph_counts["replay"] != len(imgs):
         fail(f"the first requests did not replay their graphs: {graphs.graph_counts}")
-    want = request_kernels(1, passes, per_request_k3 // passes, k3_kernel,
-                           int(cfg.rcnn_test.use_soft_nms))
+    soft = int(cfg.rcnn_test.use_soft_nms)
+    want = request_kernels(1, passes, per_request_k3 // passes, k3_kernel, soft, nms=2 - soft)
     total = {}
     for img in imgs:
         (boxes, scores, labels), counts, _ = traced(
@@ -2121,9 +2147,8 @@ def fence_phase(model, img, cfg, card):
     soft = int(cfg.rcnn_test.use_soft_nms)
     try:
         # the switches make another key: the first fenced request captures
-        # its graph (its eager warm-up, whose fenced inputs come first, runs
-        # the backbone's and FPN's fences, as its replay does), the second
-        # replays it
+        # its graph (its eager warm-up runs every fence, the backbone's, the
+        # FPN's and the RPN head's, as its replay does), the second replays it
         os.environ.update({k: "1" for k in switches})
 
         def first_request():
@@ -2134,11 +2159,12 @@ def fence_phase(model, img, cfg, card):
         with recording(elementwise_cuda, "launch_layout_fence", fenced.append):
             _, captured, _ = traced(
                 "the first fenced request", first_request,
-                request_kernels(1, 2, n_dcn, soft=soft, k8=n_rpn + 2 * (3 + n_dcn)),
+                request_kernels(1, 2, n_dcn, soft=soft, k8=2 * want, nms=2 + 1 - soft),
                 {"capture": 1, "replay": 1, "eager": 0})
         dets, counts, _ = traced("the replayed fenced request",
                                  lambda: inference_detector(model, img),
-                                 request_kernels(1, 1, n_dcn, soft=soft, k8=want),
+                                 request_kernels(1, 1, n_dcn, soft=soft, k8=want,
+                                                 nms=1 + 1 - soft),
                                  {"capture": 0, "replay": 1, "eager": 0})
     finally:
         for k, v in saved.items():
@@ -2208,8 +2234,10 @@ def tta_phase(model, stds, imgs, card):
     img = imgs[0]
     n_augs = 2 * len(TTA_SCALES)
     n_dcn = len(dcn_convs(model))
+    soft = int(cfg.rcnn_test.use_soft_nms)
     # the first call captures a graph per key; the second replays them all
-    # (two backbone passes an aug: the proposals' and the cascade's), with
+    # (two replays an aug, the proposals' and the cascade's, each running
+    # the RPN's hard NMS), with one hard NMS over the merged proposals and
     # one soft-NMS over the merged detections
     graphs.reset_graph_counts()
     aug_inference_detector(model, img, scales=TTA_SCALES, flip=True)
@@ -2219,7 +2247,7 @@ def tta_phase(model, stds, imgs, card):
     (boxes, scores, labels), counts, _ = traced(
         "the replayed TTA call",
         lambda: aug_inference_detector(model, img, scales=TTA_SCALES, flip=True),
-        request_kernels(n_augs, 2 * n_augs, n_dcn, soft=int(cfg.rcnn_test.use_soft_nms)),
+        request_kernels(n_augs, 2 * n_augs, n_dcn, soft=soft, nms=2 * n_augs + 1 + 1 - soft),
         {"capture": 0, "replay": 2 * n_augs, "eager": 0})
     check_detections(boxes, scores, labels, img, cfg)
     print(f"scales {TTA_SCALES} x [no flip, flip] = {n_augs} augs on {img.shape[1]}x"
@@ -3564,7 +3592,7 @@ def picture_phase(card: str) -> None:
             inference_detector(model, img)     # warm: captures the bucket's graph
             (dboxes, dscores, dlabels), _, infer_s = traced(
                 "R-50 bf16 on photo0", lambda: inference_detector(model, img),
-                request_kernels(1, 1), {"capture": 0, "replay": 1, "eager": 0})
+                request_kernels(1, 1, nms=2), {"capture": 0, "replay": 1, "eager": 0})
         check_detections(dboxes, dscores, dlabels, img, cfg)
         times = []
         for ext in (".png", ".jpg"):
@@ -3642,6 +3670,7 @@ def tta_eval_phases(card, pairs, k7_launches, imgs):
 
 
 DETECTORS_CONFIG = "bench_h100/configs/htd_detectors_r50_1x.json"   # phase 29
+R50_CONFIG = "bench_h100/configs/htd_r50_1x.json"                    # phase 30
 DETECTORS_SEED = 2**31 + 29
 DETECTORS_SHAPES = ((480, 640), (640, 480))   # one image a bucket, h x w
 
@@ -3782,7 +3811,7 @@ def main():
     # warm-up runs the backbone's and FPN's kernels), then replays it
     graph = {"capture": 1, "replay": 1, "eager": 0}
     (boxes, scores, labels), counts, _ = traced("the float32 request", first_request,
-                                                request_kernels(1, 2), graph)
+                                                request_kernels(1, 2, nms=3), graph)
     check_detections(boxes, scores, labels, imgs[0], ref_cfg)
     print(f"float32 request {imgs[0].shape[1]}x{imgs[0].shape[0]} at full size: "
           f"{len(scores)} detections, kernels by its trace {counts}, graphs {graph}")
@@ -3898,7 +3927,85 @@ def main():
          "library_ms": None},
         *dcn_records,
     ]
-    return card, kind, kernels, t_start, main_counts["upsample_add_kernel"], pairs
+    return card, kind, kernels, t_start, main_counts, pairs
+
+
+def hard_nms_bound(n: int, max_out: int, tiles: int) -> tuple:
+    """(least ms, what bounds it) of one hard-NMS call on `n` boxes whose
+    scan visits `tiles` 64-box tiles (HARD_NMS_*)."""
+    m = min(n, 64 * tiles)
+    parts = {"operations": m * (m - 1) / 2 * HARD_NMS_IOU_OPS / FP32_FLOP_PER_S,
+             "bytes": (n * (16 + 4 + 8) + max_out * 13) / HBM_BYTES_PER_S,
+             "the scan's chain": tiles * HARD_NMS_TILE_CYCLES / SM_CLOCK_HZ}
+    by = max(parts, key=parts.get)
+    return parts[by] * 1e3, by
+
+
+def nms_phase(card: str, launches: int) -> dict:
+    """Phase 30: the hard-NMS kernels on an eager R-50 request's own
+    inputs (the RPN's and post's calls of `nms`, recorded by wrapping it):
+    held to `nms_plain` bit for bit, then timed; returns the RPN call's
+    kernel record, with `launches` (the two kernels in the traces of the
+    main path's replayed requests)."""
+    from bench_h100.harness import port_config
+    from bench_h100.program import build_detector
+    from bench_h100.weights import make_state_dict
+    from htd_tpu_torch import inference_detector
+    from htd_tpu_torch.ops import nms as nms_mod
+
+    phase("30 hard NMS: the kernels vs the plain fixpoint on an R-50 request's own inputs")
+    doc = json.loads(open(R50_CONFIG).read())
+    dev = torch.device("cuda")
+    model = build_detector(port_config(doc), make_state_dict(doc["config"], doc["assumed"],
+                                                             2**31 + 30, dev), dev)
+    img = np.random.RandomState(30).randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    seen = []
+    nms = nms_mod.nms
+    nms_mod.nms = lambda *args: (seen.append(args), nms(*args))[1]
+    hook = model.neck.register_forward_hook(lambda m, args, out: None)   # eager
+    try:
+        inference_detector(model, img)
+    finally:
+        nms_mod.nms = nms
+        hook.remove()
+    if len(seen) != 2 or not all(a[0].is_cuda for a in seen):
+        fail(f"an eager R-50 request called nms {len(seen)} times, not twice on the card")
+    two = {"nms_mask_kernel": 1, "nms_scan_kernel": 1}
+    record = None
+    for label, args in zip(("RPN", "post"), seen):
+        boxes, scores, thr, max_out = args
+        n = boxes.shape[0]
+        got = nms(*args)
+        want = nms_mod.nms_plain(*args)
+        bits = [x.view(torch.int32) if x.dtype == torch.float32 else x for x in got + want]
+        if not all(torch.equal(a, b) for a, b in zip(bits[:3], bits[3:])):
+            fail(f"the hard-NMS kernels differ from nms_plain on the {label}'s {n} boxes")
+        kept = int(want[2].sum())
+        order = torch.sort(scores.float(), descending=True, stable=True).indices
+        last = int((order == want[0][kept - 1]).nonzero()[0, 0]) if kept == max_out else n - 1
+        ms_bound, by = hard_nms_bound(n, max_out, last // 64 + 1)
+        dev_ms = device_times(lambda: nms(*args), two)
+        ms = cuda_ms(lambda: nms(*args), iters=50)
+        plain_dev = device_ms(lambda: nms_mod.nms_plain(*args), iters=5)
+        plain = cuda_ms(lambda: nms_mod.nms_plain(*args), iters=5, warmup=1)
+        kernels = dev_ms["nms_mask_kernel"] + dev_ms["nms_scan_kernel"]
+        print(f"hard NMS, {label} of an R-50 request ({n} boxes, IoU > {thr}, max_out "
+              f"{max_out}; {kept} kept over {last // 64 + 1} of {-(-n // 64)} tiles): outputs "
+              f"bit-equal to nms_plain; device {dev_ms['all'] * 1e3:.1f} us a call (mask "
+              f"{dev_ms['nms_mask_kernel'] * 1e3:.1f}, scan {dev_ms['nms_scan_kernel'] * 1e3:.1f}, "
+              f"sort and gathers {(dev_ms['all'] - kernels) * 1e3:.1f}), "
+              f"{100 * ms_bound / kernels:.1f}% of its bound {ms_bound * 1e3:.1f} us ({by}); by "
+              f"events {ms * 1e3:.1f} us; nms_plain device {plain_dev * 1e3:.1f} us, by events "
+              f"{plain * 1e3:.1f} us with its host syncs ({card})")
+        if record is None:
+            record = {"name": "nms", "route": "cuda", "source": "htd_tpu_torch/csrc/nms.cu",
+                      "replaces": "none (XLA loops, htd_tpu/ops/nms.py:103 nms_blocked)",
+                      "launches": launches, "max_abs_err": 0.0, "ms": ms, "device_ms": kernels,
+                      "plain_ms": plain, "bound_ms": ms_bound, "bound_by": by,
+                      "library_ms": None}
+    del model
+    torch.cuda.empty_cache()
+    return record
 
 
 def run() -> None:
@@ -3907,10 +4014,11 @@ def run() -> None:
     hold inference tensors, which autograd rejects), then phases 20-23
     (TTA and evaluation), 24 (the tools), 25 (data parallel), 26 (JPEG
     and robustness), 27 (production-scale evaluation and the last
-    tools), 28 (the picture path) and 29 (DetectoRS, under
-    `torch.inference_mode`), then the result."""
+    tools), 28 (the picture path), 29 (DetectoRS) and 30 (hard NMS), the
+    last two under `torch.inference_mode`, then the result."""
     with torch.inference_mode():
-        card, kind, kernels, t_start, k7_launches, pairs = main()
+        card, kind, kernels, t_start, main_counts, pairs = main()
+    k7_launches = main_counts["upsample_add_kernel"]
     kernels.append(train_phases(card))
     kernels.extend(dcn_train_phases(card, images()))
     eval_metrics, records = tta_eval_phases(card, [(lo.clone(), la.clone()) for lo, la in pairs],
@@ -3923,14 +4031,16 @@ def run() -> None:
     picture_phase(card)
     with torch.inference_mode():
         detectors_phase(card)
+        kernels.append(nms_phase(card, main_counts["nms_mask_kernel"]
+                                 + main_counts["nms_scan_kernel"]))
     print(f"kernel times are per image (K2: the sum of its 3 calls per request; K3: of its "
           f"30 launches per R-101-DCN request; K3 grouped: of its 30 launches per X-101-DCN "
-          f"request; soft-NMS: its one launch per R-101-DCN request; "
-          f"K7: of its 3 launches per R-50 request; K8: one launch on the largest fenced "
+          f"request; soft-NMS: its one launch per R-101-DCN request; hard NMS: its mask and "
+          f"scan kernels on the RPN's boxes of an R-50 request; K7: of its 3 launches per R-50 request; K8: one launch on the largest fenced "
           f"tensor) and per train step (K4: its 3 calls, R-50; K5, K6: their 30 launches each, "
           f"R-101-DCN); launches are the kernels in the traces of the {len(REQUEST_SHAPES)} "
-          f"replayed main-path requests (K1, K2, K7: R-50; K3, soft-NMS: R-101-DCN; K3 grouped: "
-          f"X-101-DCN) and of the "
+          f"replayed main-path requests (K1, K2, K7, hard NMS's two kernels: R-50; K3, "
+          f"soft-NMS: R-101-DCN; K3 grouped: X-101-DCN) and of the "
           f"replayed fenced request (K8: R-101-DCN), and in the traces of the {TRAIN_STEPS} "
           f"main-path train steps of each training path (K4: R-50; K5, K6: R-101-DCN, K6 by "
           f"its d_offsets kernel); max_abs_err is bfloat16 vs the plain version (soft-NMS: "

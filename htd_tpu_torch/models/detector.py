@@ -19,9 +19,9 @@ switchable atrous conv runs in an `htd.sac` span (K3 twice); the
 port does not train that preset.
 On an inference call on CUDA (no autograd, eval mode, no autocast, no
 forward hook on the backbone or neck) `simple_test`, `rpn_proposals` and
-`stages_forward` replay the backbone and FPN as one CUDA graph per input
-key (`models/graphs.py`), captured at the key's first call; every other
-call runs them eagerly.
+`stages_forward` replay the backbone, the FPN, the RPN head and the
+proposals as one CUDA graph per input key (`models/graphs.py`), captured
+at the key's first call; every other call runs them eagerly.
 Each layer of the forward runs inside a `record_function` span named
 `htd.<layer>`, which a `torch.profiler` trace reports with its host and
 device time; each call inside it that blocks the host until the device
@@ -104,7 +104,7 @@ class HTDDetector(nn.Module):
         self.rpn_head = RPNHead(cfg.rpn.in_channels, cfg.rpn.feat_channels,
                                 self.anchor_gen.num_base_anchors)
         self.roi_head = HTDRoIHead(cfg)
-        # graphs.graph_key -> graphs.FeatureGraph of `_features`; the
+        # graphs.graph_key -> graphs.FeatureGraph of `_front`; the
         # modules whose hooks a replay would skip, listed at first use
         self._graphs: Dict[tuple, graphs.FeatureGraph] = {}
         self._graphed_modules: Optional[Tuple[nn.Module, ...]] = None
@@ -148,11 +148,18 @@ class HTDDetector(nn.Module):
             return self.neck(self.backbone(x), x)
         return self.neck(self.backbone(x))
 
+    def _front(self, images: torch.Tensor, img_shapes: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """What a graph captures: the FPN levels of `images`, then the
+        proposals' boxes, scores and validity (`_proposals`)."""
+        feats = self._features(images)
+        return (*feats, *self._proposals(feats, img_shapes))
+
     def _eager_reason(self, images: torch.Tensor) -> Optional[str]:
-        """Why `_levels` must run `_features` eagerly on `images`, or None
-        where a graph may replay it: autograd is on, the model trains,
-        autocast is on, a forward hook or pre-hook would not fire on a
-        replay, or `images` is not on the model's CUDA device."""
+        """Why `_levels` must run the front (backbone, FPN and RPN) eagerly
+        on `images`, or None where a graph may replay it: autograd is on,
+        the model trains, autocast is on, a forward hook or pre-hook would
+        not fire on a replay, or `images` is not on the model's CUDA
+        device."""
         if torch.is_grad_enabled():
             return "autograd"
         if self.training:
@@ -160,7 +167,8 @@ class HTDDetector(nn.Module):
         if torch.is_autocast_enabled():
             return "autocast"
         if self._graphed_modules is None:
-            self._graphed_modules = (*self.backbone.modules(), *self.neck.modules())
+            self._graphed_modules = (*self.backbone.modules(), *self.neck.modules(),
+                                     *self.rpn_head.modules())
         hooked = nn.modules.module._global_forward_hooks or \
             nn.modules.module._global_forward_pre_hooks or \
             any(m._forward_hooks or m._forward_pre_hooks for m in self._graphed_modules)
@@ -170,20 +178,22 @@ class HTDDetector(nn.Module):
             return "device"
         return None
 
-    def _levels(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """`_features(images)` for a call that is done with the levels when
-        it returns: replayed from the CUDA graph of `images`' key (captured
-        at the key's first call) where `_eager_reason` allows, else eager.
-        A replay's levels are the graph's own, which its next replay
-        overwrites."""
+    def _levels(self, images: torch.Tensor, img_shapes: torch.Tensor):
+        """(levels, proposals) for a call that is done with them when it
+        returns, img_shapes (B, 2) float32 on the model's device: where
+        `_eager_reason` allows, `_front(images, img_shapes)` replayed from
+        the CUDA graph of `images`' key (captured at the key's first call),
+        whose tensors its next replay overwrites; else `_features(images)`
+        eagerly and proposals None, for the caller to compute."""
         if self._eager_reason(images) is not None:
             graphs.graph_counts["eager"] += 1
-            return self._features(images)
+            return self._features(images), None
         key = graphs.graph_key(images, self.compute_dtype)
         graph = self._graphs.get(key)
         if graph is None:
-            graph = self._graphs[key] = graphs.FeatureGraph(self._features, images)
-        return graph.replay(images)
+            graph = self._graphs[key] = graphs.FeatureGraph(self._front, images, img_shapes)
+        out = graph.replay(images, img_shapes)
+        return out[:-3], out[-3:]
 
     def extract_feats(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """(B, H, W, 3) normalized images -> FPN levels (B, H, W, C)."""
@@ -258,9 +268,10 @@ class HTDDetector(nn.Module):
         img_shapes = img_shapes.to(device=dev, dtype=torch.float32)
         scale_factors = scale_factors.to(device=dev, dtype=torch.float32)
         with record_function("htd.backbone_fpn"):
-            feats = self._levels(images)
+            feats, props = self._levels(images, img_shapes)
         with record_function("htd.rpn_proposals"):
-            props, _, prop_valid = self._proposals(feats, img_shapes)
+            # a replay computed them: only its outputs are taken here
+            props, _, prop_valid = self._proposals(feats, img_shapes) if props is None else props
         rois1, cls_score, s1_reg = self._cascade(feats, img_shapes, props, prop_valid)
 
         with record_function("htd.post"):
@@ -282,9 +293,13 @@ class HTDDetector(nn.Module):
         scores (B, P), valid (B, P), P = `proposal_test.nms_post`."""
         img_shapes = img_shapes.to(device=self.device, dtype=torch.float32)
         with record_function("htd.backbone_fpn"):
-            feats = self._levels(images)
+            feats, props = self._levels(images, img_shapes)
         with record_function("htd.rpn_proposals"):
-            return self._proposals(feats, img_shapes)
+            if props is None:
+                return self._proposals(feats, img_shapes)
+            # the graph's own, which its next replay overwrites: a caller
+            # may hold them across one (test-time augmentation does)
+            return tuple(t.clone() for t in props)
 
     def stages_forward(self, images, img_shapes, rois, roi_valid):
         """Both cascade stages on given proposals. Returns decoded boxes
@@ -295,7 +310,7 @@ class HTDDetector(nn.Module):
         rois = rois.to(device=dev, dtype=torch.float32)
         roi_valid = roi_valid.to(dev)
         with record_function("htd.backbone_fpn"):
-            feats = self._levels(images)
+            feats, _ = self._levels(images, img_shapes)
         rois1, cls_score, s1_reg = self._cascade(feats, img_shapes, rois, roi_valid)
         coder = self.cfg.stage1_head.coder
         boxes = delta2bbox(rois1, s1_reg, coder.means, coder.stds,

@@ -1,21 +1,25 @@
-"""CUDA graphs of the detector's fixed-shape front: the backbone and FPN.
+"""CUDA graphs of the detector's fixed-shape front: the backbone, the FPN,
+the RPN head and its proposals.
 
-On an inference call the backbone and FPN take a bucket-padded batch whose
-shape the bucket fixes, decide nothing on the host and block on nothing,
-so their 800-1,800 launches (K3, K7 and K8 among them) can be captured
-once per input key and replayed as one `cudaGraphLaunch`
-(`torch.cuda.CUDAGraph`). `HTDDetector` keeps one `FeatureGraph` per key
-and decides which calls may replay (`HTDDetector._levels`).
+On an inference call the front takes a bucket-padded batch whose shape the
+bucket fixes, and the images' resized shapes; it decides nothing on the
+host and blocks on nothing (the box coder's constants stay on the device,
+hard NMS is one kernel call), so its launches (the backbone's and FPN's
+800-1,800 with K3, K7 and K8 among them, then the RPN's with the hard-NMS
+kernels) can be captured once per input key and replayed as one
+`cudaGraphLaunch` (`torch.cuda.CUDAGraph`). `HTDDetector`
+keeps one `FeatureGraph` per key and decides which calls may replay
+(`HTDDetector._levels`).
 
 A capture warms the function up once, eagerly, on a side stream (cuDNN's
 choices and workspaces, the kernels' builds), then records it into a
 private memory pool of its own, in the pattern that `torch.cuda.graphs`
 documents; the capture's own device synchronisation runs in an
-`htd.sync.capture` span. A replay copies the input into the graph's
-static input and launches the graph, inside an `htd.graph.replay` span
-(a capture inside `htd.graph.capture`). The levels a replay returns are
+`htd.sync.capture` span. A replay copies the inputs into the graph's
+static inputs and launches the graph, inside an `htd.graph.replay` span
+(a capture inside `htd.graph.capture`). The tensors a replay returns are
 the graph's static outputs, which the next replay of that graph
-overwrites: a caller must be done with them by then.
+overwrites: a caller must be done with them by then, or clone them.
 
 A replay runs no Python, so its kernels show only in a device trace
 (`utils.profiling.kernel_counts`); a capture's warm-up runs each kernel
@@ -37,8 +41,9 @@ from htd_tpu_torch.ops.fence import switched_on
 graph_counts: Dict[str, int] = {"capture": 0, "replay": 0, "eager": 0}
 
 # the switches that decide which launches the captured region makes
-# (`ops.fence.fenced` on the FPN sums and on every deformable conv's input)
-FENCE_SWITCHES = ("HTD_FPN_FENCE", "HTD_DCN_FENCE")
+# (`ops.fence.fenced` on the FPN sums, on every deformable conv's input and
+# on each level entering the RPN head)
+FENCE_SWITCHES = ("HTD_FPN_FENCE", "HTD_DCN_FENCE", "HTD_RPN_FENCE")
 
 
 def reset_graph_counts() -> None:
@@ -47,7 +52,7 @@ def reset_graph_counts() -> None:
 
 
 def graph_key(images: torch.Tensor, compute_dtype: torch.dtype) -> Tuple:
-    """What fixes the launches of the backbone and FPN on `images`: its
+    """What fixes the launches of the captured front on `images`: its
     shape (batch, height, width), dtype and device, the compute dtype, the
     fence switches, cuDNN's TF32 and determinism flags (which pick its
     algorithms), and whether inference mode is on (the tensors a graph
@@ -68,27 +73,28 @@ class _Capture(torch.cuda.graph):
 
 
 class FeatureGraph:
-    """`fn` captured on inputs like `images`: `replay(x)` returns what
-    `fn(x)` returns, in the graph's static output tensors."""
+    """`fn` captured on inputs like `inputs`: `replay(*xs)` returns what
+    `fn(*xs)` returns, in the graph's static output tensors."""
 
-    def __init__(self, fn: Callable[[torch.Tensor], Tuple[torch.Tensor, ...]],
-                 images: torch.Tensor):
+    def __init__(self, fn: Callable[..., Tuple[torch.Tensor, ...]], *inputs: torch.Tensor):
         with record_function("htd.graph.capture"):
-            self.static_in = images.clone(memory_format=torch.contiguous_format)
+            self.static_in = tuple(x.clone(memory_format=torch.contiguous_format)
+                                   for x in inputs)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.device(images.device):
+            with torch.cuda.device(inputs[0].device):
                 side = torch.cuda.Stream()
                 side.wait_stream(torch.cuda.current_stream())
                 with torch.cuda.stream(side):
-                    fn(self.static_in)
+                    fn(*self.static_in)
                 with _Capture(self.graph, stream=side):
-                    self.outputs = fn(self.static_in)
+                    self.outputs = fn(*self.static_in)
                 torch.cuda.current_stream().wait_stream(side)
         graph_counts["capture"] += 1
 
-    def replay(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def replay(self, *inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         with record_function("htd.graph.replay"):
-            self.static_in.copy_(images)
+            for static, x in zip(self.static_in, inputs):
+                static.copy_(x)
             self.graph.replay()
         graph_counts["replay"] += 1
         return self.outputs

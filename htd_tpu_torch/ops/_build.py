@@ -139,6 +139,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     f32 = ctypes.c_float
     lib.htd_soft_nms.argtypes = [vp, vp, i32, f32, f32, i32, vp, vp, vp, vp, vp]
     lib.htd_soft_nms.restype = i32
+    lib.htd_nms.argtypes = [vp, vp, vp, i32, f32, i32, vp, vp, vp, vp, vp]
+    lib.htd_nms.restype = i32
 
 
 def _host_compiler() -> List[str]:

@@ -9,19 +9,31 @@ float32.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
 
 _DEFAULT_WH_RATIO_CLIP = 16.0 / 1000.0
 
+# (values, dtype, device) -> the coder's constants, kept for the life of the
+# process: a captured CUDA graph reads them by address, so none is replaced
+_CODER_CONSTS: Dict[Tuple, torch.Tensor] = {}
+
 
 def _coder_consts(vals: Sequence[float], like: torch.Tensor) -> torch.Tensor:
-    """The coder's means or stds on `like`'s device: a copy from the host,
-    which blocks until the device's queue has drained (`htd.sync.box_coder`)."""
-    with record_function("htd.sync.box_coder"):
-        return torch.tensor(vals, dtype=like.dtype, device=like.device)
+    """The coder's means or stds in `like`'s dtype on its device, made at
+    their first use and kept: that first use copies them from the host,
+    which blocks until the device's queue has drained
+    (`htd.sync.box_coder`); later ones copy nothing. Made outside inference
+    mode, so that autograd may save them for a backward pass."""
+    key = (tuple(float(v) for v in vals), like.dtype, like.device)
+    consts = _CODER_CONSTS.get(key)
+    if consts is None:
+        with record_function("htd.sync.box_coder"), torch.inference_mode(False):
+            consts = _CODER_CONSTS[key] = torch.tensor(vals, dtype=like.dtype,
+                                                       device=like.device)
+    return consts
 
 
 def bbox2delta(proposals, gt, means=(0.0, 0.0, 0.0, 0.0), stds=(1.0, 1.0, 1.0, 1.0)):

@@ -6,21 +6,27 @@ suppressing IoU > thr, ties broken by original index (a stable descending
 sort). Outputs have static capacities; absent slots carry score -inf in
 `nms` and are flagged by validity masks.
 
-The greedy pass is resolved on the device without a host loop over boxes,
-as `nms_blocked` does on the TPU, with the whole input as one tile: with
-`sup[j, i]` = "j precedes i and IoU(j, i) > thr", the greedy keep set is
-the unique fixpoint of `keep = valid & ~any_j(sup[j, i] & keep[j])` (the
-value at i depends only on earlier boxes, so it is fixed once they are).
-Iterating from `keep = valid` reaches it in as many steps as the longest
-chain of suppressions; convergence is checked every few steps, which is
-the only host synchronisation; each check runs in an `htd.sync.nms` span.
+`nms` has no host synchronisation on CUDA tensors: there it is one call
+of the hard-NMS kernels (`csrc/nms.cu`, through `ops.nms_cuda.launch_nms`:
+a launch that writes the suppression bit mask of the score-sorted boxes,
+then one block that scans it in order), so it may run inside a CUDA
+graph's capture. On CPU tensors its plain twin, `nms_plain`, resolves the
+greedy pass without a host loop over boxes, as `nms_blocked` does on the
+TPU, with the whole input as one tile: with `sup[j, i]` = "j precedes i
+and IoU(j, i) > thr", the greedy keep set is the unique fixpoint of
+`keep = valid & ~any_j(sup[j, i] & keep[j])` (the value at i depends only
+on earlier boxes, so it is fixed once they are). Iterating from
+`keep = valid` reaches it in as many steps as the longest chain of
+suppressions; convergence is checked every few steps, which is the only
+host synchronisation; each check runs in an `htd.sync.nms` span. The
+kernels equal `nms_plain` bit for bit on the same CUDA tensors.
 
 `soft_nms` (linear decay, the R-101 and DCN test configs) has no host
-synchronisation. On CUDA tensors it is one launch of the soft-NMS kernel
-(`csrc/soft_nms.cu`, through `ops.nms_cuda.launch_soft_nms`), which runs
-all `max_out` rounds in one thread block; on CPU tensors its plain twin,
-`soft_nms_plain`, runs the rounds as tensor ops, and the kernel equals it
-bit for bit on the same CUDA tensors.
+synchronisation either. On CUDA tensors it is one launch of the soft-NMS
+kernel (`csrc/soft_nms.cu`, through `ops.nms_cuda.launch_soft_nms`), which
+runs all `max_out` rounds in one thread block; on CPU tensors its plain
+twin, `soft_nms_plain`, runs the rounds as tensor ops, and the kernel
+equals it bit for bit on the same CUDA tensors.
 """
 
 from __future__ import annotations
@@ -52,7 +58,19 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     boxes (N, 4); scores (N,) with -inf marking absent entries. Returns
     keep_idx (max_out,) int64 (0 where invalid), keep_score (max_out,)
     (-inf where invalid) and keep_valid (max_out,) bool, in keep order.
+    The hard-NMS kernels on CUDA tensors, `nms_plain` on others.
     """
+    if boxes.device.type == "cuda":
+        from htd_tpu_torch.ops.nms_cuda import launch_nms
+        return launch_nms(boxes, scores, iou_threshold, max_out)
+    return nms_plain(boxes, scores, iou_threshold, max_out)
+
+
+def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+              max_out: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the hard-NMS kernels: `nms` as the fixpoint of
+    the suppression matrix, on any device, with a host synchronisation
+    every `_STEPS_PER_CHECK` steps."""
     n = boxes.shape[0]
     dev = boxes.device
     scores = scores.to(torch.float32)

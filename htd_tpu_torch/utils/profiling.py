@@ -28,7 +28,7 @@ KERNELS = frozenset({
     "deform_conv_bwd_input_kernel", "deform_conv_bwd_input_tc_kernel",
     "deform_conv_bwd_offset_kernel", "deform_conv_bwd_weight_kernel",
     "deform_conv_bwd_weight_tc_kernel", "upsample_add_kernel", "layout_fence_kernel",
-    "soft_nms_kernel"})
+    "soft_nms_kernel", "nms_mask_kernel", "nms_scan_kernel"})
 # traces `kernel_counts` takes before it fails on a short count
 KERNEL_TRACES = 3
 # throwaway kernels at the start of each of its traces

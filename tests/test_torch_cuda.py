@@ -526,7 +526,8 @@ def test_x101_request_runs_k3_on_the_cuda_cores(cuda, x101_request):
     runs the 30 K3 and 3 K7 kernels, the capture none, and the replay that
     follows 30 and 3 more. The next request replays the graph alone. Each
     request runs K1 once and K2 three times, and neither of the other two
-    K3 kernels."""
+    K3 kernels; the RPN's hard NMS (its mask and scan kernels) is in the
+    graph, so it runs once a pass."""
     from htd_tpu_torch.apis import inference_detector
     from htd_tpu_torch.models import graphs
 
@@ -542,7 +543,8 @@ def test_x101_request_runs_k3_on_the_cuda_cores(cuda, x101_request):
 
             want = {"pyramid_pack_kernel": 1, "roi_align_fwd_kernel": 3,
                     "upsample_add_kernel": 3 * passes,
-                    "deform_conv_fwd_grouped_tc_kernel": 30 * passes, "soft_nms_kernel": 1}
+                    "deform_conv_fwd_grouped_tc_kernel": 30 * passes, "soft_nms_kernel": 1,
+                    "nms_mask_kernel": passes, "nms_scan_kernel": passes}
             (boxes, _, _), got = kernel_counts(request, want)
             assert got == want
             assert graphs.graph_counts == graph
@@ -724,7 +726,8 @@ def test_deform_conv_module_trains_on_cuda(cuda):
 def test_train_step_launches(cuda, preset):
     """One bfloat16 train step of HTD R-50 / R-101-DCN / X-101-64x4d-DCN at
     full depth and width (a small 256x384 batch of 2): K1 once, K2 and K4
-    three times each, K7 three times (the FPN's top-down adds), and with
+    three times each, K7 three times (the FPN's top-down adds), the
+    hard-NMS kernels once per image (the RPN's proposals), and with
     the 30 deformable convs K3, K5 and K6 30 times each, on the tensor
     cores for R-101-DCN; for X-101's grouped convs K3 on the grouped
     tensor-core path, K5 and K6 on the CUDA cores;
@@ -744,7 +747,7 @@ def test_train_step_launches(cuda, preset):
                        torch.from_numpy(rng.randint(0, 80, (2, 100)).astype(np.int32)),
                        torch.from_numpy(valid))
     want = {"pyramid_pack_kernel": 1, "roi_align_fwd_kernel": 3, "roi_align_bwd_kernel": 3,
-            "upsample_add_kernel": 3}
+            "upsample_add_kernel": 3, "nms_mask_kernel": 2, "nms_scan_kernel": 2}
     if preset != "htd_r50_1x":
         tc = "_tc" if preset == "htd_r101_dcn_2x" else ""
         fwd = "deform_conv_fwd_tc_kernel" if tc else "deform_conv_fwd_grouped_tc_kernel"
@@ -1015,6 +1018,115 @@ def test_soft_nms_nan_as_plain(cuda):
     assert torch.isnan(want[1][1]) and not want[2][1]
     for a, b in zip(got, want):
         assert torch.equal(_float_bits(a), _float_bits(b))
+
+
+def _hard_nms_inputs(dev, n, case):
+    """(boxes, scores, iou_threshold, max_out) for `n` hard-NMS candidates in
+    a 1333x800 image, by case:
+    "spread": uniform boxes and scores, the RPN's settings (0.7, 1,000);
+    "ties": scores on a 0.1 grid, a tenth of them -inf (absent);
+    "duplicates": boxes in identical pairs, tied scores;
+    "chains": rows of 96 boxes 12 px apart (the rows 150 px apart), each
+        suppressing the next (IoU 0.79) and not the one after (0.61), in
+        falling score, so the greedy pass alternates along each row,
+        across tiles;
+    "invalid": every score -inf;
+    "short": `max_out` 10, below the keep count;
+    "nan": some NaN scores (absent) and boxes with NaN or infinite
+        corners (a NaN IoU suppresses nothing);
+    "batched": 80 classes' offset boxes as `batched_nms` hands them over,
+        post's settings (0.5, 100)."""
+    rng = np.random.RandomState(n)
+    xy = rng.uniform(0, [1333, 800], (n, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + rng.uniform(8, 300, (n, 2)), [1333, 800])], 1)
+    scores = rng.uniform(0, 1, n)
+    thr, max_out = 0.7, 1000
+    if case in ("ties", "duplicates"):
+        scores = np.round(scores, 1)
+        scores[rng.uniform(0, 1, n) < 0.1] = -np.inf
+        if case == "duplicates":
+            boxes[1::2] = boxes[:n // 2 * 2:2]
+    elif case == "chains":
+        k = np.arange(n)
+        x = (k % 96) * 12.0
+        y = (k // 96) * 150.0
+        boxes = np.stack([x, y, x + 100.0, y + 100.0], 1)
+        scores = 1.0 - k / n
+    elif case == "invalid":
+        scores[:] = -np.inf
+    elif case == "short":
+        max_out = 10
+    elif case == "nan":
+        scores[rng.uniform(0, 1, n) < 0.1] = np.nan
+        bad = rng.uniform(0, 1, n) < 0.1
+        boxes[bad, rng.randint(0, 4, n)[bad]] = rng.choice([np.nan, np.inf, -np.inf], bad.sum())
+    elif case == "batched":
+        from htd_tpu_torch.ops.nms import _offset_by_ids
+
+        ids = torch.from_numpy(rng.randint(0, 80, n).astype(np.int32))
+        boxes = _offset_by_ids(torch.from_numpy(boxes.astype(np.float32)),
+                               torch.from_numpy(scores.astype(np.float32)), ids).numpy()
+        thr, max_out = 0.5, 100
+    return (torch.from_numpy(boxes.astype(np.float32)).to(dev),
+            torch.from_numpy(scores.astype(np.float32)).to(dev), thr, max_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spread", "ties", "duplicates", "chains", "invalid", "short",
+                                  "nan", "batched"])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 2048, 4819, 10000])
+def test_hard_nms_kernel_equals_plain(cuda, n, case):
+    """`nms` on CUDA tensors runs the hard-NMS kernels (the mask launch and
+    the scan launch, once each), and their indices, scores and validity
+    are `nms_plain`'s on the same CUDA tensors, bit for bit: at sizes that
+    are and are not whole 64-box tiles, from one box to training's RPN
+    (about 10,000), with ties, absent and NaN entries, duplicates, chains
+    of suppressions across tiles, and an early stop at `max_out`."""
+    from htd_tpu_torch.ops.nms import nms, nms_plain
+
+    boxes, scores, thr, max_out = _hard_nms_inputs(cuda, n, case)
+    two = {"nms_mask_kernel": 1, "nms_scan_kernel": 1}
+    got, ran = kernel_counts(lambda: nms(boxes, scores, thr, max_out), two)
+    assert ran == two
+    want = nms_plain(boxes, scores, thr, max_out)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape == (max_out,)
+        assert torch.equal(_float_bits(a), _float_bits(b))
+    kept = int(want[2].sum())
+    if case == "invalid":
+        assert kept == 0 and not want[0].any() and torch.isneginf(want[1]).all()
+    elif case == "short" and n >= 63:
+        assert kept == max_out
+    elif case == "chains" and n >= 64:
+        assert (want[0][:kept] % 2 == 0).all() and kept == min(max_out, n - n // 2)
+    else:
+        assert kept > 0 or n == 1
+
+
+@pytest.mark.cuda
+def test_hard_nms_replays_in_a_cuda_graph(cuda):
+    """`nms` captured into a CUDA graph (the sort, the gathers and both
+    kernels; nothing synchronises) and replayed on other boxes and scores
+    copied into its inputs gives `nms_plain`'s outputs on those, bit for
+    bit, at the RPN's size and settings."""
+    from htd_tpu_torch.ops.nms import nms, nms_plain
+
+    boxes, scores, thr, max_out = _hard_nms_inputs(cuda, 4819, "spread")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        nms(boxes, scores, thr, max_out)                 # builds and loads the kernels
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = nms(boxes, scores, thr, max_out)
+    for case in ("ties", "nan", "spread"):
+        b, s, _, _ = _hard_nms_inputs(cuda, 4819, case)
+        boxes.copy_(b)
+        scores.copy_(s)
+        graph.replay()
+        for a, w in zip(out, nms_plain(b, s, thr, max_out)):
+            assert torch.equal(_float_bits(a), _float_bits(w)), case
 
 
 @pytest.mark.cuda

@@ -1,11 +1,12 @@
-"""The backbone and FPN replayed as CUDA graphs (`models/graphs.py`).
+"""The backbone, FPN, RPN head and proposals replayed as CUDA graphs
+(`models/graphs.py`).
 
 On the CPU: which calls stay eager (and capture nothing), what tells two
 graphs apart, what drops them, and what a capture and a replay run and
 count, with the CUDA parts stood in for. On the card (marked `cuda`, skipped elsewhere): R-50,
-R-101-DCN (K3 on the tensor cores) and X-101-64x4d-DCN (grouped K3) as
-the benchmark builds them, whose replayed levels and detections must
-equal the eager ones bit for bit:
+R-101-DCN (K3 on the tensor cores), X-101-64x4d-DCN (grouped K3) and
+DetectoRS R-50 as the benchmark builds them, whose replayed levels,
+proposals and detections must equal the eager ones bit for bit:
 
     python -m pytest --noconftest tests/test_torch_graphs.py -q
 
@@ -33,7 +34,7 @@ def batch(seed: int, b: int = 1, h: int = 64, w: int = 96, dev="cpu"):
     """(images, img_shapes, scale_factors) of a normalized bucket batch."""
     rng = np.random.default_rng(seed)
     images = torch.from_numpy(rng.normal(0, 1, (b, h, w, 3)).astype(np.float32)).to(dev)
-    shapes = torch.tensor([[h, w]] * b, dtype=torch.float32)
+    shapes = torch.tensor([[h, w]] * b, dtype=torch.float32, device=dev)
     return images, shapes, torch.ones((b, 4))
 
 
@@ -107,13 +108,14 @@ def test_calls_that_keep_the_levels_stay_off_the_graphs(counts):
 
 
 @pytest.mark.parametrize("change", ["bucket", "batch", "dtype", "compute_dtype", "HTD_FPN_FENCE",
-                                    "HTD_DCN_FENCE", "tf32", "inference_mode"])
+                                    "HTD_DCN_FENCE", "HTD_RPN_FENCE", "tf32", "inference_mode"])
 def test_the_key_tells_graphs_apart(monkeypatch, change):
     """Each of the bucket's shape, the batch, the input's dtype, the compute
-    dtype, each fence switch, cuDNN's TF32 flag and inference mode gives
+    dtype, each fence switch (the FPN's sums, the deformable convs' inputs,
+    the RPN head's levels), cuDNN's TF32 flag and inference mode gives
     another key; the same call gives the same key."""
-    monkeypatch.delenv("HTD_FPN_FENCE", raising=False)
-    monkeypatch.delenv("HTD_DCN_FENCE", raising=False)
+    for switch in graphs.FENCE_SWITCHES:
+        monkeypatch.delenv(switch, raising=False)
 
     def key(b=1, h=64, w=96, dtype=torch.float32, compute=torch.bfloat16):
         return graphs.graph_key(torch.zeros((b, h, w, 3), dtype=dtype), compute)
@@ -191,41 +193,45 @@ def cpu_graphs(monkeypatch):
 
 
 def test_a_capture_calls_fn_twice_and_a_replay_never(cpu_graphs, counts):
-    """A capture runs the function twice on the static input (the warm-up,
-    then the capture); each replay copies its input into the static one,
-    replays the graph and calls the function never."""
+    """A capture runs the function twice on the static inputs (the warm-up,
+    then the capture); each replay copies its inputs (images and shapes)
+    into the static ones, replays the graph and calls the function never."""
     calls = []
 
-    def fn(x):
-        calls.append(x)
-        return (x * 2,)
+    def fn(x, shapes):
+        calls.append((x, shapes))
+        return (x * 2, shapes + 1)
 
-    a, b = batch(4)[0], batch(5)[0]
-    g = graphs.FeatureGraph(fn, a)
-    assert len(calls) == 2 and all(c is g.static_in for c in calls)
+    (a, sa, _), b, sb = batch(4), batch(5)[0], torch.tensor([[40.0, 70.0]])
+    g = graphs.FeatureGraph(fn, a, sa)
+    assert len(calls) == 2 and all(x is g.static_in[0] and s is g.static_in[1]
+                                   for x, s in calls)
     assert g.graph.replays == 0
     assert dict(counts) == {"capture": 1, "replay": 0, "eager": 0}
-    out = g.replay(b)
-    assert out is g.outputs and torch.equal(g.static_in, b) and g.graph.replays == 1
-    g.replay(a)
-    assert torch.equal(g.static_in, a) and len(calls) == 2 and g.graph.replays == 2
+    out = g.replay(b, sb)
+    assert out is g.outputs and g.graph.replays == 1
+    assert torch.equal(g.static_in[0], b) and torch.equal(g.static_in[1], sb)
+    g.replay(a, sa)
+    assert torch.equal(g.static_in[0], a) and torch.equal(g.static_in[1], sa)
+    assert len(calls) == 2 and g.graph.replays == 2
     assert dict(counts) == {"capture": 1, "replay": 2, "eager": 0}
 
 
 def test_one_graph_per_key_replayed(cpu_graphs, counts, monkeypatch):
     """With the device check passed, the first call at a key captures and
     replays, later calls at it replay, and another bucket gets a graph of
-    its own; the first replay's levels are the eager ones."""
+    its own; the first replay's levels and proposals are the eager ones."""
     model = init_detector(tiny(), device="cpu", seed=0)
     monkeypatch.setattr(model, "_eager_reason", lambda images: None)
-    land, port = batch(6)[0], batch(7, h=96, w=64)[0]
+    (land, shapes, _), port = batch(6), batch(7, h=96, w=64)
     with torch.inference_mode():
         eager = model._features(land)
-        got = model._levels(land)
+        got, props = model._levels(land, shapes)
         assert all(torch.equal(e, g) for e, g in zip(eager, got))
-        model._levels(land)
-        model._levels(port)
-        model._levels(land)
+        assert all(torch.equal(e, p) for e, p in zip(model._proposals(eager, shapes), props))
+        model._levels(land, shapes)
+        model._levels(*port[:2])
+        model._levels(land, shapes)
     assert len(model._graphs) == 2
     assert dict(counts) == {"capture": 2, "replay": 4, "eager": 0}
 
@@ -298,26 +304,42 @@ def test_which_card_calls_replay(cuda, bench_model):
     assert model._eager_reason(images) == "autograd"
 
 
+def replayed(model, images, shapes):
+    """Clones of a replay's levels and proposals."""
+    levels, props = model._levels(images, shapes)
+    return [t.clone() for t in levels], [t.clone() for t in props]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bucket", [0, 1], ids=["landscape", "portrait"])
 @pytest.mark.parametrize("bench_model", PRESETS, indirect=True)
 def test_replayed_levels_are_the_eager_levels(cuda, counts, bench_model, bucket):
     """At each bucket the first call captures and replays, the second
-    replays: both give `neck(backbone(x))` bit for bit; a second image at
-    the same key gets its own levels, not the first one's."""
+    replays: both give `neck(backbone(x))` and the eager proposals on it
+    bit for bit; a second image at the same key, resized to another size
+    inside the bucket, gets its own levels and its own proposals (the image
+    shapes are an input of the graph, not a constant of it)."""
     model, buckets = bench_model
     h, w = buckets[bucket]
-    one, two = batch(1, h=h, w=w, dev=cuda)[0], batch(2, h=h, w=w, dev=cuda)[0]
+    (one, full, _), two = batch(1, h=h, w=w, dev=cuda), batch(2, h=h, w=w, dev=cuda)[0]
+    part = torch.tensor([[h - 150.0, w - 310.0]], device=cuda)
     model._drop_graphs()
     with torch.inference_mode():
-        first = [t.clone() for t in model._levels(one)]
-        again = [t.clone() for t in model._levels(one)]
-        other = [t.clone() for t in model._levels(two)]
+        first = replayed(model, one, full)
+        again = replayed(model, one, full)
+        other = replayed(model, two, part)
         want_one, want_two = eager_levels(model, one), eager_levels(model, two)
+        props_one = model._proposals(want_one, full)
+        props_two = model._proposals(want_two, part)
     torch.cuda.synchronize()
     assert dict(counts) == {"capture": 1, "replay": 3, "eager": 0}
-    assert same(first, want_one) and same(again, want_one)
-    assert same(other, want_two) and not same(other, want_one)
+    assert same(first[0], want_one) and same(again[0], want_one)
+    assert same(first[1], props_one) and same(again[1], props_one)
+    assert same(other[0], want_two) and not same(other[0], want_one)
+    assert same(other[1], props_two) and not same(props_two, props_one)
+    boxes, valid = other[1][0], other[1][2]
+    assert valid.sum() > 0
+    assert boxes[..., 2].max() <= w - 310.0 and boxes[..., 3].max() <= h - 150.0
 
 
 @pytest.mark.cuda
@@ -326,11 +348,11 @@ def test_alternating_buckets_give_their_own_levels(cuda, counts, bench_model):
     """Buckets A, B, A, B replay two graphs in turns, each with its own
     pool: every call's levels are its own eager levels."""
     model, buckets = bench_model
-    imgs = [batch(3 + i, h=h, w=w, dev=cuda)[0] for i, (h, w) in enumerate(buckets)]
+    imgs = [batch(3 + i, h=h, w=w, dev=cuda)[:2] for i, (h, w) in enumerate(buckets)]
     model._drop_graphs()
     with torch.inference_mode():
-        got = [[t.clone() for t in model._levels(imgs[i % 2])] for i in range(4)]
-        want = [eager_levels(model, img) for img in imgs]
+        got = [replayed(model, *imgs[i % 2])[0] for i in range(4)]
+        want = [eager_levels(model, img) for img, _ in imgs]
     torch.cuda.synchronize()
     assert dict(counts) == {"capture": 2, "replay": 4, "eager": 0}
     assert all(same(g, want[i % 2]) for i, g in enumerate(got))
@@ -361,6 +383,68 @@ def test_detections_as_with_fresh_graphs_and_eager(cuda, counts, bench_model):
         for want in (fresh[i % 2], eager[i % 2]):
             assert all(np.array_equal(a, b) for a, b in zip(dets, want)), i
     assert all(len(d[1]) > 0 for d in replayed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bench_model", PRESETS, indirect=True)
+def test_a_replayed_request_runs_the_rpn_nms_in_the_graph(cuda, counts, bench_model,
+                                                          monkeypatch):
+    """A replayed request's trace holds the hard-NMS kernels of the RPN
+    (the mask and scan launches, once each), which the host never
+    launched: its only call of the hard-NMS launcher is post's, under hard
+    NMS (R-50 and DetectoRS R-50; soft-NMS in the DCN presets, one soft-NMS
+    kernel instead). A trace that lost a kernel record is taken again."""
+    from htd_tpu_torch.apis import inference_detector
+    from htd_tpu_torch.ops import nms_cuda
+    from htd_tpu_torch.utils.profiling import kernel_counts
+
+    model, _ = bench_model
+    img = np.random.default_rng(13).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    inference_detector(model, img)
+    torch.cuda.synchronize()
+    launched = []
+    launch_nms = nms_cuda.launch_nms
+    monkeypatch.setattr(nms_cuda, "launch_nms",
+                        lambda *args: (launched.append(args[0].shape[0]), launch_nms(*args))[1])
+    soft = model.cfg.rcnn_test.use_soft_nms
+    want = {"nms_mask_kernel": 2 - soft, "nms_scan_kernel": 2 - soft, "soft_nms_kernel": soft}
+
+    def request():
+        graphs.reset_graph_counts()
+        launched.clear()
+        return inference_detector(model, img)
+
+    (boxes, _, _), got = kernel_counts(request, want)
+    assert {k: got.get(k, 0) for k in want} == want
+    assert launched == ([] if soft else [2048])
+    assert dict(counts) == {"capture": 0, "replay": 1, "eager": 0}
+    assert len(boxes) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bench_model", PRESETS, indirect=True)
+def test_flip_tta_as_with_eager(cuda, counts, bench_model):
+    """`aug_inference_detector` at the test scale with flip, twice with the
+    graphs (the first call captures: the flipped image replays the key the
+    plain one captured, while the plain one's proposals are still held),
+    gives the detections of an eager call (a forward hook on the neck),
+    bit for bit."""
+    from htd_tpu_torch.apis import aug_inference_detector
+
+    model, _ = bench_model
+    img = np.random.default_rng(14).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    model._drop_graphs()
+    graphed = [aug_inference_detector(model, img, flip=True) for _ in range(2)]
+    assert counts["capture"] == 1 and counts["eager"] == 0 and counts["replay"] == 8
+    handle = model.neck.register_forward_hook(lambda m, args, out: None)
+    try:
+        eager = aug_inference_detector(model, img, flip=True)
+    finally:
+        handle.remove()
+    assert counts["eager"] == 4
+    assert len(eager[1]) > 0
+    for dets in graphed:
+        assert all(np.array_equal(a, b) for a, b in zip(dets, eager))
 
 
 @pytest.mark.cuda

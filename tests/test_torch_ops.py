@@ -220,6 +220,139 @@ def test_soft_nms_launcher_rejects_before_loading(monkeypatch, case, match):
         launch_soft_nms(boxes, scores, 0.5, 0.05, max_out)
 
 
+@pytest.mark.parametrize("case, match", [
+    ("cpu", "CUDA tensors"), ("boxes_shape", r"boxes \(N, 4\)"),
+    ("scores_shape", r"boxes \(N, 4\)"), ("too_many", "at most 131072"),
+    ("max_out", "max_out")])
+def test_hard_nms_launcher_rejects_before_loading(monkeypatch, case, match):
+    """`launch_nms` raises ValueError on what its kernels do not take (CPU
+    tensors, another shape, more boxes than the scan's shared words hold,
+    max_out < 1) before it sorts anything or loads the kernel library."""
+    from htd_tpu_torch.ops import _build
+    from htd_tpu_torch.ops.nms_cuda import launch_nms
+
+    def load():
+        raise AssertionError("the launcher loaded the library")
+
+    monkeypatch.setattr(_build, "load", load)
+    boxes, scores, max_out = torch.zeros(6, 4), torch.zeros(6), 5
+    if case == "boxes_shape":
+        boxes = torch.zeros(6, 5)
+    elif case == "scores_shape":
+        scores = torch.zeros(6, 1)
+    elif case == "too_many":
+        boxes, scores = torch.zeros(131073, 4), torch.zeros(131073)
+    elif case == "max_out":
+        max_out = 0
+    with pytest.raises(ValueError, match=match):
+        launch_nms(boxes, scores, 0.7, max_out)
+
+
+def _tile_scan(boxes, scores, thr, max_out):
+    """The hard-NMS kernels (csrc/nms.cu) step for step, in Python: the mask
+    launch's 64-bit words of the score-sorted boxes' suppressions (bit k of
+    row i's word w: box 64 w + k comes after i and IoU > thr, from
+    `_sorted_iou`), then the scan. The removed words start from the absent
+    boxes and those past N. At tile c the helpers OR the kept rows of tile
+    c - 1 into words c + 1 and on, while warp 0 takes the tile's keep set as
+    the fixpoint of its own suppressions from kept = open = ~(removed[c] |
+    carry), drops its highest boxes past `max_out`, and ORs the kept rows'
+    words c + 1 into the carry for the next tile; it stops at `max_out`."""
+    order = np.argsort(-scores, kind="stable")
+    sscores = scores[order]
+    n = len(order)
+    words = -(-n // 64)
+    sup = np.zeros((n, 64 * words), bool)
+    sup[:, :n] = np.triu((pnms._sorted_iou(torch.from_numpy(boxes[order])) > thr).numpy(), 1)
+    mask = np.packbits(sup, axis=1, bitorder="little").view("<u8")
+    absent = np.ones(64 * words, bool)
+    absent[:n] = ~(sscores > -np.inf)
+    removed = [int(w) for w in np.packbits(absent, bitorder="little").view("<u8")]
+    full = (1 << 64) - 1
+    keep, prev, carry = [], [], 0
+    for c in range(words):
+        for r in prev:
+            for w in range(c + 1, words):
+                removed[w] |= int(mask[r, w])
+        tile_open = ~(removed[c] | carry) & full
+        kept = tile_open
+        while True:
+            hit = 0
+            for k in range(64):
+                if kept >> k & 1:
+                    hit |= int(mask[64 * c + k, c])
+            step = tile_open & ~hit
+            if step == kept:
+                break
+            kept = step
+        while len(keep) + bin(kept).count("1") > max_out:
+            kept &= ~(1 << (kept.bit_length() - 1))
+        prev = [64 * c + k for k in range(64) if kept >> k & 1]
+        keep += prev
+        carry = 0
+        for r in prev:
+            carry |= int(mask[r, c + 1]) if c + 1 < words else 0
+        if len(keep) >= max_out:
+            break
+    idx = np.zeros(max_out, np.int64)
+    score = np.full(max_out, -np.inf, np.float32)
+    idx[:len(keep)] = order[keep]
+    score[:len(keep)] = sscores[keep]
+    return idx, score, score > -np.inf
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 300, 700])
+@pytest.mark.parametrize("max_out", [5, 1000])
+def test_tile_scan_is_the_fixpoint(rng, monkeypatch, n, max_out):
+    """On CPU tensors `nms` runs `nms_plain` (the launcher is never called),
+    and the kernels' algorithm, modelled step for step by `_tile_scan` (each
+    tile's own fixpoint, the carry into the next tile, the helpers' ORs a
+    tile behind, the cut at `max_out`), gives its outputs at sizes that are
+    and are not whole tiles, with ties, absent entries and chains of
+    suppressions, stopping early or not."""
+    from htd_tpu_torch.ops import nms_cuda
+
+    def launch_nms(*args):
+        raise AssertionError("CPU tensors reached the hard-NMS kernels' launcher")
+
+    monkeypatch.setattr(nms_cuda, "launch_nms", launch_nms)
+    boxes = _boxes(rng, n, span=120)
+    scores = _tied_scores(rng, n)
+    got = pnms.nms(t(boxes), t(scores), 0.5, max_out)
+    for a, b in zip(got, pnms.nms_plain(t(boxes), t(scores), 0.5, max_out)):
+        assert torch.equal(a, b)
+    for a, b in zip(got, _tile_scan(boxes, scores, 0.5, max_out)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    kept = int(got[2].sum())
+    assert kept <= max_out and (kept > 0 or n == 1)
+    assert kept == max_out or n < 300 or max_out == 1000   # the scan stopped early
+
+
+def test_coder_consts_are_made_once_and_kept(monkeypatch):
+    """The box coder's constants are made at their first use, in the one
+    `htd.sync.box_coder` span, then kept and handed out again: one tensor
+    per (values, dtype, device), made outside inference mode even when
+    first used inside it, so that autograd may save it (a decode whose
+    deltas need a gradient)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setattr(pboxes, "_CODER_CONSTS", {})
+    stds, deltas = (0.1, 0.1, 0.2, 0.2), torch.randn(7, 4)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.inference_mode():
+            first = pboxes._coder_consts(stds, deltas)
+        again = pboxes._coder_consts(list(stds), deltas)
+        other = pboxes._coder_consts(stds, deltas.double())
+    spans = [e for e in prof.events() if e.name == "htd.sync.box_coder"]
+    assert len(spans) == 2 and len(pboxes._CODER_CONSTS) == 2
+    assert again is first and other is not first and not first.is_inference()
+    assert torch.equal(first, torch.tensor(stds))
+    rois = t(_boxes(np.random.RandomState(0), 7))
+    d = deltas.clone().requires_grad_(True)
+    pboxes.delta2bbox(rois, d, (0.0, 0.0, 0.0, 0.0), stds).sum().backward()
+    assert d.grad is not None and torch.isfinite(d.grad).all()
+
+
 def test_roi_extractor_impl_names(rng):
     """Every RoIAlign implementation name of the JAX package gives the same
     output (one RoIAlign in the port); any other name raises, as in

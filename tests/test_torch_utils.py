@@ -103,7 +103,7 @@ def test_kernels_are_the_global_functions_of_csrc():
     csrc = Path(profiling.__file__).resolve().parent.parent / "csrc"
     pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
     found = {name for src in csrc.glob("*.cu*") for name in pattern.findall(src.read_text())}
-    assert len(found) == 14
+    assert len(found) == 16
     assert found == profiling.KERNELS
 
 
